@@ -1,0 +1,134 @@
+"""Batched on-device eval preprocessing: crop, normalise, label.
+
+Port of the eval half of hand_integral_pose_estimation_tpu/data/pipeline.py
+(the reference's per-sample `DatasetLoader.__getitem__`, data/dataset.py:
+83-245, with `generate_patch_image`, common/augment.py:358-413). The JAX
+package vmaps a per-sample function; here the same math runs on a leading
+batch dimension. `make_train_batch` waits for the training slice.
+
+Normalisation quirk kept for parity: the reference feeds ~[0, 255]-scale
+pixels to the network (dataset.py:153-154, base.py:137), and so does this.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from hand_integral_pose_estimation_tpu_torch.config import AugmentConfig
+from hand_integral_pose_estimation_tpu_torch.geometry import (
+    bbox as bbox_mod,
+    camera,
+    labels as lbl,
+    transforms,
+)
+from hand_integral_pose_estimation_tpu_torch.ops.warp import (
+    warp_perspective_batch,
+)
+
+
+class Batch(NamedTuple):
+    """What the eval step and the evaluator consume (the reference's
+    `params` dict, dataset.py:177-240, as fixed-shape tensors)."""
+
+    image: Optional[torch.Tensor]      # (B, 224, 224, 3) normalised patch
+    label: torch.Tensor                # (B, J, 3) encoded GT label
+    label_weight: torch.Tensor         # (B, J, 3)
+    label_teacher: torch.Tensor        # (B, J, 3) pseudo-label (or zeros)
+    labelled: torch.Tensor             # (B,) bool
+    R: torch.Tensor                    # (B, 3, 3) augmentation rotation
+    K: torch.Tensor                    # (B, 3, 3)
+    joint_cam: torch.Tensor            # (B, J, 3)
+    joint_cam_normalized: torch.Tensor  # (B, J, 3)
+    tprime: torch.Tensor               # (B,)
+    trans: torch.Tensor                # (B, 3, 3) image -> patch
+    trans_inv: torch.Tensor            # (B, 3, 3) patch -> image
+    bbox: torch.Tensor                 # (B, 4)
+    ref_bone_len: torch.Tensor         # (B,)
+
+
+def _channel_constant(values, like: torch.Tensor) -> torch.Tensor:
+    """(C,) tensor of `values` on `like`'s device, written by fill kernels:
+    a blocking host-to-device copy would wait for the stream to drain."""
+    return torch.stack([torch.full((), float(v), dtype=like.dtype,
+                                   device=like.device) for v in values])
+
+
+def _normalise(patch: torch.Tensor, color_scale: torch.Tensor,
+               acfg: AugmentConfig) -> torch.Tensor:
+    mean = _channel_constant(acfg.pixel_mean, patch)
+    std = _channel_constant(acfg.pixel_std, patch)
+    return torch.clamp((patch - mean) / std * color_scale, 0.0, 255.0)
+
+
+def _resolve_bbox(joint_cam, R, K, bbox_detector, pad_factor):
+    """The detector box if given, else the box of the projected (rotated)
+    joints (augment.py:376-382)."""
+    if bbox_detector is not None:
+        return bbox_detector
+    uv, _, _ = camera.project_points(joint_cam, R, K)
+    return bbox_mod.bbox_from_keypoints(uv, torch.ones_like(uv[..., 0]),
+                                        pad_factor=pad_factor)
+
+
+def _labels_one(jc, K, bb_det, teacher_jcn, R, acfg: AugmentConfig,
+                patch_hw):
+    """Label and geometry pass for a batch (the JAX package vmaps it per
+    sample): patch labels, the teacher label under the same augmentation,
+    the crop box and the one composed homography image -> rotated image ->
+    patch."""
+    ph, pw = patch_hw
+    bb = _resolve_bbox(jc, R, K, bb_det, acfg.pad_factor)
+    out = lbl.compute_patch_labels(
+        jc, R, K, bb, patch_width=pw, patch_height=ph, scale=acfg.scale,
+        scaling_constant=acfg.scaling_constant)
+    H_total = out.trans @ transforms.rotation_homography(K, R)
+    if teacher_jcn is None:
+        label_teacher = torch.zeros_like(out.label)
+    else:
+        label_teacher = lbl.compute_patch_labels_from_normalized(
+            teacher_jcn, out.tprime, R, K, bb, patch_width=pw,
+            patch_height=ph, scale=acfg.scale)
+    return out, label_teacher, bb, H_total
+
+
+def make_eval_batch(images: torch.Tensor, joint_cam: torch.Tensor,
+                    K: torch.Tensor, bbox_detector: Optional[torch.Tensor],
+                    ref_bone_len: torch.Tensor,
+                    acfg: AugmentConfig = AugmentConfig(),
+                    patch_hw=(224, 224)) -> Batch:
+    """Deterministic test batch: R = I and no colour jitter (dataset.py:115).
+
+    images (B, H, W, 3) uint8 or float on the compute device; joint_cam
+    (B, J, 3), K (B, 3, 3), bbox_detector (B, 4) or None, ref_bone_len (B,)
+    on the same device. Geometry follows K's dtype; the patch is float32.
+    """
+    B, J = joint_cam.shape[0], joint_cam.shape[1]
+    eye = torch.eye(3, dtype=K.dtype, device=K.device).expand(B, 3, 3)
+    out, _, bb, _ = _labels_one(joint_cam, K, bbox_detector, None, eye, acfg,
+                                patch_hw)
+    # R == I makes the rotation homography the identity, so the whole map is
+    # the axis-aligned crop affine `trans`: two matmuls suffice
+    patch = warp_perspective_batch(images.float(), out.trans, patch_hw,
+                                   method="affine")
+    patch = _normalise(patch, torch.ones(3, dtype=patch.dtype,
+                                         device=patch.device), acfg)
+    return Batch(
+        image=patch,
+        label=out.label,
+        label_weight=torch.ones(B, J, 3, dtype=patch.dtype,
+                                device=patch.device),
+        label_teacher=torch.zeros(B, J, 3, dtype=patch.dtype,
+                                  device=patch.device),
+        labelled=torch.ones(B, dtype=torch.bool, device=patch.device),
+        R=eye.clone(),
+        K=K,
+        joint_cam=joint_cam,
+        joint_cam_normalized=out.joint_cam_normalized,
+        tprime=out.tprime,
+        trans=out.trans,
+        trans_inv=out.trans_inv,
+        bbox=bb,
+        ref_bone_len=ref_bone_len,
+    )

@@ -1,0 +1,179 @@
+"""The port's pose-serving slice end to end on the CPU: the JAX package's
+Tester and the port's Tester sweep the same synthetic split with the same
+weights, and `evaluate_test_split` scores both; the CLI loads a reference
+snapshot natively; and the port imports and runs with jax, flax, optax and
+orbax blocked."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hand_integral_pose_estimation_tpu.data.freihand import (
+    SyntheticFreiHand as JaxSynthetic,
+)
+from hand_integral_pose_estimation_tpu.evaluation import (
+    evaluate_test_split as jax_evaluate_test_split,
+)
+from hand_integral_pose_estimation_tpu.training import (
+    Tester as JaxTester,
+    create_train_state,
+)
+from hand_integral_pose_estimation_tpu_torch.config import Config
+from hand_integral_pose_estimation_tpu_torch.data import SyntheticFreiHand
+from hand_integral_pose_estimation_tpu_torch.evaluation import (
+    evaluate_test_split,
+)
+from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
+from hand_integral_pose_estimation_tpu_torch import training
+from test_torch_pose_net import (
+    port_model,
+    randomized_jax_variables,
+    small_config,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _dataset(cls):
+    return cls(n=5, image_hw=(64, 64), seed=3, render_joints=True)
+
+
+@pytest.mark.parametrize("fuse_head", [True, False])
+def test_tester_and_metrics_match_jax(fuse_head):
+    """R18 at 64x64, 5 samples at batch 2 (the tail batch padded). Both
+    packages compute in float32 from the same pixels and weights; measured
+    agreement is ~2e-6 on coords and ~1e-6 relative on the metrics, so
+    1e-5 and 1e-4 leave room for summation order and still catch any
+    geometry or decode fault."""
+    cfg = Config(model=small_config(18))
+    # the images are 0..255-scale pixels, 100x the pose-net test's input
+    net, variables = randomized_jax_variables(cfg.model, seed=18,
+                                              final_scale=1e-4)
+    state, _ = create_train_state(net, jax.random.PRNGKey(0),
+                                  jnp.zeros((1, 64, 64, 3)), cfg.train)
+    state = dataclasses.replace(state, params=variables["params"],
+                                batch_stats=variables["batch_stats"])
+    want_coords, want_batch = JaxTester(
+        cfg, _dataset(JaxSynthetic), state, integral_impl="xla",
+        native_prefetch=False).run(batch_size=2)
+    tester = training.Tester(cfg, _dataset(SyntheticFreiHand),
+                             port_model(cfg.model, variables), device="cpu",
+                             fuse_head=fuse_head)
+    coords, batch = tester.run(batch_size=2)
+
+    assert coords.shape == (5, 21, 3) and batch.image is None
+    np.testing.assert_allclose(coords, want_coords, atol=1e-5)
+    for name in ("label", "joint_cam", "trans_inv", "tprime", "K", "R",
+                 "ref_bone_len", "bbox"):
+        np.testing.assert_allclose(getattr(batch, name),
+                                   np.asarray(getattr(want_batch, name)),
+                                   rtol=1e-6, atol=1e-6, err_msg=name)
+    got = evaluate_test_split(coords, batch)
+    want = jax_evaluate_test_split(want_coords, want_batch)
+    for key in ("pa_mpjpe", "mpjpe"):
+        assert np.isfinite(got[key])
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-4)
+    # padding must not change the loss: a batch size that divides n agrees
+    np.testing.assert_allclose(tester.mean_loss(2), tester.mean_loss(5),
+                               rtol=1e-5)
+
+
+def _snapshot_model():
+    return get_pose_net(Config().model,
+                        generator=torch.Generator().manual_seed(5))
+
+
+def test_cli_loads_reference_snapshot(tmp_path):
+    """cli.test --torch-snapshot loads a reference snapshot_*.pth (the
+    trainer's {"epoch", "network"} envelope with DataParallel's "module."
+    prefix) natively and evaluates it; the result is the in-process
+    Tester's on the same weights, and the artifacts are written."""
+    from hand_integral_pose_estimation_tpu_torch.cli import test as cli_test
+
+    model = _snapshot_model()
+    path = str(tmp_path / "snapshot_3.pth")
+    torch.save({"epoch": 3, "network": {f"module.{k}": v for k, v in
+                                        model.state_dict().items()}}, path)
+    result_dir = str(tmp_path / "result")
+    summary = cli_test.main(["--synthetic", "--synthetic-size", "3",
+                             "--batch-size", "2", "--torch-snapshot", path,
+                             "--device", "cpu", "--result-dir", result_dir])
+    coords, batch = training.Tester(Config(), SyntheticFreiHand(n=3), model,
+                                    device="cpu").run(batch_size=2)
+    want = evaluate_test_split(coords, batch)
+    assert summary["pa_mpjpe"] == want["pa_mpjpe"]
+    assert summary["mpjpe"] == want["mpjpe"]
+    for name in ("ground_truth_test.npy", "pred.npy", "pred_procr.npy",
+                 "eval_result.txt"):
+        assert os.path.exists(os.path.join(result_dir, name)), name
+    with pytest.raises(SystemExit):
+        cli_test.main(["--device", "cpu"])
+
+
+NO_JAX_SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys
+
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax"}
+    assert not BLOCKED & {m.split(".")[0] for m in sys.modules}, \\
+        "the interpreter imported jax before the test began"
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+
+    import hand_integral_pose_estimation_tpu_torch as pkg
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+
+    from hand_integral_pose_estimation_tpu_torch.config import (
+        Config, ModelConfig)
+    from hand_integral_pose_estimation_tpu_torch.data import SyntheticFreiHand
+    from hand_integral_pose_estimation_tpu_torch.evaluation import (
+        evaluate_test_split)
+    from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
+    from hand_integral_pose_estimation_tpu_torch import training
+    from hand_integral_pose_estimation_tpu_torch.cli import test as cli_test
+    import torch
+
+    cfg = Config(model=ModelConfig(resnet_type=18, input_shape=(64, 64),
+                                   output_shape=(16, 16), depth_dim=8))
+    model = get_pose_net(cfg.model, torch.Generator().manual_seed(0))
+    for fuse in (True, False):
+        coords, batch = training.Tester(
+            cfg, SyntheticFreiHand(n=3, image_hw=(64, 64)), model,
+            device="cpu", fuse_head=fuse).run(2)
+        evaluate_test_split(coords, batch)
+    cli_test.main(["--synthetic", "--synthetic-size", "2", "--batch-size",
+                   "2", "--device", "cpu", "--result-dir", sys.argv[1]])
+    leaked = BLOCKED & {m.split(".")[0] for m in sys.modules}
+    assert not leaked, leaked
+    print("NO_JAX_OK", len(names))
+""")
+
+
+def test_port_runs_without_jax(tmp_path):
+    """Every module of the port imports, and the CPU slice (both head arms,
+    evaluation, the CLI) runs, with jax/flax/optax/orbax blocked by a
+    sys.meta_path finder in a fresh interpreter."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", NO_JAX_SCRIPT, str(tmp_path / "result")],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NO_JAX_OK" in proc.stdout
