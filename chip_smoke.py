@@ -1,34 +1,49 @@
-"""Smoke test of the PyTorch / CUDA port's pose-serving path on one GPU.
+"""Smoke test of the PyTorch / CUDA port on one GPU: the pose-serving path
+and the pose-training path.
 
     python3 chip_smoke.py
 
-Four phases, each printing what it found; any failure exits non-zero
+Six phases, each printing what it found; any failure exits non-zero
 before the result line.
 
 1. device: requires CUDA (there is no CPU fallback), prints the card, its
    power limit, the torch and CUDA versions and the TF32 switches (both set
    off, so float32 matmuls and convs run in full float32);
-2. build: compiles the CUDA kernels from `csrc/` and prints the seconds;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving shapes and at a small ragged shape;
-4. slice: the flagship model (ModelConfig(): ResNet-50, 224x224, bf16,
+2. build: compiles the CUDA kernels from `csrc/` (one nvcc per source, all
+   at once) and prints the seconds;
+3. kernels: each of the five kernels against its plain PyTorch version on
+   the card, at the shapes of the two paths and at small ragged shapes;
+4. serving: the flagship model (ModelConfig(): ResNet-50, 224x224, bf16,
    21 joints x 56 depth x 56x56) with seeded random weights sweeps 80
    synthetic samples through `Tester.run` at batch 32 (three batches, the
    last padded) on both head arms, then `evaluate_test_split`; it checks
    the launch counts, the finite metrics and the coords against the plain
-   head, and times the slice and both kernels with CUDA events.
+   head, and times the slice;
+5. training: `Trainer.fit` at ModelConfig() and batch 32 on
+   SyntheticFreiHand(render_joints=True) takes a few steps on each head
+   arm; it checks the launch counts per step (the warp on both arms, the
+   fused head's forward and backward or the soft-argmax's), the finite
+   losses, the snapshot it writes, and on one batch the kernel-backed
+   step's gradients against a plain-backed step's from the same state;
+   then it times the train step on both arms;
+6. timing: each kernel against its plain version with CUDA events, in
+   turns (plain, kernel, kernel, plain), at the paths' shapes.
 
-The line before the last is the card's name and power limit; the last line
-is the JSON result.
+Each path's launch counts start from 0 just before the path runs and are
+read just after it; the launches in the kernels line are their sum. The
+line before the last is the card's name and power limit; the last line is
+the JSON result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,12 +52,30 @@ import torch
 BATCH = 32
 N_SAMPLES = 80
 SEED = 0
+# training steps per arm in the counted run, and steps per timing reading;
+# (f) kept small so that the whole script, builds included, stays far
+# inside its time limit (about 40 s of command time on an H100)
+TRAIN_STEPS = 3
+TIME_STEPS = 10
 # Coords are means of positions in [-0.5, 0.5] weighted by softmax terms
 # that kernel and plain version compute from the same float32 logits; only
 # the summation order differs (~1e-6 relative over 175k terms), so 1e-4 is
 # far from both the noise and any indexing or scaling fault.
 COORD_TOL = 1e-4
 S_REL_TOL = 1e-4
+# The backward kernels fold the per-channel constants where the plain
+# versions form p * sum cot (g - c), and the fused one recomputes the
+# logits with float32 FMAs where the plain version runs cuBLAS: float32
+# numbers combined in another order. Held to 1e-5 (soft-argmax) and 1e-4
+# (fused head, sums over 1176 channels or 100k rows) of the largest entry,
+# plus one bf16 ulp (2^-8 relative) where the result is bf16.
+GRAD_ABS_SCALE = {"softmax_integral_bwd": 1e-5,
+                  "head_projection_integral_bwd": 1e-4}
+GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+# The warp kernel forms the plain version's float32 source positions with
+# the same rounded operations and takes the same two taps: 1e-3 on the
+# 0..255 pixel scale.
+WARP_TOL = 1e-3
 # The unfused arm decodes the bf16 heatmap of the bf16 final conv, where
 # the fused arm forms float32 logits from float32 weights. bf16 keeps 8
 # bits: at logit magnitudes up to ~30 the rounding moves a logit by up to
@@ -50,6 +83,22 @@ S_REL_TOL = 1e-4
 # peaks far apart can move by that share of their distance.
 ARMS_MEAN_TOL = 1e-2
 ARMS_MAX_TOL = 0.1
+# Train-step gradients, kernel-backed vs plain-backed decode, as
+# ||g_kernel - g_plain|| / ||g_plain|| per parameter leaf and for the whole
+# gradient. The two decodes' gradients agree to float32 rounding. At
+# float32 compute (same widths, TF32 off) that difference propagates as
+# such: 1e-4 whole; a leaf whose gradient is a sum that cancels (the stem
+# BatchNorm's bias sums over 32 x 112^2 positions) amplifies it up to
+# ~1000x: 1e-3 per leaf. Under bf16 autocast every conv rounds the
+# incoming gradient to 8 bits, so a difference in the last float32 bits
+# flips roundings layer after layer down the 50 layers: 5e-2 whole and
+# 0.25 per leaf. Beside it the script prints the same distance for a plain
+# decode run in float64, which differs from the float32 one only by
+# rounding.
+GRAD_LEAF_REL_F32 = 1e-3
+GRAD_TOTAL_REL_F32 = 1e-4
+GRAD_LEAF_REL_BF16 = 0.25
+GRAD_TOTAL_REL_BF16 = 5e-2
 # logit spread the head is scaled to, so each joint's softmax is peaked
 LOGIT_STD = 6.0
 
@@ -100,6 +149,30 @@ def compare(name, kernel_fn, plain_fn):
     return e_c
 
 
+def compare_grads(name, kernel_fn, plain_fn, abs_scale):
+    """Run a backward kernel, synchronise, run its plain version; every
+    output is held to GRAD_REL of its dtype plus abs_scale of its largest
+    plain entry. Returns the max abs error over the outputs."""
+    got = kernel_fn()
+    torch.cuda.synchronize()
+    want = plain_fn()
+    worst = 0.0
+    for i, (gk, wk) in enumerate(zip(got, want)):
+        atol = abs_scale * float(wk.float().abs().max())
+        diff = (gk.float() - wk.float()).abs()
+        excess = float((diff - atol - GRAD_REL[gk.dtype]
+                        * wk.float().abs()).max())
+        e = float(diff.max())
+        worst = max(worst, e)
+        ok = gk.dtype == wk.dtype and gk.shape == wk.shape and excess <= 0
+        print(f"[kernels] {name} output {i} {tuple(gk.shape)} {gk.dtype}: "
+              f"max|d| {e:.3e} (atol {atol:.3e} + rtol "
+              f"{GRAD_REL[gk.dtype]:g}) {'ok' if ok else 'FAILED'}",
+              flush=True)
+        check(ok, f"{name} output {i} disagrees with its plain version")
+    return worst
+
+
 def time_pair(kernel_fn, plain_fn, iters=10):
     """Kernel vs plain version in turns (plain, kernel, kernel, plain)."""
     for fn in (kernel_fn, plain_fn):
@@ -110,6 +183,120 @@ def time_pair(kernel_fn, plain_fn, iters=10):
     k2 = event_ms(kernel_fn, iters)
     p2 = event_ms(plain_fn, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def homographies(B, g, dev):
+    """Rotation, anisotropic scale, translation and a little perspective,
+    as the augmentation's crop-after-rotation maps are."""
+    a = (torch.rand(B, generator=g, device=dev) - 0.5) * 1.0
+    sc = 0.7 + 0.6 * torch.rand(B, 2, generator=g, device=dev)
+    H = torch.zeros(B, 3, 3, device=dev)
+    H[:, 0, 0] = sc[:, 0] * torch.cos(a)
+    H[:, 0, 1] = -sc[:, 1] * torch.sin(a)
+    H[:, 1, 0] = sc[:, 0] * torch.sin(a)
+    H[:, 1, 1] = sc[:, 1] * torch.cos(a)
+    H[:, :2, 2] = 6 * torch.randn(B, 2, generator=g, device=dev)
+    H[:, 2, :2] = 2e-4 * torch.randn(B, 2, generator=g, device=dev)
+    H[:, 2, 2] = 1.0
+    return H
+
+
+def scale_projection(model, images) -> None:
+    """The reference init N(0, 0.001) leaves every joint's softmax flat and
+    every decode near 0, where a broken kernel would still pass: scale the
+    projection to a LOGIT_STD logit spread on these images instead, with
+    the model in the mode it will run in."""
+    with torch.no_grad():
+        feats = model(images, return_features=True).float()
+        rms = float(feats.pow(2).sum(-1).mean().sqrt())
+    with torch.no_grad():
+        final = model.head.final_layer
+        final.weight.normal_(0.0, LOGIT_STD / rms,
+                             generator=torch.Generator(
+                                 images.device).manual_seed(SEED))
+        final.bias.zero_()
+
+
+def plain_decode(fuse: bool, dtype=None):
+    """model, images -> coords through the plain decode: autograd
+    differentiates its torch operations, no custom backward runs. With
+    `dtype` the decode runs in that dtype (its gradient rounds back to the
+    model's)."""
+    from hand_integral_pose_estimation_tpu_torch.ops.fused_head import (
+        head_projection_integral_reference,
+    )
+    from hand_integral_pose_estimation_tpu_torch.ops.integral import (
+        softmax_integral_reference,
+    )
+
+    def cast(x):
+        return x if dtype is None else x.to(dtype)
+
+    def decode(model, images):
+        J, D = model.cfg.num_joints, model.cfg.depth_dim
+        if fuse:
+            feats = model(images, return_features=True)
+            w, b = model.final_projection()
+            return head_projection_integral_reference(
+                cast(feats), cast(w), cast(b), J, D)[0]
+        return softmax_integral_reference(cast(model(images)), J, D)[0]
+
+    return decode
+
+
+def gradient_check(name, trainer, batch, fuse, leaf_tol, total_tol):
+    """From the trainer's current state and one batch: the gradients of a
+    plain-backed step (plain decode, then the same combined loss), of one
+    whose plain decode runs in float64 (the same math rounded otherwise:
+    the noise floor), and of the kernel-backed train step. Checks the loss,
+    and the kernel-backed gradient against the plain one per leaf
+    (leaf_tol) and whole (total_tol)."""
+    from hand_integral_pose_estimation_tpu_torch import losses
+
+    model, cfg = trainer.model, trainer.cfg
+    params = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    ph, pw = cfg.model.input_shape
+
+    def plain(decode):
+        model.train()
+        out = losses.combined_loss(
+            decode(model, batch.image), batch.label_teacher, batch.label,
+            batch.label_weight, batch.labelled, batch.trans_inv,
+            batch.tprime, batch.K, lam=cfg.train.lam, patch_width=pw,
+            patch_height=ph)
+        return out.loss.detach(), torch.autograd.grad(out.loss, params)
+
+    def distance(ga, gb):
+        worst, worst_name = 0.0, ""
+        for n, a, b in zip(names, ga, gb):
+            ref = float(b.norm())
+            r = float((a - b).norm()) / ref if ref else float(a.norm())
+            if r > worst:
+                worst, worst_name = r, n
+        total = float(torch.cat([(a - b).flatten() for a, b in zip(ga, gb)])
+                      .norm()) / float(torch.cat([b.flatten() for b in gb])
+                                       .norm())
+        return total, worst, worst_name
+
+    loss_p, gp = plain(plain_decode(fuse))
+    _, g64 = plain(plain_decode(fuse, torch.float64))
+    loss_k = float(trainer.train_step(batch)["loss"])
+    gk = [p.grad for p in params]
+    total, worst, worst_name = distance(gk, gp)
+    f_total, f_worst, f_name = distance(g64, gp)
+    d_loss = abs(loss_k - float(loss_p))
+    print(f"[training] {name} arm, one batch from one state: loss "
+          f"{loss_k:.6f} kernel-backed vs {float(loss_p):.6f} plain (|d| "
+          f"{d_loss:.2e}); ||g_kernel - g_plain|| / ||g_plain|| whole "
+          f"{total:.3e} (tol {total_tol:g}), worst leaf {worst:.3e} "
+          f"({worst_name}, tol {leaf_tol:g}); float64-decode floor: whole "
+          f"{f_total:.3e}, worst leaf {f_worst:.3e} ({f_name})", flush=True)
+    check(d_loss <= 1e-4 * abs(float(loss_p)) + 1e-6,
+          f"{name}: kernel-backed loss disagrees with the plain one")
+    check(worst <= leaf_tol and total <= total_tol,
+          f"{name}: kernel-backed gradients disagree with the plain ones "
+          f"at {worst_name}")
 
 
 def main() -> None:
@@ -128,14 +315,27 @@ def main() -> None:
     from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
     from hand_integral_pose_estimation_tpu_torch.ops import kernels
     from hand_integral_pose_estimation_tpu_torch.ops.fused_head import (
+        head_projection_integral_bwd_cuda,
+        head_projection_integral_bwd_reference,
         head_projection_integral_cuda,
         head_projection_integral_reference,
     )
     from hand_integral_pose_estimation_tpu_torch.ops.integral import (
+        softmax_integral_bwd_cuda,
+        softmax_integral_bwd_reference,
         softmax_integral_cuda,
         softmax_integral_reference,
     )
-    from hand_integral_pose_estimation_tpu_torch.training import Tester
+    from hand_integral_pose_estimation_tpu_torch.ops.warp import (
+        warp_perspective_cuda,
+        warp_perspective_twopass,
+    )
+    from hand_integral_pose_estimation_tpu_torch.training import (
+        Tester,
+        Trainer,
+        compare_state_dicts,
+        load_checkpoint,
+    )
 
     # ---- 1. device
     card = card_line()
@@ -161,8 +361,13 @@ def main() -> None:
     J, D = cfg.model.num_joints, cfg.model.depth_dim
     Ho, Wo = cfg.model.output_shape
     F = cfg.model.deconv_channels
-    err = {"softmax_integral_fwd": 0.0, "head_projection_integral_fwd": 0.0}
-    for (B, H, W, j, d, f) in ((BATCH, Ho, Wo, J, D, F), (1, 8, 8, 3, 4, 40)):
+    IH, IW = cfg.model.input_shape
+    err = {name: 0.0 for name in (
+        "softmax_integral_fwd", "head_projection_integral_fwd",
+        "softmax_integral_bwd", "head_projection_integral_bwd",
+        "warp_twopass")}
+    for (B, H, W, j, d, f) in ((BATCH, Ho, Wo, J, D, F), (1, 8, 8, 3, 4, 40),
+                               (3, 7, 5, 2, 100, 40)):
         for dt in (torch.float32, torch.bfloat16):
             hm = (3 * torch.randn(B, H, W, j * d, device=dev,
                                   generator=g)).to(dt)
@@ -170,6 +375,16 @@ def main() -> None:
                         lambda: softmax_integral_cuda(hm, j, d),
                         lambda: softmax_integral_reference(hm, j, d))
             err["softmax_integral_fwd"] = max(err["softmax_integral_fwd"], e)
+            coords, m, s = softmax_integral_reference(hm, j, d)
+            cot = torch.randn(B, j, 3, device=dev, generator=g)
+            e = compare_grads(
+                f"softmax_integral_bwd {(B, H, W, j * d)} {dt}",
+                lambda: (softmax_integral_bwd_cuda(hm, m, s, coords, cot, j,
+                                                   d),),
+                lambda: (softmax_integral_bwd_reference(hm, m, s, coords,
+                                                        cot, j, d),),
+                GRAD_ABS_SCALE["softmax_integral_bwd"])
+            err["softmax_integral_bwd"] = max(err["softmax_integral_bwd"], e)
         feats = torch.randn(B, H, W, f, device=dev,
                             generator=g).to(torch.bfloat16)
         w = 0.3 * torch.randn(j * d, f, device=dev, generator=g)
@@ -181,25 +396,50 @@ def main() -> None:
                                                                d))
         err["head_projection_integral_fwd"] = max(
             err["head_projection_integral_fwd"], e)
+        coords, m, s = head_projection_integral_cuda(feats, w, b, j, d)
+        cot = torch.randn(B, j, 3, device=dev, generator=g)
+        e = compare_grads(
+            f"head_projection_integral_bwd {(B, H, W, f)}x{(j * d, f)} "
+            f"bf16/f32",
+            lambda: head_projection_integral_bwd_cuda(feats, w, b, m, s,
+                                                      coords, cot, j, d),
+            lambda: head_projection_integral_bwd_reference(feats, w, b, m, s,
+                                                           coords, cot, j, d),
+            GRAD_ABS_SCALE["head_projection_integral_bwd"])
+        err["head_projection_integral_bwd"] = max(
+            err["head_projection_integral_bwd"], e)
+        if B == BATCH:
+            again = head_projection_integral_bwd_cuda(feats, w, b, m, s,
+                                                      coords, cot, j, d)
+            first = head_projection_integral_bwd_cuda(feats, w, b, m, s,
+                                                      coords, cot, j, d)
+            same = all(torch.equal(x, y) for x, y in zip(first, again))
+            print(f"[kernels] head_projection_integral_bwd run twice: dW, db "
+                  f"and dfeat bitwise equal: {same}", flush=True)
+            check(same, "the fused-head backward is not deterministic")
+    for (B, Hs, Ws, C, Ho2, Wo2) in ((BATCH, IH, IW, 3, IH, IW),
+                                     (2, 37, 41, 3, 29, 33)):
+        images = 255 * torch.rand(B, Hs, Ws, C, device=dev, generator=g)
+        Hm = homographies(B, g, dev)
+        got = warp_perspective_cuda(images, Hm, (Ho2, Wo2))
+        torch.cuda.synchronize()
+        want = warp_perspective_twopass(images, Hm, (Ho2, Wo2))
+        e = float((got - want).abs().max())
+        print(f"[kernels] warp_twopass {(B, Hs, Ws, C)} -> {(Ho2, Wo2)}: "
+              f"max|d| {e:.3e} (tol {WARP_TOL:g}) "
+              f"{'ok' if e <= WARP_TOL else 'FAILED'}", flush=True)
+        check(e <= WARP_TOL and float(want.abs().sum()) > 0,
+              "the warp kernel disagrees with its plain version")
+        err["warp_twopass"] = max(err["warp_twopass"], e)
 
-    # ---- 4. the slice
+    # ---- 4. the serving slice
     model = get_pose_net(cfg.model,
                          generator=torch.Generator().manual_seed(SEED))
     dataset = SyntheticFreiHand(n=N_SAMPLES, render_joints=True, seed=SEED)
     fused = Tester(cfg, dataset, model, device=dev, fuse_head=True)
     unfused = Tester(cfg, dataset, model, device=dev, fuse_head=False)
     probe = fused.preprocess(dataset.host_batch(np.arange(BATCH)))
-    # the reference init N(0, 0.001) leaves every joint's softmax flat and
-    # every decode near 0, where a broken kernel would still pass: scale the
-    # projection to a LOGIT_STD logit spread instead
-    with torch.inference_mode():
-        feats = model(probe.image, return_features=True).float()
-        rms = float(feats.pow(2).sum(-1).mean().sqrt())
-    with torch.no_grad():
-        final = model.head.final_layer
-        final.weight.normal_(0.0, LOGIT_STD / rms,
-                             generator=torch.Generator(dev).manual_seed(SEED))
-        final.bias.zero_()
+    scale_projection(model, probe.image)
 
     for k in kernels.KERNELS:
         k.launches = 0
@@ -208,19 +448,19 @@ def main() -> None:
     coords_u, batch_u = unfused.run(batch_size=BATCH)
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
-    launches = {k.symbol: k.launches for k in kernels.KERNELS}
+    serving_launches = {k.symbol: k.launches for k in kernels.KERNELS}
     n_batches = math.ceil(N_SAMPLES / BATCH)
-    print(f"[slice] swept {N_SAMPLES} samples in {n_batches} batches of "
+    print(f"[serving] swept {N_SAMPLES} samples in {n_batches} batches of "
           f"{BATCH} per arm ({sweep_s:.2f} s host clock, first calls "
-          f"included); launches {launches}", flush=True)
-    check(kernels.HEAD_PROJECTION_INTEGRAL_FWD.launches == n_batches,
-          f"fused-head kernel launched "
-          f"{kernels.HEAD_PROJECTION_INTEGRAL_FWD.launches} times, expected "
-          f"{n_batches}")
-    check(kernels.SOFTMAX_INTEGRAL_FWD.launches == n_batches,
-          f"soft-argmax kernel launched "
-          f"{kernels.SOFTMAX_INTEGRAL_FWD.launches} times, expected "
-          f"{n_batches}")
+          f"included); launches {serving_launches}", flush=True)
+    check(serving_launches == {
+        kernels.HEAD_PROJECTION_INTEGRAL_FWD.symbol: n_batches,
+        kernels.SOFTMAX_INTEGRAL_FWD.symbol: n_batches,
+        kernels.SOFTMAX_INTEGRAL_BWD.symbol: 0,
+        kernels.HEAD_PROJECTION_INTEGRAL_BWD.symbol: 0,
+        kernels.WARP_TWOPASS.symbol: 0},
+        f"serving launches {serving_launches}, expected {n_batches} of each "
+        f"forward kernel and nothing else")
 
     for name, coords, batch in (("fused", coords_f, batch_f),
                                 ("unfused", coords_u, batch_u)):
@@ -230,7 +470,7 @@ def main() -> None:
         check(bool((np.abs(coords) <= 0.5).all()),
               f"{name} coords outside [-0.5, 0.5]")
         summary = evaluate_test_split(coords, batch)
-        print(f"[slice] {name} arm: PA-MPJPE {summary['pa_mpjpe']:.6f} m, "
+        print(f"[serving] {name} arm: PA-MPJPE {summary['pa_mpjpe']:.6f} m, "
               f"MPJPE {summary['mpjpe']:.6f} m, coords std "
               f"{coords.std():.4f}", flush=True)
         check(math.isfinite(summary["pa_mpjpe"])
@@ -248,22 +488,22 @@ def main() -> None:
     e_ref = float((got[0] - want[0]).abs().max())
     e_run = float(np.abs(got[0].cpu().numpy() - coords_f[:BATCH]).max())
     peak = float((1.0 / want[2]).median())
-    print(f"[slice] model + fused kernel vs model + plain head on batch 0: "
+    print(f"[serving] model + fused kernel vs model + plain head on batch 0: "
           f"max|d coords| {e_ref:.3e} (tol {COORD_TOL:g}); vs the sweep "
           f"{e_run:.3e}; median peak softmax mass 1/s {peak:.3f}", flush=True)
     check(e_ref <= COORD_TOL and e_run <= COORD_TOL,
           "fused kernel disagrees with the plain head on the model")
     d_arms = np.abs(coords_f - coords_u)
-    print(f"[slice] unfused (bf16 heatmap) vs fused arm: mean|d| "
+    print(f"[serving] unfused (bf16 heatmap) vs fused arm: mean|d| "
           f"{d_arms.mean():.3e} (tol {ARMS_MEAN_TOL:g}), max|d| "
           f"{d_arms.max():.3e} (tol {ARMS_MAX_TOL:g})", flush=True)
     check(d_arms.mean() <= ARMS_MEAN_TOL and d_arms.max() <= ARMS_MAX_TOL,
           "unfused and fused arms disagree")
 
-    # ---- timing. One batch at a time between CUDA events (the device
-    # waits while the host issues the batch's ops), then 20 batches back to
-    # back on the host clock, ending in a synchronize (host issue overlaps
-    # device work). Host batches are already on the card.
+    # timing. One batch at a time between CUDA events (the device waits
+    # while the host issues the batch's ops), then 20 batches back to back
+    # on the host clock, ending in a synchronize (host issue overlaps device
+    # work). Host batches are already on the card.
     host = {k: (None if v is None else torch.from_numpy(
         np.ascontiguousarray(v)).to(dev))
         for k, v in dataset.host_batch(np.arange(BATCH)).items()}
@@ -280,7 +520,7 @@ def main() -> None:
         torch.cuda.synchronize()
         times = [event_ms(step, 1) for _ in range(20)]
         med = statistics.median(times)
-        print(f"[slice] {name} arm, crop + R50 + head + decode at batch "
+        print(f"[serving] {name} arm, crop + R50 + head + decode at batch "
               f"{BATCH}: median {med:.3f} ms/batch over {len(times)} "
               f"batches (min {min(times):.3f}, max {max(times):.3f}), "
               f"{BATCH / med * 1e3:.1f} img/s on {card}", flush=True)
@@ -289,10 +529,113 @@ def main() -> None:
             step()
         torch.cuda.synchronize()
         per = (time.perf_counter() - t0) / 20 * 1e3
-        print(f"[slice] {name} arm back to back: {per:.3f} ms/batch over 20 "
-              f"batches (host clock), {BATCH / per * 1e3:.1f} img/s on "
+        print(f"[serving] {name} arm back to back: {per:.3f} ms/batch over "
+              f"20 batches (host clock), {BATCH / per * 1e3:.1f} img/s on "
               f"{card}", flush=True)
+    del fused, unfused, model
 
+    # ---- 5. the training slice
+    train_data = SyntheticFreiHand(n=2 * BATCH, render_joints=True, seed=SEED)
+    train_launches = {k.symbol: 0 for k in kernels.KERNELS}
+    for fuse in (True, False):
+        arm = "fused" if fuse else "unfused"
+        with tempfile.TemporaryDirectory() as model_dir:
+            trainer = Trainer(cfg, train_data, model_dir=model_dir,
+                              seed=SEED, device=dev, fuse_head=fuse)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            batch = trainer.preprocess(
+                gen, train_data.host_batch(np.arange(BATCH)))
+            check(batch.image.shape == (BATCH, IH, IW, 3)
+                  and bool(torch.isfinite(batch.image).all()),
+                  f"{arm}: the augmented batch is malformed")
+            scale_projection(trainer.model, batch.image)
+
+            # one batch, same state: the kernel-backed train step against
+            # a plain-backed one, on the bf16 path and at float32 compute
+            gradient_check(arm, trainer, batch, fuse, GRAD_LEAF_REL_BF16,
+                           GRAD_TOTAL_REL_BF16)
+            cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, compute_dtype="float32"))
+            trainer32 = Trainer(cfg32, train_data, model_dir=model_dir,
+                                seed=SEED, device=dev, fuse_head=fuse)
+            scale_projection(trainer32.model, batch.image)
+            gradient_check(arm + " float32", trainer32, batch, fuse,
+                           GRAD_LEAF_REL_F32, GRAD_TOTAL_REL_F32)
+            del trainer32
+            torch.cuda.empty_cache()
+
+            # the counted run: Trainer.fit, a few steps, one snapshot
+            step_losses = []
+            inner = trainer.train_step
+
+            def recording_step(b):
+                out = inner(b)
+                step_losses.append(out["loss"])
+                return out
+
+            trainer.train_step = recording_step
+            for k in kernels.KERNELS:
+                k.launches = 0
+            trainer.fit(end_epoch=1, steps_per_epoch=TRAIN_STEPS)
+            torch.cuda.synchronize()
+            counts = {k.symbol: k.launches for k in kernels.KERNELS}
+            trainer.train_step = inner
+            for k, v in counts.items():
+                train_launches[k] += v
+            fwd, bwd = ((kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+                         kernels.HEAD_PROJECTION_INTEGRAL_BWD) if fuse else
+                        (kernels.SOFTMAX_INTEGRAL_FWD,
+                         kernels.SOFTMAX_INTEGRAL_BWD))
+            want_counts = {k.symbol: (TRAIN_STEPS if k in (
+                fwd, bwd, kernels.WARP_TWOPASS) else 0)
+                for k in kernels.KERNELS}
+            losses_host = [float(v) for v in step_losses]
+            print(f"[training] {arm} arm: Trainer.fit took {TRAIN_STEPS} "
+                  f"steps at batch {BATCH}, losses "
+                  f"{[round(v, 5) for v in losses_host]}, launches {counts}",
+                  flush=True)
+            check(counts == want_counts, f"{arm}: launches {counts}, "
+                  f"expected {want_counts}")
+            check(len(losses_host) == TRAIN_STEPS
+                  and all(math.isfinite(v) for v in losses_host),
+                  f"{arm}: losses {losses_host}")
+            restored = get_pose_net(cfg.model)
+            epoch = load_checkpoint(model_dir, restored)
+            diff = compare_state_dicts(restored.state_dict(),
+                                       trainer.model.state_dict())
+            print(f"[training] {arm} arm: snapshot_{epoch} reloads with max "
+                  f"|d| {diff:g} against the trained state", flush=True)
+            check(epoch == 0 and diff == 0.0, f"{arm}: snapshot mismatch")
+
+            # timing: a fixed host batch augmented and stepped, one at a
+            # time between CUDA events; then the Trainer's own loop (host
+            # sampling, pinned copies, one sync per step) on the host clock
+            host_batch = train_data.host_batch(np.arange(BATCH))
+
+            def step():
+                trainer.train_step(trainer.preprocess(gen, host_batch))
+
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            times = [event_ms(step, 1) for _ in range(TIME_STEPS)]
+            med = statistics.median(times)
+            print(f"[training] {arm} arm, augment + R50 fwd/bwd + decode + "
+                  f"Adam at batch {BATCH}: median {med:.3f} ms/step over "
+                  f"{TIME_STEPS} steps (min {min(times):.3f}, max "
+                  f"{max(times):.3f}), {BATCH / med * 1e3:.1f} img/s on "
+                  f"{card}", flush=True)
+            t0 = time.perf_counter()
+            trainer.run_epoch(1, num_steps=TIME_STEPS)
+            torch.cuda.synchronize()
+            per = (time.perf_counter() - t0) / TIME_STEPS * 1e3
+            print(f"[training] {arm} arm, Trainer.run_epoch back to back: "
+                  f"{per:.3f} ms/step over {TIME_STEPS} steps (host clock), "
+                  f"{BATCH / per * 1e3:.1f} img/s on {card}", flush=True)
+            del trainer, batch
+            torch.cuda.empty_cache()
+
+    # ---- 6. kernel timings at the paths' shapes
     hm = (3 * torch.randn(BATCH, Ho, Wo, J * D, device=dev,
                           generator=g)).to(torch.bfloat16)
     hm32 = hm.float()
@@ -300,6 +643,11 @@ def main() -> None:
                         generator=g).to(torch.bfloat16)
     w = 0.1 * torch.randn(J * D, F, device=dev, generator=g)
     b = torch.randn(J * D, device=dev, generator=g)
+    cot = torch.randn(BATCH, J, 3, device=dev, generator=g)
+    c1, m1, s1 = softmax_integral_reference(hm, J, D)
+    c3, m3, s3 = head_projection_integral_cuda(feats, w, b, J, D)
+    images = 255 * torch.rand(BATCH, IH, IW, 3, device=dev, generator=g)
+    Hm = homographies(BATCH, g, dev)
     times = {
         "softmax_integral_fwd": time_pair(
             lambda: softmax_integral_cuda(hm, J, D),
@@ -307,33 +655,51 @@ def main() -> None:
         "head_projection_integral_fwd": time_pair(
             lambda: head_projection_integral_cuda(feats, w, b, J, D),
             lambda: head_projection_integral_reference(feats, w, b, J, D)),
+        "softmax_integral_bwd": time_pair(
+            lambda: softmax_integral_bwd_cuda(hm, m1, s1, c1, cot, J, D),
+            lambda: softmax_integral_bwd_reference(hm, m1, s1, c1, cot, J,
+                                                   D)),
+        "head_projection_integral_bwd": time_pair(
+            lambda: head_projection_integral_bwd_cuda(feats, w, b, m3, s3,
+                                                      c3, cot, J, D),
+            lambda: head_projection_integral_bwd_reference(
+                feats, w, b, m3, s3, c3, cot, J, D), iters=5),
+        "warp_twopass": time_pair(
+            lambda: warp_perspective_cuda(images, Hm, (IH, IW)),
+            lambda: warp_perspective_twopass(images, Hm, (IH, IW))),
     }
     k32, p32 = time_pair(lambda: softmax_integral_cuda(hm32, J, D),
                          lambda: softmax_integral_reference(hm32, J, D))
     for name, (k, p) in times.items():
-        print(f"[slice] {name} at the serving shape: kernel {k:.4f} ms, "
+        print(f"[timing] {name} at the paths' shape: kernel {k:.4f} ms, "
               f"plain {p:.4f} ms on {card}", flush=True)
-    print(f"[slice] softmax_integral_fwd with a float32 heatmap: kernel "
+    print(f"[timing] softmax_integral_fwd with a float32 heatmap: kernel "
           f"{k32:.4f} ms, plain {p32:.4f} ms on {card}", flush=True)
 
+    pkg = "hand_integral_pose_estimation_tpu_torch/csrc/"
+    ref = "hand_integral_pose_estimation_tpu/ops/"
     meta = {
-        "softmax_integral_fwd": (
-            "hand_integral_pose_estimation_tpu_torch/csrc/softmax_integral.cu",
-            "hand_integral_pose_estimation_tpu/ops/integral.py:75"),
+        "softmax_integral_fwd": (kernels.SOFTMAX_INTEGRAL_FWD,
+                                 "softmax_integral.cu", "integral.py:75"),
         "head_projection_integral_fwd": (
-            "hand_integral_pose_estimation_tpu_torch/csrc/"
-            "head_projection_integral.cu",
-            "hand_integral_pose_estimation_tpu/ops/fused_head.py:40"),
+            kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+            "head_projection_integral.cu", "fused_head.py:40"),
+        "softmax_integral_bwd": (kernels.SOFTMAX_INTEGRAL_BWD,
+                                 "softmax_integral_bwd.cu",
+                                 "integral.py:230"),
+        "head_projection_integral_bwd": (
+            kernels.HEAD_PROJECTION_INTEGRAL_BWD,
+            "head_projection_integral_bwd.cu", "fused_head.py:106"),
+        "warp_twopass": (kernels.WARP_TWOPASS, "warp_twopass.cu",
+                         "warp.py:156"),
     }
-    symbol = {"softmax_integral_fwd": kernels.SOFTMAX_INTEGRAL_FWD.symbol,
-              "head_projection_integral_fwd":
-                  kernels.HEAD_PROJECTION_INTEGRAL_FWD.symbol}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": meta[name][0],
-         "replaces": meta[name][1], "launches": launches[symbol[name]],
+        {"name": name, "route": "cuda", "source": pkg + src,
+         "replaces": ref + tpu,
+         "launches": serving_launches[k.symbol] + train_launches[k.symbol],
          "max_abs_err": err[name], "ms": times[name][0],
          "plain_ms": times[name][1]}
-        for name in meta]}), flush=True)
+        for name, (k, src, tpu) in meta.items()]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,11 +3,16 @@
 Sweeps the test split with a pose net, collects integral coords and runs
 the protocol #1 / #2 pipeline (PA-MPJPE / MPJPE) with its artifact dumps.
 Port of hand_integral_pose_estimation_tpu/cli/test.py for the synthetic
-split; the file-backed FreiHAND split and the package's own checkpoints
-come with later ports.
+split; the file-backed FreiHAND split comes with a later port.
 
     python -m hand_integral_pose_estimation_tpu_torch.cli.test --synthetic \
         --torch-snapshot snapshot_24.pth --device cuda
+    python -m hand_integral_pose_estimation_tpu_torch.cli.test --synthetic \
+        --model-dir output/model_dump [--epoch 3] --device cuda
+
+`--model-dir` evaluates a snapshot that `cli.train` wrote (the latest one
+unless `--epoch` names another); give it the `--pose-resnet` and
+`--pose-input` the model was trained with.
 """
 
 from __future__ import annotations
@@ -28,6 +33,12 @@ def build_argparser():
                    help="a reference ResPoseNet snapshot .pth (main/model.py "
                         "state_dict; {'network': ...} envelope and "
                         "DataParallel 'module.' prefix ok)")
+    p.add_argument("--model-dir", default=None,
+                   help="directory of cli.train's snapshot_{epoch}.pth.tar")
+    p.add_argument("--epoch", type=int, default=None,
+                   help="snapshot epoch under --model-dir (default: latest)")
+    p.add_argument("--pose-resnet", type=int, default=None)
+    p.add_argument("--pose-input", type=int, default=None)
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the fresh model's init when no snapshot "
                         "is given")
@@ -43,7 +54,9 @@ def main(argv=None):
 
     import torch
 
-    from hand_integral_pose_estimation_tpu_torch.config import Config
+    from hand_integral_pose_estimation_tpu_torch.cli.train import (
+        sized_config,
+    )
     from hand_integral_pose_estimation_tpu_torch.data import SyntheticFreiHand
     from hand_integral_pose_estimation_tpu_torch.evaluation import (
         evaluate_test_split,
@@ -52,15 +65,21 @@ def main(argv=None):
         load_pose_snapshot,
     )
     from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
-    from hand_integral_pose_estimation_tpu_torch.training import Tester
+    from hand_integral_pose_estimation_tpu_torch.training import (
+        Tester,
+        load_checkpoint,
+    )
 
-    cfg = Config()
+    cfg = sized_config(args.pose_resnet, args.pose_input)
     dataset = SyntheticFreiHand(n=args.synthetic_size)
     model = get_pose_net(cfg.model,
                          generator=torch.Generator().manual_seed(args.seed))
     if args.torch_snapshot:
         load_pose_snapshot(model, args.torch_snapshot)
         print(f"loaded reference snapshot {args.torch_snapshot}")
+    elif args.model_dir:
+        epoch = load_checkpoint(args.model_dir, model, epoch=args.epoch)
+        print(f"loaded snapshot_{epoch} from {args.model_dir}")
     else:
         print(f"no snapshot given: evaluating a fresh model (seed "
               f"{args.seed})")

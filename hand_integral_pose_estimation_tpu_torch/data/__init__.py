@@ -1,4 +1,5 @@
-"""Eval preprocessing and host-side dataset plumbing."""
+"""On-device preprocessing (eval and training) and host-side dataset
+plumbing."""
 
 from hand_integral_pose_estimation_tpu_torch.data.freihand import (  # noqa: F401
     SampleRecord,
@@ -9,4 +10,6 @@ from hand_integral_pose_estimation_tpu_torch.data.freihand import (  # noqa: F40
 from hand_integral_pose_estimation_tpu_torch.data.pipeline import (  # noqa: F401
     Batch,
     make_eval_batch,
+    make_train_batch,
+    make_train_batch_with,
 )

@@ -96,6 +96,11 @@ class SyntheticFreiHand:
     def __len__(self):
         return self.n
 
+    def sample_indices(self, rng: np.random.RandomState, batch_size: int,
+                       labelled_prob: Optional[float] = None) -> np.ndarray:
+        """Training batch indices, uniform with replacement."""
+        return rng.randint(0, self.n, batch_size)
+
     def host_batch(self, indices: np.ndarray) -> dict:
         i = np.asarray(indices)
         return {

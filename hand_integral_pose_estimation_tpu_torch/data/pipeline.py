@@ -1,10 +1,11 @@
-"""Batched on-device eval preprocessing: crop, normalise, label.
+"""Batched on-device preprocessing: augment, crop, normalise, label.
 
-Port of the eval half of hand_integral_pose_estimation_tpu/data/pipeline.py
-(the reference's per-sample `DatasetLoader.__getitem__`, data/dataset.py:
+Port of hand_integral_pose_estimation_tpu/data/pipeline.py (the
+reference's per-sample `DatasetLoader.__getitem__`, data/dataset.py:
 83-245, with `generate_patch_image`, common/augment.py:358-413). The JAX
 package vmaps a per-sample function; here the same math runs on a leading
-batch dimension. `make_train_batch` waits for the training slice.
+batch dimension. One composed homography (crop after rotation) resamples
+each training image once, through the two-pass warp (kernel 5 on the card).
 
 Normalisation quirk kept for parity: the reference feeds ~[0, 255]-scale
 pixels to the network (dataset.py:153-154, base.py:137), and so does this.
@@ -21,6 +22,7 @@ from hand_integral_pose_estimation_tpu_torch.geometry import (
     bbox as bbox_mod,
     camera,
     labels as lbl,
+    rotation,
     transforms,
 )
 from hand_integral_pose_estimation_tpu_torch.ops.warp import (
@@ -91,6 +93,76 @@ def _labels_one(jc, K, bb_det, teacher_jcn, R, acfg: AugmentConfig,
             teacher_jcn, out.tprime, R, K, bb, patch_width=pw,
             patch_height=ph, scale=acfg.scale)
     return out, label_teacher, bb, H_total
+
+
+def make_train_batch(generator: torch.Generator, images: torch.Tensor,
+                     joint_cam: torch.Tensor, K: torch.Tensor,
+                     bbox_detector: Optional[torch.Tensor],
+                     labelled: torch.Tensor,
+                     teacher_cam_normalized: Optional[torch.Tensor],
+                     ref_bone_len: torch.Tensor,
+                     acfg: AugmentConfig = AugmentConfig(),
+                     patch_hw=(224, 224)) -> Batch:
+    """Augmented training batch on the device (dataset.py:117-175 in
+    filtered-teacher mode): the GT label and the teacher label are made
+    under the SAME rotation, box and colour jitter.
+
+    `generator` lives on the compute device and draws every sample's
+    rotation (augment.py:252-280) and colour scale (augment.py:246-248);
+    the tensors are as `make_train_batch_with` takes them."""
+    B = images.shape[0]
+    R = rotation.sample_rotation_matrix(
+        generator, B, acfg.rot_prob, acfg.z_rot_range,
+        acfg.arbitrary_rot_range, dtype=K.dtype)
+    color = rotation.sample_color_scale(generator, B, acfg.color_factor)
+    return make_train_batch_with(R, color, images, joint_cam, K,
+                                 bbox_detector, labelled,
+                                 teacher_cam_normalized, ref_bone_len, acfg,
+                                 patch_hw)
+
+
+def make_train_batch_with(R: torch.Tensor, color: torch.Tensor,
+                          images: torch.Tensor, joint_cam: torch.Tensor,
+                          K: torch.Tensor,
+                          bbox_detector: Optional[torch.Tensor],
+                          labelled: torch.Tensor,
+                          teacher_cam_normalized: Optional[torch.Tensor],
+                          ref_bone_len: torch.Tensor,
+                          acfg: AugmentConfig = AugmentConfig(),
+                          patch_hw=(224, 224)) -> Batch:
+    """`make_train_batch` with the augmentation given: R (B, 3, 3) and the
+    colour scale (B, 3).
+
+    images (B, H, W, 3) uint8 or float; joint_cam (B, J, 3) camera-frame GT;
+    K (B, 3, 3); bbox_detector (B, 4) squared, padded detector boxes or None
+    to box the projected rotated joints; labelled (B,) bool;
+    teacher_cam_normalized (B, J, 3) cached pseudo-GT or None; ref_bone_len
+    (B,). All on one device; geometry follows K's dtype, the patch is
+    float32. The warp is the two-pass kernel on the card and its plain
+    version on the CPU (`warp_perspective_batch`'s "auto")."""
+    B, J = joint_cam.shape[0], joint_cam.shape[1]
+    out, label_teacher, bb, H_total = _labels_one(
+        joint_cam, K, bbox_detector, teacher_cam_normalized, R, acfg,
+        patch_hw)
+    patch = warp_perspective_batch(images.float(), H_total, patch_hw)
+    patch = _normalise(patch, color.to(patch.dtype)[:, None, None, :], acfg)
+    return Batch(
+        image=patch,
+        label=out.label,
+        label_weight=torch.ones(B, J, 3, dtype=patch.dtype,
+                                device=patch.device),
+        label_teacher=label_teacher,
+        labelled=labelled,
+        R=R,
+        K=K,
+        joint_cam=joint_cam,
+        joint_cam_normalized=out.joint_cam_normalized,
+        tprime=out.tprime,
+        trans=out.trans,
+        trans_inv=out.trans_inv,
+        bbox=bb,
+        ref_bone_len=ref_bone_len,
+    )
 
 
 def make_eval_batch(images: torch.Tensor, joint_cam: torch.Tensor,

@@ -1,6 +1,5 @@
 """Batched projective geometry for data prep and eval (port of
-hand_integral_pose_estimation_tpu/geometry; `rotation` waits for the
-training slice)."""
+hand_integral_pose_estimation_tpu/geometry)."""
 
 from hand_integral_pose_estimation_tpu_torch.geometry.camera import (  # noqa: F401
     cam2pixel,
@@ -34,4 +33,10 @@ from hand_integral_pose_estimation_tpu_torch.geometry.labels import (  # noqa: F
     encode_labels,
     patch_label_to_camera,
     patch_to_image_3d,
+)
+from hand_integral_pose_estimation_tpu_torch.geometry.rotation import (  # noqa: F401
+    rodrigues,
+    rotation_z,
+    sample_color_scale,
+    sample_rotation_matrix,
 )

@@ -7,7 +7,11 @@ are torchvision's (`conv1`, `bn1`, `layerS.I.convK`, `layerS.I.downsample.
 {0,1}`), so the reference's state dicts load with `load_state_dict`.
 
 BatchNorm is eps 1e-5 and follows the module's train/eval mode; the serving
-path runs it in eval mode on the running statistics. The stem max-pool is
+path runs it in eval mode on the running statistics. (a) In train mode
+torch's BatchNorm2d, as the upstream PyTorch model, updates the running
+variance with the unbiased batch variance, where flax's uses the biased
+one; momentum 0.1 here is flax's 0.9. The train-step parity test rescales
+the JAX update by n/(n-1). The stem max-pool is
 (3, 2, pad 1) with -inf padding, as `nn.max_pool` pads in the JAX package
 (resnet.py:177-179). GroupNorm, the caffe block style and `ResNetStage4`
 belong to the detector and wait for its port.

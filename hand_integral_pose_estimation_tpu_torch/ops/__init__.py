@@ -1,5 +1,6 @@
-"""Device ops: soft-argmax decode and fused head (CUDA kernels with plain
-PyTorch versions beside them) and the eval-crop warp."""
+"""Device ops: the soft-argmax decode and the fused head, forward and
+backward, and the batched warps (CUDA kernels with plain PyTorch versions
+beside them)."""
 
 from hand_integral_pose_estimation_tpu_torch.ops.fused_head import (  # noqa: F401
     head_projection_integral,

@@ -7,9 +7,12 @@ of convention: the projection is passed as torch's (out, in) matrix,
 `weight` (J*D, F) = `final_layer.weight.view(J*D, F)`, where the JAX
 function takes its transpose (F, J*D). The bias is (J*D,).
 
-`head_projection_integral` launches `csrc/head_projection_integral.cu` for
-CUDA tensors and takes the plain version for CPU tensors. The kernel has no
-backward yet, so on CUDA it refuses inputs that require a gradient.
+`head_projection_integral` is a `torch.autograd.Function`. For CUDA
+tensors its forward launches `csrc/head_projection_integral.cu` and its
+backward `csrc/head_projection_integral_bwd.cu`, which recomputes the
+logits per tile and contracts the soft-argmax cotangent into dfeat, dW and
+db without writing the heatmap or its gradient; for CPU tensors both take
+the plain versions.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 from hand_integral_pose_estimation_tpu_torch.ops import kernels
 from hand_integral_pose_estimation_tpu_torch.ops.integral import (
     MAX_DEPTH,
-    check_no_grad,
+    channel_constants,
     softmax_integral_reference,
 )
 
@@ -27,6 +30,13 @@ _FEAT_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel stages a joint's (F, D rounded up to 8) float32 weight slice
 # plus a (64, 65) float32 feature slice in one CTA's shared memory
 _SMEM_BYTES = 232448 - 1024
+# the backward's tiles: 64 positions, at most 256 features (F % 4 == 0)
+_BWD_TILE = 64
+_BWD_MAX_FEATS = 256
+# dW partial sums over (image chunks x joints): one CTA fits an SM (140 KB
+# of shared memory), so about sixteen waves over the card's 132 SMs keep
+# the last, partial wave cheap
+_BWD_TARGET_CTAS = 16 * 132
 
 
 def head_projection_integral_reference(feats: torch.Tensor,
@@ -75,7 +85,6 @@ def head_projection_integral_cuda(feats: torch.Tensor, weight: torch.Tensor,
                          f"shared memory")
     if B * H * W * num_joints == 0:
         raise ValueError(f"empty features {tuple(feats.shape)}")
-    check_no_grad(feats, weight, bias)
     with torch.cuda.device(feats.device):
         f32 = dict(dtype=torch.float32, device=feats.device)
         coords = torch.empty(B, num_joints, 3, **f32)
@@ -89,18 +98,152 @@ def head_projection_integral_cuda(feats: torch.Tensor, weight: torch.Tensor,
     return coords, m, s
 
 
+def head_projection_integral_bwd_reference(feats: torch.Tensor,
+                                           weight: torch.Tensor,
+                                           bias: torch.Tensor, m: torch.Tensor,
+                                           s: torch.Tensor,
+                                           coords: torch.Tensor,
+                                           cot: torch.Tensor, num_joints: int,
+                                           depth: int):
+    """Plain PyTorch VJP of the fused head; port of the non-Pallas branch
+    of `_hp_bwd` (fused_head.py:242-255): recompute the heatmap, form the
+    soft-argmax cotangent g with the folded per-channel constants, then
+    dfeat = g @ W, dW = g^T feats, db = sum g. Returns dfeat in the
+    features' dtype and dW (J*D, F), db (J*D,) in the weight's and bias's
+    dtypes."""
+    B, H, W, F = feats.shape
+    acc = torch.promote_types(
+        torch.promote_types(feats.dtype, weight.dtype), torch.float32)
+    f2 = feats.reshape(B, H * W, F).to(acc)
+    w = weight.to(acc)
+    mvec, T, A, Bc = channel_constants(m, s, coords, cot, H, W, depth,
+                                       dtype=acc)
+    h2 = torch.matmul(f2, w.t()) + bias.to(acc)               # (B, HW, C)
+    hw = torch.arange(H * W, device=feats.device)
+    col = (hw % W).to(acc)[None, :, None]
+    row = (hw // W).to(acc)[None, :, None]
+    g = (torch.exp(h2 - mvec[:, None, :])
+         * (T[:, None, :] + A[:, None, :] * col + Bc[:, None, :] * row))
+    dfeat = torch.matmul(g, w).reshape(feats.shape)
+    dW = torch.einsum("bsc,bsf->cf", g, f2)
+    db = g.sum(dim=(0, 1))
+    return dfeat.to(feats.dtype), dW.to(weight.dtype), db.to(bias.dtype)
+
+
+def head_projection_integral_bwd_cuda(feats: torch.Tensor,
+                                      weight: torch.Tensor,
+                                      bias: torch.Tensor, m: torch.Tensor,
+                                      s: torch.Tensor, coords: torch.Tensor,
+                                      cot: torch.Tensor, num_joints: int,
+                                      depth: int):
+    """Launch the fused-head backward (`csrc/head_projection_integral_bwd.cu`,
+    three launches: dfeat, per-chunk dW/db partials, their fixed-order sum).
+    Operands as `head_projection_integral_cuda` takes them, plus the
+    forward's m, s (B, J), coords and the cotangent (B, J, 3). Returns
+    (dfeat in the features' dtype, dW (J*D, F) float32, db (J*D,)
+    float32); dW and db are the same bits from run to run."""
+    for name, t in (("feats", feats), ("weight", weight), ("bias", bias),
+                    ("m", m), ("s", s), ("coords", coords), ("cot", cot)):
+        if t.device.type != "cuda" or t.device != feats.device:
+            raise ValueError(f"{name} must be on the CUDA device of feats, "
+                             f"got {t.device}")
+    for name, t in (("feats", feats), ("weight", weight), ("bias", bias)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if feats.dtype not in _FEAT_DTYPE_CODES:
+        raise TypeError(f"feats must be bfloat16 or float32, got {feats.dtype}")
+    if weight.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError(f"weight and bias must be float32, got "
+                        f"{weight.dtype}, {bias.dtype}")
+    if feats.dim() != 4:
+        raise ValueError(f"feats shape {tuple(feats.shape)} is not (B, H, W, F)")
+    B, H, W, F = feats.shape
+    C = num_joints * depth
+    if tuple(weight.shape) != (C, F) or tuple(bias.shape) != (C,):
+        raise ValueError(f"weight {tuple(weight.shape)} / bias "
+                         f"{tuple(bias.shape)} do not match ({C}, {F})")
+    for name, t, shape in (("m", m, (B, num_joints)), ("s", s, (B, num_joints)),
+                           ("coords", coords, (B, num_joints, 3)),
+                           ("cot", cot, (B, num_joints, 3))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} is not {shape}")
+    if not 1 <= depth <= MAX_DEPTH:
+        raise ValueError(f"depth {depth} outside 1..{MAX_DEPTH}")
+    if F % 4 or F > _BWD_MAX_FEATS:
+        raise ValueError(f"the backward kernel takes F a multiple of 4 up to "
+                         f"{_BWD_MAX_FEATS}, got {F}")
+    depth_pad = -(-depth // 8) * 8
+    if 4 * (F * (_BWD_TILE + 2) + depth_pad * F + depth_pad * _BWD_TILE
+            + 5 * depth_pad) > _SMEM_BYTES + 1024:
+        raise ValueError(f"F = {F} at depth {depth} does not fit the "
+                         f"backward kernel's shared memory")
+    if B * H * W * num_joints == 0:
+        raise ValueError(f"empty features {tuple(feats.shape)}")
+    tiles = -(-(H * W) // _BWD_TILE)
+    chunks = min(tiles, max(1, -(-_BWD_TARGET_CTAS // (B * num_joints))))
+    with torch.cuda.device(feats.device):
+        mvec, T, A, Bc = channel_constants(m, s, coords, cot, H, W, depth)
+        f32 = dict(dtype=torch.float32, device=feats.device)
+        dfeat = torch.empty_like(feats)
+        dW = torch.empty(C, F, **f32)
+        db = torch.empty(C, **f32)
+        ws = torch.empty(B * chunks, C, F, **f32)
+        ws_db = torch.empty(B * chunks, C, **f32)
+        kernels.HEAD_PROJECTION_INTEGRAL_BWD(
+            feats.data_ptr(), _FEAT_DTYPE_CODES[feats.dtype],
+            weight.data_ptr(), bias.data_ptr(), mvec.data_ptr(),
+            T.data_ptr(), A.data_ptr(), Bc.data_ptr(), dfeat.data_ptr(),
+            dW.data_ptr(), db.data_ptr(), ws.data_ptr(), ws_db.data_ptr(),
+            B, H, W, F, num_joints, depth, chunks,
+            torch.cuda.current_stream().cuda_stream)
+    return dfeat, dW, db
+
+
+class HeadProjectionIntegral(torch.autograd.Function):
+    """Fused projection + soft-argmax with its backward: kernels 3 and 4
+    for CUDA tensors, the plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, bias, num_joints, depth):
+        feats, weight, bias = (t.contiguous() for t in (feats, weight, bias))
+        if feats.device.type == "cuda":
+            coords, m, s = head_projection_integral_cuda(
+                feats, weight, bias, num_joints, depth)
+        else:
+            coords, m, s = head_projection_integral_reference(
+                feats, weight, bias, num_joints, depth)
+        ctx.save_for_backward(feats, weight, bias, m, s, coords)
+        ctx.dims = (num_joints, depth)
+        return coords
+
+    @staticmethod
+    def backward(ctx, grad_coords):
+        feats, weight, bias, m, s, coords = ctx.saved_tensors
+        num_joints, depth = ctx.dims
+        # (b) the cotangent may arrive non-contiguous or in another dtype;
+        # the constants are formed from a contiguous (B, J, 3) copy in the
+        # forward's accumulation dtype (float32 on CUDA)
+        cot = grad_coords.to(coords.dtype).contiguous()
+        # (c) feats are the model's bf16 autocast output while weight and
+        # bias are float32 params: dfeat comes back in the features' dtype,
+        # which is what autograd expects for that input
+        if feats.device.type == "cuda":
+            dfeat, dW, db = head_projection_integral_bwd_cuda(
+                feats, weight, bias, m, s, coords, cot, num_joints, depth)
+        else:
+            dfeat, dW, db = head_projection_integral_bwd_reference(
+                feats, weight, bias, m, s, coords, cot, num_joints, depth)
+        return dfeat, dW, db, None, None
+
+
 def head_projection_integral(feats: torch.Tensor, weight: torch.Tensor,
                              bias: torch.Tensor, num_joints: int,
                              depth: int) -> torch.Tensor:
     """(B, H, W, F) features x (J*D, F) projection -> (B, J, 3) coords.
 
-    Equal to `conv1x1(feats, weight, bias)` followed by `softmax_integral`.
-    CUDA tensors go through the fused kernel, CPU tensors through the plain
-    version."""
-    if feats.device.type == "cuda":
-        return head_projection_integral_cuda(feats, weight, bias, num_joints,
-                                             depth)[0]
-    if feats.device.type == "cpu":
-        return head_projection_integral_reference(feats, weight, bias,
-                                                  num_joints, depth)[0]
-    raise ValueError(f"unsupported device {feats.device}")
+    Equal to `conv1x1(feats, weight, bias)` followed by `softmax_integral`,
+    differentiable in all three operands. CUDA tensors go through kernels 3
+    (forward) and 4 (backward), CPU tensors through the plain versions."""
+    if feats.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {feats.device}")
+    return HeadProjectionIntegral.apply(feats, weight, bias, num_joints, depth)

@@ -7,10 +7,14 @@ reference's `softmax_integral_tensor` (common/nets/loss.py:46-59).
 Layout as in the JAX package: heatmap (B, H, W, J*D), channel = j*D + d;
 coords (B, J, 3) = (x/W - 0.5, y/H - 0.5, z/D - 0.5).
 
-`softmax_integral` launches the CUDA kernel `csrc/softmax_integral.cu` for a
-CUDA tensor and takes the plain version, `softmax_integral_reference`, for a
-CPU tensor. The kernel has no backward yet, so on CUDA it refuses inputs
-that require a gradient instead of returning a detached result.
+`softmax_integral` is a `torch.autograd.Function`. For a CUDA tensor its
+forward launches `csrc/softmax_integral.cu` and its backward
+`csrc/softmax_integral_bwd.cu`; for a CPU tensor both take the plain
+versions, `softmax_integral_reference` and
+`softmax_integral_bwd_reference`. The backward is the closed form
+dL/dh = p * sum_a cot_a (g_a - c_a) of the JAX package's custom VJP
+(integral.py:302-331): the probability volume is recomputed from the saved
+per-joint max and sum, never stored.
 """
 
 from __future__ import annotations
@@ -50,15 +54,6 @@ def softmax_integral_reference(heatmap: torch.Tensor, num_joints: int,
     return coords, m.reshape(B, num_joints), s
 
 
-def check_no_grad(*tensors: torch.Tensor) -> None:
-    """Forward-only kernels refuse inputs that autograd would track: their
-    result would silently carry no gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "this CUDA kernel has no backward yet; call it under "
-            "torch.no_grad()/torch.inference_mode() or detach the inputs")
-
-
 def softmax_integral_cuda(heatmap: torch.Tensor, num_joints: int,
                           depth: int):
     """Launch the soft-argmax kernel (`csrc/softmax_integral.cu`).
@@ -78,7 +73,6 @@ def softmax_integral_cuda(heatmap: torch.Tensor, num_joints: int,
         raise ValueError("softmax_integral_cuda needs a contiguous heatmap")
     if not 1 <= depth <= MAX_DEPTH:
         raise ValueError(f"depth {depth} outside 1..{MAX_DEPTH}")
-    check_no_grad(heatmap)
     B, H, W, _ = heatmap.shape
     if B * H * W * num_joints == 0:
         raise ValueError(f"empty heatmap {tuple(heatmap.shape)}")
@@ -94,16 +88,153 @@ def softmax_integral_cuda(heatmap: torch.Tensor, num_joints: int,
     return coords, m, s
 
 
+def softmax_integral_bwd_reference(heatmap: torch.Tensor, m: torch.Tensor,
+                                   s: torch.Tensor, coords: torch.Tensor,
+                                   cot: torch.Tensor, num_joints: int,
+                                   depth: int) -> torch.Tensor:
+    """Plain PyTorch soft-argmax VJP; port of the XLA branch of `_bwd`
+    (integral.py:313-331). With p = softmax(h) per joint and g_a the grid
+    position in normalised coords, dL/dh = p * sum_a cot_a (g_a - c_a).
+    m, s (B, J) and coords (B, J, 3) are the forward's; cot (B, J, 3) the
+    incoming gradient. Computed in at least float32, returned in the
+    heatmap's dtype."""
+    B, H, W, C = heatmap.shape
+    acc = torch.promote_types(heatmap.dtype, torch.float32)
+    dev = heatmap.device
+    h = heatmap.reshape(B, H, W, num_joints, depth).to(acc)
+    m, s, coords, cot = (t.to(acc) for t in (m, s, coords, cot))
+    p = (torch.exp(h - m[:, None, None, :, None])
+         / s[:, None, None, :, None])
+    gx = (torch.arange(W, dtype=acc, device=dev) / W - 0.5
+          )[None, None, :, None, None]
+    gy = (torch.arange(H, dtype=acc, device=dev) / H - 0.5
+          )[None, :, None, None, None]
+    gz = torch.arange(depth, dtype=acc, device=dev) / depth - 0.5
+    cx, cy, cz = (coords[:, None, None, :, k, None] for k in range(3))
+    common = (cot[:, None, None, :, 0, None] * (gx - cx)
+              + cot[:, None, None, :, 1, None] * (gy - cy)
+              + cot[:, None, None, :, 2, None] * (gz - cz))
+    return (p * common).reshape(B, H, W, C).to(heatmap.dtype)
+
+
+def channel_constants(m: torch.Tensor, s: torch.Tensor, coords: torch.Tensor,
+                      cot: torch.Tensor, height: int, width: int, depth: int,
+                      dtype: torch.dtype = torch.float32):
+    """The per-channel constants of the folded backward
+    (integral.py:253-268), each (B, J*D) in `dtype` with channel j*D + d:
+    grad = exp(h - m_c) * (T_c + A_c * col + B_c * row), col and row in
+    raw grid units. Formed on the tensors' device with no host sync."""
+    B, J = m.shape
+    m, s, coords, cot = (t.to(dtype) for t in (m, s, coords, cot))
+    gz = torch.arange(depth, dtype=dtype, device=m.device) / depth - 0.5
+    cx, cy, cz = coords.unbind(-1)
+    cotx, coty, cotz = cot.unbind(-1)
+    svec = s[:, :, None]
+    T = ((cotx * (-0.5 - cx) + coty * (-0.5 - cy))[:, :, None]
+         + cotz[:, :, None] * (gz - cz[:, :, None])) / svec
+    A = (cotx / (s * width))[:, :, None].expand(B, J, depth)
+    Bc = (coty / (s * height))[:, :, None].expand(B, J, depth)
+    mvec = m[:, :, None].expand(B, J, depth)
+    return tuple(v.reshape(B, J * depth).contiguous()
+                 for v in (mvec, T, A, Bc))
+
+
+def softmax_integral_bwd_cuda(heatmap: torch.Tensor, m: torch.Tensor,
+                              s: torch.Tensor, coords: torch.Tensor,
+                              cot: torch.Tensor, num_joints: int,
+                              depth: int) -> torch.Tensor:
+    """Launch the soft-argmax backward kernel
+    (`csrc/softmax_integral_bwd.cu`). heatmap: contiguous CUDA
+    (B, H, W, J*D) float32 or bfloat16; m, s (B, J), coords and cot
+    (B, J, 3) on the same device. Returns the gradient in the heatmap's
+    dtype, as `softmax_integral_bwd_reference`."""
+    if heatmap.device.type != "cuda":
+        raise ValueError(f"softmax_integral_bwd_cuda needs a CUDA tensor, "
+                         f"got {heatmap.device}")
+    if heatmap.dtype not in _DTYPE_CODES:
+        raise TypeError(f"softmax_integral_bwd_cuda takes float32 or "
+                        f"bfloat16, got {heatmap.dtype}")
+    if heatmap.dim() != 4 or heatmap.shape[3] != num_joints * depth:
+        raise ValueError(f"heatmap shape {tuple(heatmap.shape)} is not "
+                         f"(B, H, W, {num_joints} x {depth})")
+    if not heatmap.is_contiguous():
+        raise ValueError("softmax_integral_bwd_cuda needs a contiguous "
+                         "heatmap")
+    B, H, W, C = heatmap.shape
+    for name, t, shape in (("m", m, (B, num_joints)), ("s", s, (B, num_joints)),
+                           ("coords", coords, (B, num_joints, 3)),
+                           ("cot", cot, (B, num_joints, 3))):
+        if t.device != heatmap.device or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape} on {heatmap.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    if 16 * C > 48 * 1024:
+        raise ValueError(f"{C} channels do not fit the kernel's shared "
+                         f"memory (at most 3072)")
+    if H * W * C >= 2**31:
+        raise ValueError(f"heatmap image {(H, W, C)} is too large for the "
+                         f"kernel's 32-bit indexing")
+    if B * H * W * C == 0:
+        raise ValueError(f"empty heatmap {tuple(heatmap.shape)}")
+    with torch.cuda.device(heatmap.device):
+        mvec, T, A, Bc = channel_constants(m, s, coords, cot, H, W, depth)
+        grad = torch.empty_like(heatmap)
+        kernels.SOFTMAX_INTEGRAL_BWD(
+            heatmap.data_ptr(), _DTYPE_CODES[heatmap.dtype], mvec.data_ptr(),
+            T.data_ptr(), A.data_ptr(), Bc.data_ptr(), grad.data_ptr(), B,
+            H * W, W, C, torch.cuda.current_stream().cuda_stream)
+    return grad
+
+
+class SoftmaxIntegral(torch.autograd.Function):
+    """Soft-argmax with the closed-form backward: kernels 1 and 2 for CUDA
+    tensors, the plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, heatmap, num_joints, depth):
+        heatmap = heatmap.contiguous()
+        if heatmap.device.type == "cuda":
+            coords, m, s = softmax_integral_cuda(heatmap, num_joints, depth)
+        else:
+            coords, m, s = softmax_integral_reference(heatmap, num_joints,
+                                                      depth)
+        ctx.save_for_backward(heatmap, m, s, coords)
+        ctx.dims = (num_joints, depth)
+        return coords
+
+    @staticmethod
+    def backward(ctx, grad_coords):
+        heatmap, m, s, coords = ctx.saved_tensors
+        num_joints, depth = ctx.dims
+        # (b) autograd may hand over a non-contiguous cotangent in another
+        # dtype; the kernel and the folded constants read (B, J, 3) in the
+        # forward's accumulation dtype (float32 on CUDA)
+        cot = grad_coords.to(coords.dtype).contiguous()
+        if heatmap.device.type == "cuda":
+            grad = softmax_integral_bwd_cuda(heatmap, m, s, coords, cot,
+                                             num_joints, depth)
+        else:
+            grad = softmax_integral_bwd_reference(heatmap, m, s, coords, cot,
+                                                  num_joints, depth)
+        return grad, None, None
+
+
 def softmax_integral(heatmap: torch.Tensor, num_joints: int,
                      depth: int) -> torch.Tensor:
     """(B, H, W, J*D) logits -> (B, J, 3) coords in the reference's
-    normalised patch units (loss.py:54-56). CUDA tensors go through the
-    kernel, CPU tensors through the plain version."""
-    if heatmap.device.type == "cuda":
-        return softmax_integral_cuda(heatmap, num_joints, depth)[0]
-    if heatmap.device.type == "cpu":
-        return softmax_integral_reference(heatmap, num_joints, depth)[0]
-    raise ValueError(f"unsupported device {heatmap.device}")
+    normalised patch units (loss.py:54-56), differentiable in the heatmap.
+    CUDA tensors go through kernels 1 (forward) and 2 (backward), CPU
+    tensors through the plain versions."""
+    if heatmap.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {heatmap.device}")
+    return SoftmaxIntegral.apply(heatmap, num_joints, depth)
+
+
+def softmax_integral_flat(heatmap: torch.Tensor, num_joints: int,
+                          depth: int) -> torch.Tensor:
+    """(B, J*3) flattened variant matching the reference's return shape
+    (loss.py:58)."""
+    c = softmax_integral(heatmap, num_joints, depth)
+    return c.reshape(c.shape[0], num_joints * 3)
 
 
 def softmax_probs(heatmap: torch.Tensor, num_joints: int,

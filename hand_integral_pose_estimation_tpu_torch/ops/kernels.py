@@ -1,10 +1,11 @@
 """Build, load and launch the hand-written CUDA kernels in `csrc/`.
 
-The sources are compiled with `nvcc` for Hopper (`sm_90a`) into one shared
-library with a plain C interface, loaded with `ctypes`. The build happens at
-the first launch, never at import, into `_build/` beside this package; the
-library's file name carries a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one is reused.
+The sources are compiled with `nvcc` for Hopper (`sm_90a`), one process per
+source file and all at once, and linked into one shared library with a
+plain C interface, loaded with `ctypes`. The build happens at the first
+launch, never at import, into `_build/` beside this package; the library's
+file name carries a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one is reused.
 
 Each :class:`Kernel` counts its successful launches in `launches`, so a run
 can show that its main path went through the kernel.
@@ -24,8 +25,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-shared",)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -49,7 +51,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -57,24 +59,37 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile `csrc/*.cu` into the hashed library unless it exists."""
+    """Compile `csrc/*.cu` into the hashed library unless it exists: one
+    `nvcc -c` per source, started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        sources = [p for p in _sources() if p.suffix == ".cu"]
+        objects = [work / f"{p.stem}.o" for p in sources]
+        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", str(src), "-o",
+                                   str(obj)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objects)]
+        failed = []
+        for src, proc in zip(sources, procs):
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = work / out.name
+        link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -123,4 +138,19 @@ HEAD_PROJECTION_INTEGRAL_FWD = Kernel(
     "hipe_head_projection_integral_fwd",
     [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 
-KERNELS = (SOFTMAX_INTEGRAL_FWD, HEAD_PROJECTION_INTEGRAL_FWD)
+#: (hm, dtype, m, T, A, B, grad, B, H*W, W, J*D, stream)
+SOFTMAX_INTEGRAL_BWD = Kernel(
+    "hipe_softmax_integral_bwd",
+    [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+#: (feats, dtype, weight, bias, m, T, A, B, dfeat, dW, db, ws, ws_db,
+#:  B, H, W, F, J, D, chunks per image, stream)
+HEAD_PROJECTION_INTEGRAL_BWD = Kernel(
+    "hipe_head_projection_integral_bwd",
+    [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+     _I, _I, _I, _I, _I, _I, _I, _P])
+#: (images, coef, tmp, out, B, Hs, Ws, Ho, Wo, C, stream)
+WARP_TWOPASS = Kernel(
+    "hipe_warp_twopass", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+
+KERNELS = (SOFTMAX_INTEGRAL_FWD, HEAD_PROJECTION_INTEGRAL_FWD,
+           SOFTMAX_INTEGRAL_BWD, HEAD_PROJECTION_INTEGRAL_BWD, WARP_TWOPASS)

@@ -1,12 +1,20 @@
-"""The eval step: forward + decode + loss, no gradients.
+"""The train step and the eval step.
 
-Port of `make_eval_fn` / `make_eval_step` in
-hand_integral_pose_estimation_tpu/training/train_step.py (the body of the
-reference's main/test.py:68-143). PyTorch runs eagerly, so the two are the
-same function here. The train step waits for the training slice.
+Port of hand_integral_pose_estimation_tpu/training/train_step.py. The train
+step is the reference's hot loop body (main/train.py:50-130): forward in
+train mode -> soft-argmax decode -> combined loss -> backward -> Adam ->
+schedule. The eval step is the body of main/test.py:68-143. PyTorch runs
+eagerly, so `make_eval_fn` and `make_eval_step` are the same function here.
+
+Both head arms: `fuse_head=True` runs the fused projection + soft-argmax
+(kernels 3 and 4 on the card) on the head's features, so the heatmap and
+its gradient never reach device memory; `fuse_head=False` runs the whole
+net to the heatmap and decodes it (kernels 1 and 2).
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 
@@ -21,6 +29,68 @@ from hand_integral_pose_estimation_tpu_torch.ops.integral import (
 )
 
 
+def make_train_step(model, optimizer: torch.optim.Optimizer,
+                    scheduler: torch.optim.lr_scheduler.LRScheduler,
+                    cfg: Config,
+                    teacher_apply: Optional[Callable] = None,
+                    panet_apply: Optional[Callable] = None,
+                    fuse_head: bool = True):
+    """`train_step(batch) -> metrics` for a ResPoseNet whose parameters
+    `optimizer` holds.
+
+    One step: forward in train mode (BatchNorm on batch statistics, running
+    statistics updated), decode, `losses.combined_loss`, backward,
+    `optimizer.step()`, `scheduler.step()`. Returns the five metrics of the
+    JAX step (loss, loss_supervised, loss_unsupervised, student_mpjpe,
+    teacher_mpjpe) as device tensors. (d) Nothing in the step waits for the
+    device: no `.item()`, no `torch.linalg.inv` (the augmentation uses
+    `inv_ex`), no tensor built on the host (Adam keeps its step count
+    there), so the caller decides where to synchronise. The step's
+    gradients stay in the parameters' `.grad` until the next step.
+
+    teacher_apply: optional frozen teacher `(images) -> (B, J, 3)`
+    label-space coords, used instead of the batch's cached pseudo-labels.
+    panet_apply: optional NRSfM forward for the PANet term (cfg.train.lam).
+    """
+    J = cfg.model.num_joints
+    D = cfg.model.depth_dim
+    ph, pw = cfg.model.input_shape
+
+    def train_step(batch: Batch) -> dict:
+        model.train()
+        if fuse_head:
+            # (c) the fused head runs outside the model's autocast region:
+            # bf16 features, float32 projection
+            feats = model(batch.image, return_features=True)
+            weight, bias = model.final_projection()
+            coord_out = head_projection_integral(feats, weight, bias, J, D)
+        else:
+            coord_out = softmax_integral(model(batch.image), J, D)
+        if teacher_apply is not None:
+            with torch.no_grad():
+                coord_teacher = teacher_apply(batch.image)
+        else:
+            coord_teacher = batch.label_teacher
+        out = losses.combined_loss(
+            coord_out, coord_teacher, batch.label, batch.label_weight,
+            batch.labelled, batch.trans_inv, batch.tprime, batch.K,
+            panet_apply=panet_apply, lam=cfg.train.lam, patch_width=pw,
+            patch_height=ph)
+        optimizer.zero_grad(set_to_none=True)
+        out.loss.backward()
+        optimizer.step()
+        scheduler.step()
+        return {
+            "loss": out.loss.detach(),
+            "loss_supervised": out.loss_supervised.detach(),
+            "loss_unsupervised": out.loss_unsupervised.detach(),
+            "student_mpjpe": out.student_mpjpe,
+            "teacher_mpjpe": out.teacher_mpjpe,
+        }
+
+    return train_step
+
+
 def make_eval_fn(model, cfg: Config, fuse_head: bool = True):
     """`eval_step(batch) -> (coords (B, J, 3), loss)` for a
     ResPoseNet in eval mode.
@@ -33,6 +103,7 @@ def make_eval_fn(model, cfg: Config, fuse_head: bool = True):
 
     @torch.inference_mode()
     def eval_step(batch: Batch):
+        model.eval()
         if fuse_head:
             feats = model(batch.image, return_features=True)
             weight, bias = model.final_projection()

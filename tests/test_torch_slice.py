@@ -1,8 +1,8 @@
 """The port's pose-serving slice end to end on the CPU: the JAX package's
 Tester and the port's Tester sweep the same synthetic split with the same
 weights, and `evaluate_test_split` scores both; the CLI loads a reference
-snapshot natively; and the port imports and runs with jax, flax, optax and
-orbax blocked."""
+snapshot natively; and the port imports and runs, serving and training,
+with jax, flax, optax, orbax and the JAX package itself blocked."""
 
 import dataclasses
 import os
@@ -121,7 +121,8 @@ def test_cli_loads_reference_snapshot(tmp_path):
 NO_JAX_SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
 
-    BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax"}
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax",
+               "hand_integral_pose_estimation_tpu"}
     assert not BLOCKED & {m.split(".")[0] for m in sys.modules}, \\
         "the interpreter imported jax before the test began"
 
@@ -140,13 +141,18 @@ NO_JAX_SCRIPT = textwrap.dedent("""
         importlib.import_module(name)
 
     from hand_integral_pose_estimation_tpu_torch.config import (
-        Config, ModelConfig)
+        Config, ModelConfig, TrainConfig)
     from hand_integral_pose_estimation_tpu_torch.data import SyntheticFreiHand
     from hand_integral_pose_estimation_tpu_torch.evaluation import (
         evaluate_test_split)
     from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
     from hand_integral_pose_estimation_tpu_torch import training
     from hand_integral_pose_estimation_tpu_torch.cli import test as cli_test
+    from hand_integral_pose_estimation_tpu_torch.cli import train as cli_train
+    from hand_integral_pose_estimation_tpu_torch.geometry import rotation
+    from hand_integral_pose_estimation_tpu_torch.training import (
+        checkpoint, train_step)
+    from hand_integral_pose_estimation_tpu_torch import losses
     import torch
 
     cfg = Config(model=ModelConfig(resnet_type=18, input_shape=(64, 64),
@@ -159,6 +165,28 @@ NO_JAX_SCRIPT = textwrap.dedent("""
         evaluate_test_split(coords, batch)
     cli_test.main(["--synthetic", "--synthetic-size", "2", "--batch-size",
                    "2", "--device", "cpu", "--result-dir", sys.argv[1]])
+    # the training slice: a Trainer on both arms, then the train and test
+    # CLIs through a snapshot
+    for fuse in (True, False):
+        trainer = training.Trainer(
+            cfg.replace(train=TrainConfig(batch_size=2)),
+            SyntheticFreiHand(n=4, image_hw=(64, 64)), model_dir=sys.argv[1],
+            device="cpu", fuse_head=fuse)
+        metrics = trainer.run_epoch(0, num_steps=1)
+        assert set(metrics) >= {"loss", "student_mpjpe"}, metrics
+    sizing = ["--pose-resnet", "18", "--pose-input", "64"]
+    cli_train.main(["--synthetic", "--synthetic-size", "4", "--epochs", "1",
+                    "--steps-per-epoch", "1", "--batch-size", "2",
+                    "--device", "cpu", "--model-dir", sys.argv[1] + "/m",
+                    *sizing])
+    assert checkpoint.latest_epoch(sys.argv[1] + "/m") == 0
+    cli_test.main(["--synthetic", "--synthetic-size", "2", "--batch-size",
+                   "2", "--device", "cpu", "--model-dir", sys.argv[1] + "/m",
+                   "--result-dir", sys.argv[1], *sizing])
+    assert rotation.sample_rotation_matrix(torch.Generator(), 2).shape == (
+        2, 3, 3)
+    assert callable(losses.combined_loss) and callable(
+        train_step.make_train_step)
     leaked = BLOCKED & {m.split(".")[0] for m in sys.modules}
     assert not leaked, leaked
     print("NO_JAX_OK", len(names))
@@ -166,9 +194,11 @@ NO_JAX_SCRIPT = textwrap.dedent("""
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Every module of the port imports, and the CPU slice (both head arms,
-    evaluation, the CLI) runs, with jax/flax/optax/orbax blocked by a
-    sys.meta_path finder in a fresh interpreter."""
+    """Every module of the port imports, and the CPU slices run (serving:
+    both head arms, evaluation, the test CLI; training: the Trainer on both
+    arms, the train CLI's snapshot read back by the test CLI), with
+    jax/flax/optax/orbax and the JAX package blocked by a sys.meta_path
+    finder in a fresh interpreter."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(
