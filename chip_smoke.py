@@ -1,9 +1,9 @@
-"""Smoke test of the PyTorch / CUDA port on one GPU: the pose-serving path
-and the pose-training path.
+"""Smoke test of the PyTorch / CUDA port on one GPU: the pose-serving path,
+the pose-training path and the two-stage (detector -> pose) serving path.
 
     python3 chip_smoke.py
 
-Six phases, each printing what it found; any failure exits non-zero
+Seven phases, each printing what it found; any failure exits non-zero
 before the result line.
 
 1. device: requires CUDA (there is no CPU fallback), prints the card, its
@@ -11,8 +11,9 @@ before the result line.
    off, so float32 matmuls and convs run in full float32);
 2. build: compiles the CUDA kernels from `csrc/` (one nvcc per source, all
    at once) and prints the seconds;
-3. kernels: each of the five kernels against its plain PyTorch version on
-   the card, at the shapes of the two paths and at small ragged shapes;
+3. kernels: each of the five pose kernels against its plain PyTorch
+   version on the card, at the shapes of the two paths and at small ragged
+   shapes;
 4. serving: the flagship model (ModelConfig(): ResNet-50, 224x224, bf16,
    21 joints x 56 depth x 56x56) with seeded random weights sweeps 80
    synthetic samples through `Tester.run` at batch 32 (three batches, the
@@ -27,19 +28,43 @@ before the result line.
    step's gradients against a plain-backed step's from the same state;
    then it times the train step on both arms;
 6. timing: each kernel against its plain version with CUDA events, in
-   turns (plain, kernel, kernel, plain), at the paths' shapes.
+   turns (plain, kernel, kernel, plain), at the paths' shapes;
+7. detection: the NMS and ROIAlign kernels against their plain versions
+   (keep sets bitwise equal; the suppression chain, clustered boxes at the
+   RPN and class-NMS shapes, both early-exit settings; ROIAlign at the
+   detector's shape and ragged ones), then the reference's detector at full
+   width (DetectorConfig(): ResNet-101 C4, caffe-style blocks as its
+   checkpoints need, 600-pixel blobs, 6000 -> 300 proposals, 100
+   detections, float32) with seeded random weights on four synthetic 600^2
+   scenes: launch counts per `detect`, `detect_split` against `detect`,
+   and the kernel-backed `detect` against the same call on the plain
+   versions; then `TwoStagePipeline` (detector -> crop -> R50 pose net with
+   the fused head) sweeps 8 synthetic 224^2 frames at batch 4 with its
+   launch counts, `cli.evaluate --synthetic --use-detector` writes a
+   pred.json, and the kernels, `detect`, `detect_split`, the detector's
+   stages and the pipeline are timed.
 
 Each path's launch counts start from 0 just before the path runs and are
 read just after it; the launches in the kernels line are their sum. The
-line before the last is the card's name and power limit; the last line is
-the JSON result.
+kernels line gives each kernel's time beside its plain version's and its
+bound: the larger of the bytes it must move over 3.35 TB/s and the
+operations it must do over the card's peak for their type, from the H100
+SXM data sheet: 67 TFLOP/s for float32 on CUDA cores, and for the fused
+head's 1x1 projections (bf16 features times float32 weights or gradients)
+989/3 TFLOP/s, the bf16 tensor-core rate over the three bf16 products
+that carry a float32 operand split into bf16 parts to float32 accuracy. No single PyTorch
+call computes any of the seven functions (there is no torchvision here for
+NMS or ROIAlign), so `library_ms` is null. The line before the last is the
+card's name and power limit; the last line is the JSON result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -101,6 +126,27 @@ GRAD_LEAF_REL_BF16 = 0.25
 GRAD_TOTAL_REL_BF16 = 5e-2
 # logit spread the head is scaled to, so each joint's softmax is peaked
 LOGIT_STD = 6.0
+# The NMS kernel forms the plain version's float32 IoU with the same
+# rounded operations: keep sets, boxes and scores are bitwise equal.
+# ROIAlign weights the same float32 taps and sums a bin's 16 products in
+# another order: a few ulps of the largest feature.
+ROI_TOL = 1e-5
+# Kernel-backed vs plain-backed detect: the pooled features differ by that
+# summation order, which moves the head's deltas, and so the boxes, by a
+# float32 ulp or two; at 600-1050 pixels an ulp is 6e-5 - 1.2e-4 pixel.
+# Two ulps of the largest coordinate (2^-22 relative) on top of 1e-4 px.
+BOX_TOL_ABS, BOX_TOL_REL = 1e-4, 2.0 ** -22
+# The two-stage path's detector: 4 scenes of 600^2, as the JAX package's
+# config-4 benchmark draws them (bench.py:213-225), and pipeline frames
+DET_BATCH = 4
+DET_SIZE = 600
+PIPE_FRAMES = 8
+# the card's published peaks (H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# a bf16 x float32 product to float32 accuracy on tensor cores: the float32
+# operand split into three bf16 parts, three bf16 products
+BF16X3_FLOPS = 989e12 / 3
 
 
 def fail(msg: str) -> None:
@@ -299,6 +345,436 @@ def gradient_check(name, trainer, batch, fuse, leaf_tol, total_tol):
           f"at {worst_name}")
 
 
+def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS):
+    """The least time for the work, ms, and what bounds it."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def clustered_boxes(g, B, N, dev):
+    """(B, N, 4) proposal-like boxes, clusters of 60 near-duplicates over a
+    600-pixel image, and (B, N) scores."""
+    k = max(N // 60, 1)
+    centres = torch.rand(B, k, 2, generator=g, device=dev) * 500
+    ctr = (centres.repeat_interleave(-(-N // k), dim=1)[:, :N]
+           + torch.rand(B, N, 2, generator=g, device=dev) * 60)
+    wh = torch.rand(B, N, 2, generator=g, device=dev) * 60 + 40
+    return (torch.cat([ctr - wh / 2, ctr + wh / 2], -1),
+            torch.rand(B, N, generator=g, device=dev))
+
+
+@contextlib.contextmanager
+def plain_detector_ops():
+    """Route NMS and ROIAlign on the card through their plain versions (the
+    kernel wrappers are swapped out for the duration)."""
+    from hand_integral_pose_estimation_tpu_torch.ops import nms as nms_mod
+    from hand_integral_pose_estimation_tpu_torch.ops import (
+        roi_align as ra_mod,
+    )
+    saved = nms_mod._alive_cuda, ra_mod.roi_align_cuda
+    nms_mod._alive_cuda = nms_mod._alive_plain
+    ra_mod.roi_align_cuda = lambda f, r, p, sc, sr: ra_mod.roi_align_batched(
+        f, r, p, sc, sr, impl="plain")
+    try:
+        yield
+    finally:
+        nms_mod._alive_cuda, ra_mod.roi_align_cuda = saved
+
+
+def scale_detector_heads(model, blob) -> None:
+    """Random weights saturate both class softmaxes on these scenes (every
+    score 0 or 1, so NMS would order ties only) and give box deltas so
+    large that every proposal is clipped to a sliver and filtered: scale
+    the RPN's and the detection head's class and box layers, in place, to
+    unit-spread logits and deltas of a trained detector's spread (0.2 for
+    the RPN; 1, before the 0.1 / 0.2 normalisation stds, for the head)."""
+    from hand_integral_pose_estimation_tpu_torch.ops.roi_align import (
+        roi_align_batched,
+    )
+
+    c = model.cfg
+    rpn = model.RCNN_rpn
+    with torch.inference_mode():
+        t = torch.relu(rpn.RPN_Conv(model.RCNN_base(blob.permute(0, 3, 1,
+                                                                  2))))
+        spread = [(rpn.RPN_cls_score, float(rpn.RPN_cls_score(t).std()), 1.0),
+                  (rpn.RPN_bbox_pred, float(rpn.RPN_bbox_pred(t).std()), 0.2)]
+    for m, std, want in spread:
+        with torch.no_grad():
+            m.weight.mul_(want / std)
+            m.bias.mul_(want / std)
+    with torch.inference_mode():
+        feats, rois, _ = model.upstream(blob)
+        B, R = rois.shape[:2]
+        pooled = roi_align_batched(feats.float().contiguous(), rois,
+                                   c.pooling_size, c.spatial_scale,
+                                   c.sampling_ratio)
+        h = model.RCNN_top(pooled.reshape(
+            B * R, c.pooling_size, c.pooling_size, -1).permute(
+                0, 3, 1, 2)).mean(dim=(2, 3))
+        spread = [(model.RCNN_cls_score,
+                   float(model.RCNN_cls_score(h).std()), 1.0),
+                  (model.RCNN_bbox_pred,
+                   float(model.RCNN_bbox_pred(h).std()), 1.0)]
+    for m, std, want in spread:
+        with torch.no_grad():
+            m.weight.mul_(want / std)
+            m.bias.mul_(want / std)
+
+
+def detection_phase(dev, g, card, cfg):
+    """Phase 7. Returns the launches of the counted runs by kernel symbol,
+    and for "roi_align" and "nms" (max_abs_err, (ms, plain_ms),
+    (bound_ms, bound_by))."""
+    from hand_integral_pose_estimation_tpu_torch.cli import evaluate as cli
+    from hand_integral_pose_estimation_tpu_torch.config import DetectorConfig
+    from hand_integral_pose_estimation_tpu_torch.data import (
+        SyntheticFreiHand,
+    )
+    from hand_integral_pose_estimation_tpu_torch.detect import (
+        build_detector,
+        detect,
+        detect_split,
+        hand_detector,
+        make_synthetic_box_dataset,
+        prepare_blob,
+        proposal_layer,
+    )
+    from hand_integral_pose_estimation_tpu_torch.inference import (
+        TwoStagePipeline,
+    )
+    from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
+    from hand_integral_pose_estimation_tpu_torch.ops import nms as nms_mod
+    from hand_integral_pose_estimation_tpu_torch.ops.roi_align import (
+        roi_align_batched,
+    )
+
+    # ---- a. kernel 7 against its plain version
+    worst_nms = 0
+    i = torch.arange(1100, device=dev, dtype=torch.float32)
+    chain = torch.stack([4 * i, 0 * i, 4 * i + 10, 0 * i + 10], -1)[None]
+    cases = [("chain", chain, torch.linspace(1.0, 0.5, 1100, device=dev)[
+        None], 0.3, 1100, -math.inf)]
+    for B, N, thr, top_k, st in ((DET_BATCH, 6000, 0.7, 300, 0.0),
+                                 (DET_BATCH, 300, 0.3, 100, 0.001)):
+        b, sc = clustered_boxes(g, B, N, dev)
+        cases.append((f"clustered {(B, N)}", b, sc, thr, top_k, st))
+    rpn_case = cases[1]
+    for name, b, sc, thr, top_k, st in cases:
+        for ee in (False, True):
+            got = nms_mod.nms(b, sc, thr, top_k, st, impl="cuda",
+                              early_exit=ee)
+            torch.cuda.synchronize()
+            want = nms_mod.nms(b, sc, thr, top_k, st, impl="plain",
+                               early_exit=ee)
+            bad = (int((got[2] != want[2]).sum())
+                   + int((got[0] != want[0]).any(-1).sum())
+                   + int((got[1] != want[1]).sum()))
+            kept = int(got[2].sum())
+            print(f"[detection] nms {name} -> {top_k} at IoU {thr}, score "
+                  f"threshold {st}, early_exit={ee}: {kept} kept, "
+                  f"{bad} mismatching slots (tol 0) "
+                  f"{'ok' if bad == 0 else 'FAILED'}", flush=True)
+            check(bad == 0, f"NMS kernel disagrees with its plain version "
+                  f"({name}, early_exit={ee})")
+            if name == "chain":
+                check(kept == 550 and bool(torch.equal(
+                    got[0][0, :550], chain[0, ::2])),
+                    "NMS kernel misses the chain's known answer")
+            worst_nms = max(worst_nms, bad)
+
+    # ---- b. kernel 6 against its plain version
+    worst_roi = 0.0
+    path_roi = None
+    for (B, H, W, C, R) in ((DET_BATCH, 38, 38, 1024, 300),
+                            (2, 21, 19, 256, 13), (3, 9, 11, 6, 7)):
+        feats = torch.randn(B, H, W, C, device=dev, generator=g)
+        lo = torch.rand(B, R, 2, device=dev, generator=g) * torch.tensor(
+            [16.0 * W, 16.0 * H], device=dev) - 40
+        rois = torch.cat([lo, lo + torch.rand(B, R, 2, device=dev,
+                                               generator=g) * 300 + 4], -1)
+        got = roi_align_batched(feats, rois, 7, 1 / 16.0, 2, impl="cuda")
+        torch.cuda.synchronize()
+        want = roi_align_batched(feats, rois, 7, 1 / 16.0, 2, impl="plain")
+        e = float((got - want).abs().max())
+        tol = ROI_TOL * max(1.0, float(feats.abs().max()))
+        print(f"[detection] roi_align {(B, H, W, C)} x {R} RoIs: max|d| "
+              f"{e:.3e} (tol {tol:.3e}) {'ok' if e <= tol else 'FAILED'}",
+              flush=True)
+        check(e <= tol and float(want.abs().sum()) > 0,
+              "ROIAlign kernel disagrees with its plain version")
+        worst_roi = max(worst_roi, e)
+        if path_roi is None:
+            path_roi = (feats, rois)
+        del got, want
+
+    # ---- c. the detector at full width on four 600^2 scenes
+    det_cfg = dataclasses.replace(DetectorConfig(), resnet_style="caffe")
+    t0 = time.perf_counter()
+    model = build_detector(det_cfg, generator=torch.Generator().manual_seed(
+        SEED)).to(dev)
+    scenes = make_synthetic_box_dataset(
+        DET_BATCH, hw=(DET_SIZE, DET_SIZE), min_size=int(DET_SIZE * 0.25),
+        max_size=int(DET_SIZE * 0.62), seed=SEED)
+    images = torch.from_numpy(scenes.images).to(dev)
+    blob, scale = prepare_blob(images, det_cfg)
+    scale_detector_heads(model, blob)
+    torch.cuda.synchronize()
+    print(f"[detection] built R{det_cfg.resnet_type} {det_cfg.resnet_style} "
+          f"detector, {sum(p.numel() for p in model.parameters())} params, "
+          f"and {DET_BATCH} scenes of {DET_SIZE}^2 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    with torch.inference_mode():
+        props_valid = model.upstream(blob)[2].sum(1).tolist()
+    print(f"[detection] valid proposals per scene {props_valid} of "
+          f"{det_cfg.rpn_post_nms_top_n_test}", flush=True)
+
+    for k in kernels.KERNELS:
+        k.launches = 0
+    det = detect(model, images)
+    torch.cuda.synchronize()
+    counts = {k.symbol: k.launches for k in kernels.KERNELS}
+    want_counts = {k.symbol: {kernels.ROI_ALIGN_FWD: 1, kernels.NMS: 2}.get(
+        k, 0) for k in kernels.KERNELS}
+    print(f"[detection] one detect: launches {counts}", flush=True)
+    check(counts == want_counts, f"detect launches {counts}, expected "
+          f"{want_counts}")
+    split = detect_split(model, images)
+    same_split = all(torch.equal(a, b) for a, b in zip(det, split))
+    for k in kernels.KERNELS:
+        k.launches = 0
+    with plain_detector_ops():
+        plain = detect(model, images)
+        torch.cuda.synchronize()
+    plain_launches = sum(k.launches for k in kernels.KERNELS)
+    crop = hand_detector._crop_from_detections(det, (DET_SIZE, DET_SIZE),
+                                               1.75)
+    crop_plain = hand_detector._crop_from_detections(
+        plain, (DET_SIZE, DET_SIZE), 1.75)
+    keep_same = bool(torch.equal(det.valid, plain.valid))
+    d_crop = float((crop - crop_plain).abs().max())
+    d_box = float((det.boxes - plain.boxes).abs().max())
+    tol_crop = BOX_TOL_ABS + BOX_TOL_REL * float(crop_plain.abs().max())
+    tol_box = BOX_TOL_ABS + BOX_TOL_REL * float(plain.boxes.abs().max())
+    print(f"[detection] {int(det.valid.sum())} detections over "
+          f"{DET_BATCH} scenes (per scene {det.valid.sum(1).tolist()}), "
+          f"best scores {[round(v, 4) for v in det.scores[:, 0].tolist()]}; "
+          f"detect_split equal to detect: {same_split}; kernel-backed vs "
+          f"plain-backed detect ({plain_launches} kernel launches in the "
+          f"plain run): keep sets equal {keep_same}, max|d boxes| "
+          f"{d_box:.3e} (tol {tol_box:.3e}), max|d crop| {d_crop:.3e} (tol "
+          f"{tol_crop:.3e})", flush=True)
+    check(same_split, "detect_split disagrees with detect")
+    check(plain_launches == 0, "the plain-backed detect launched a kernel")
+    check(keep_same and d_crop <= tol_crop and d_box <= tol_box,
+          "the kernel-backed detect disagrees with the plain-backed one")
+    check(int(det.valid.sum()) > 0 and bool(torch.isfinite(crop).all()),
+          "the detector found nothing")
+    gt = np.stack([b[0] for b in scenes.gt_boxes])
+    print(f"[detection] crop boxes (cx, cy, w, h) {crop.tolist()}; scene "
+          f"GT boxes {gt.tolist()} (random weights: no accuracy expected)",
+          flush=True)
+
+    # ---- d. the two-stage pipeline and the challenge CLI
+    pose = get_pose_net(cfg.model,
+                        generator=torch.Generator().manual_seed(SEED))
+    pcfg = cfg.replace(detector=det_cfg)
+    pipe = TwoStagePipeline(pcfg, pose, model, device=dev)
+    frames = SyntheticFreiHand(n=PIPE_FRAMES, render_joints=True, seed=SEED)
+    n_batches = PIPE_FRAMES // DET_BATCH
+    for k in kernels.KERNELS:
+        k.launches = 0
+    outs = []
+    for b in range(n_batches):
+        host = frames.host_batch(np.arange(b * DET_BATCH,
+                                           (b + 1) * DET_BATCH))
+        outs.append(pipe(host["image"], host["K"], host["ref_bone_len"]))
+    torch.cuda.synchronize()
+    pipe_counts = {k.symbol: k.launches for k in kernels.KERNELS}
+    want_counts = {k.symbol: {kernels.ROI_ALIGN_FWD: n_batches,
+                              kernels.NMS: 2 * n_batches,
+                              kernels.HEAD_PROJECTION_INTEGRAL_FWD: n_batches
+                              }.get(k, 0) for k in kernels.KERNELS}
+    joints = torch.cat([o.joints_cam for o in outs])
+    print(f"[detection] TwoStagePipeline swept {PIPE_FRAMES} frames of 224^2 "
+          f"in {n_batches} batches of {DET_BATCH}: joints_cam "
+          f"{tuple(joints.shape)} finite {bool(torch.isfinite(joints).all())}"
+          f", crop boxes {torch.cat([o.crop_bbox for o in outs]).tolist()}; "
+          f"launches {pipe_counts}", flush=True)
+    check(pipe_counts == want_counts, f"pipeline launches {pipe_counts}, "
+          f"expected {want_counts}")
+    check(joints.shape == (PIPE_FRAMES, 21, 3)
+          and bool(torch.isfinite(joints).all()), "pipeline joints")
+    with tempfile.TemporaryDirectory() as d:
+        for k in kernels.KERNELS:
+            k.launches = 0
+        preds = cli.main(["--synthetic", "--synthetic-size", str(PIPE_FRAMES),
+                          "--batch-size", str(DET_BATCH), "--use-detector",
+                          "--model-dir", os.path.join(d, "none"),
+                          "--result-dir", d, "--bbox-db",
+                          os.path.join(d, "bbox.npz"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        cli_counts = {k.symbol: k.launches for k in kernels.KERNELS}
+        with open(os.path.join(d, "pred.json")) as f:
+            xyz = np.asarray(json.load(f)[0])
+    print(f"[detection] cli.evaluate --synthetic --use-detector --device "
+          f"cuda wrote pred.json with {xyz.shape} joints, finite "
+          f"{bool(np.isfinite(xyz).all())}; launches {cli_counts}",
+          flush=True)
+    check(xyz.shape == (PIPE_FRAMES, 21, 3) and np.isfinite(xyz).all()
+          and np.allclose(xyz, preds), "cli.evaluate's pred.json")
+    check(cli_counts == want_counts, f"cli launches {cli_counts}")
+
+    # ---- e. timing
+    feats, rois = path_roi
+    _, rb, rs, rthr, rk, rst = rpn_case
+    order = torch.sort(rs, dim=1, descending=True, stable=True).indices
+    rb_sorted = torch.gather(rb, 1, order[..., None].expand_as(rb))
+    alive0 = torch.gather(rs, 1, order) > rst
+    t_nms = time_pair(
+        lambda: nms_mod._alive_cuda(rb_sorted, alive0, rthr, True),
+        lambda: nms_mod._alive_plain(rb_sorted, alive0, rthr, True))
+    t_nms_call = time_pair(
+        lambda: nms_mod.nms(rb, rs, rthr, rk, rst, impl="cuda"),
+        lambda: nms_mod.nms(rb, rs, rthr, rk, rst, impl="plain"))
+    t_roi = time_pair(
+        lambda: roi_align_batched(feats, rois, 7, 1 / 16.0, 2, impl="cuda"),
+        lambda: roi_align_batched(feats, rois, 7, 1 / 16.0, 2, impl="plain"))
+    print(f"[timing] nms kernel (mask + sweep) at the RPN shape "
+          f"{tuple(rb.shape)} IoU {rthr}: {t_nms[0]:.4f} ms, plain "
+          f"{t_nms[1]:.4f} ms; whole nms() with sort and compaction "
+          f"{t_nms_call[0]:.4f} ms, plain {t_nms_call[1]:.4f} ms on {card}",
+          flush=True)
+    print(f"[timing] roi_align at {tuple(feats.shape)} x {rois.shape[1]} "
+          f"RoIs: kernel {t_roi[0]:.4f} ms, plain {t_roi[1]:.4f} ms on "
+          f"{card}", flush=True)
+
+    # bounds from this run's inputs. NMS: the greedy result needs the IoU
+    # of each kept box with every later box (~17 float32 operations each);
+    # its bytes (boxes in, keep flags out) are negligible
+    keep = nms_mod._alive_plain(rb_sorted, alive0, rthr, True)
+    N = rb.shape[1]
+    pos = torch.arange(N, device=dev)
+    pairs = float(((N - 1 - pos) * keep).sum())
+    nms_bound = bound(rb.numel() * 4 + alive0.numel() * 2, 17 * pairs)
+    P, C = 7, feats.shape[-1]
+    out_elems = rois.shape[0] * rois.shape[1] * P * P * C
+    roi_bound = bound(feats.numel() * 4 + rois.numel() * 4 + out_elems * 4,
+                      out_elems * 4 * 10)
+
+    def one_call_ms(fn, n=10):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        return statistics.median(event_ms(fn, 1) for _ in range(n))
+
+    t_detect = one_call_ms(lambda: detect(model, images))
+    t_split = one_call_ms(lambda: detect_split(model, images))
+    t_split2 = one_call_ms(lambda: detect_split(model, images))
+    t_detect2 = one_call_ms(lambda: detect(model, images))
+    print(f"[timing] detect, R{det_cfg.resnet_type} float32 at batch "
+          f"{DET_BATCH} x {DET_SIZE}^2, one call at a time (CUDA events, "
+          f"median of 10): {t_detect:.3f} / {t_detect2:.3f} ms; "
+          f"detect_split {t_split:.3f} / {t_split2:.3f} ms (turns: detect, "
+          f"split, split, detect); {DET_BATCH / t_detect * 1e3:.1f} img/s "
+          f"on {card}", flush=True)
+
+    # the detector's stages, one at a time between CUDA events
+    c = det_cfg
+    with torch.inference_mode():
+        blob, scale = prepare_blob(images, c)
+        x = blob.permute(0, 3, 1, 2)
+        f = model.RCNN_base(x)
+        cls, reg = model.RCNN_rpn(f)
+        feats_d = f.permute(0, 2, 3, 1)
+        anchors = model.anchors(feats_d.shape[1:3], dev)
+        props = proposal_layer(cls.permute(0, 2, 3, 1),
+                               reg.permute(0, 2, 3, 1), anchors,
+                               blob.shape[1:3], c.rpn_pre_nms_top_n_test,
+                               c.rpn_post_nms_top_n_test, c.rpn_nms_thresh,
+                               c.rpn_min_size)
+        B, R = props.rois.shape[:2]
+        pooled = roi_align_batched(feats_d.float().contiguous(), props.rois,
+                                   7, c.spatial_scale, c.sampling_ratio)
+        xt = pooled.reshape(B * R, 7, 7, -1).permute(0, 3, 1, 2)
+        out = model.downstream(feats_d, props.rois, props.valid)
+        stages = {
+            "blob (BGR, means, 2 matmuls)": lambda: prepare_blob(images, c),
+            "base conv1..layer3": lambda: model.RCNN_base(x),
+            "RPN convs": lambda: model.RCNN_rpn(f),
+            "proposal layer (softmax, decode, sort, NMS)": lambda:
+                proposal_layer(cls.permute(0, 2, 3, 1),
+                               reg.permute(0, 2, 3, 1), anchors,
+                               blob.shape[1:3], c.rpn_pre_nms_top_n_test,
+                               c.rpn_post_nms_top_n_test, c.rpn_nms_thresh,
+                               c.rpn_min_size),
+            "ROIAlign": lambda: roi_align_batched(
+                feats_d.float().contiguous(), props.rois, 7,
+                c.spatial_scale, c.sampling_ratio),
+            "tail layer4 + heads": lambda: model.RCNN_cls_score(
+                model.RCNN_top(xt).mean(dim=(2, 3))),
+            "postprocess (decode, class NMS)": lambda:
+                hand_detector._postprocess(out, c, blob.shape[1:3], scale),
+        }
+        stage_ms = {name: one_call_ms(fn, 5) for name, fn in stages.items()}
+        host = frames.host_batch(np.arange(DET_BATCH))
+        d_img = torch.from_numpy(host["image"]).to(dev)
+        d_K = torch.from_numpy(host["K"]).to(dev)
+        d_ref = torch.from_numpy(host["ref_bone_len"]).to(dev)
+        bbox = hand_detector.detect_hand_crop_bbox(model, d_img, c)
+        stage_ms["pose stage (crop, R50, fused head, back-projection)"] = \
+            one_call_ms(lambda: pipe._pose_stage(d_img, bbox, d_K, d_ref), 5)
+    print("[timing] detector stages at batch {} x {}^2, one at a time "
+          "(CUDA events, median of 5): {} on {}".format(
+              DET_BATCH, DET_SIZE, ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in stage_ms.items()), card),
+          flush=True)
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            pipe(host["image"], host["K"], host["ref_bone_len"])
+        torch.cuda.synchronize()
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / 3 / 1e3
+
+    # kernel rows only: an operator's row repeats its kernels' device time
+    kernel_rows = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(dev_ms(e) for e in kernel_rows)
+    print(f"[profile] TwoStagePipeline at batch {DET_BATCH}, 3 calls: device "
+          f"busy {busy:.3f} ms per call (sum of kernel time); top kernels:",
+          flush=True)
+    for e in sorted(kernel_rows, key=lambda e: -dev_ms(e))[:12]:
+        print(f"[profile]   {dev_ms(e):8.3f} ms/call x{e.count // 3:<4d} "
+              f"{e.key[:90]}", flush=True)
+
+    for _ in range(2):
+        pipe(host["image"], host["K"], host["ref_bone_len"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        pipe(host["image"], host["K"], host["ref_bone_len"])
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t0) / 10 * 1e3
+    print(f"[timing] TwoStagePipeline back to back (host batches of "
+          f"{DET_BATCH} frames 224^2 -> 600^2 blobs -> R101 detector -> R50 "
+          f"pose): {per:.3f} ms/batch over 10 batches (host clock), "
+          f"{DET_BATCH / per * 1e3:.1f} img/s on {card}", flush=True)
+
+    launches = {k: pipe_counts[k] + cli_counts[k] + counts[k]
+                for k in pipe_counts}
+    return launches, {
+        "roi_align": (worst_roi, t_roi, roi_bound),
+        "nms": (float(worst_nms), t_nms, nms_bound),
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -458,7 +934,8 @@ def main() -> None:
         kernels.SOFTMAX_INTEGRAL_FWD.symbol: n_batches,
         kernels.SOFTMAX_INTEGRAL_BWD.symbol: 0,
         kernels.HEAD_PROJECTION_INTEGRAL_BWD.symbol: 0,
-        kernels.WARP_TWOPASS.symbol: 0},
+        kernels.WARP_TWOPASS.symbol: 0, kernels.ROI_ALIGN_FWD.symbol: 0,
+        kernels.NMS.symbol: 0},
         f"serving launches {serving_launches}, expected {n_batches} of each "
         f"forward kernel and nothing else")
 
@@ -676,6 +1153,28 @@ def main() -> None:
     print(f"[timing] softmax_integral_fwd with a float32 heatmap: kernel "
           f"{k32:.4f} ms, plain {p32:.4f} ms on {card}", flush=True)
 
+    # the least time for each kernel's work at these shapes
+    B, HW, JD = hm.shape[0], hm.shape[1] * hm.shape[2], hm.shape[3]
+    proj_flops = 2.0 * B * HW * F * JD
+    bounds = {
+        # read the bf16 heatmap once; ~8 float32 operations per element
+        "softmax_integral_fwd": bound(hm.numel() * 2, hm.numel() * 8),
+        # read it and write its bf16 gradient
+        "softmax_integral_bwd": bound(hm.numel() * 4, hm.numel() * 10),
+        # the projection, bf16 features x float32 weights, on tensor cores
+        "head_projection_integral_fwd": bound(
+            feats.numel() * 2 + w.numel() * 4, proj_flops, BF16X3_FLOPS),
+        # logits again, dfeat = g W and dW = feats^T g, likewise
+        "head_projection_integral_bwd": bound(
+            2 * feats.numel() * 2 + 2 * w.numel() * 4, 3 * proj_flops,
+            BF16X3_FLOPS),
+        # read the float32 images once and write the warped ones
+        "warp_twopass": bound(2 * images.numel() * 4, images.numel() * 30),
+    }
+
+    # ---- 7. the two-stage (detector -> pose) serving path
+    det_launches, det = detection_phase(dev, g, card, cfg)
+
     pkg = "hand_integral_pose_estimation_tpu_torch/csrc/"
     ref = "hand_integral_pose_estimation_tpu/ops/"
     meta = {
@@ -692,13 +1191,26 @@ def main() -> None:
             "head_projection_integral_bwd.cu", "fused_head.py:106"),
         "warp_twopass": (kernels.WARP_TWOPASS, "warp_twopass.cu",
                          "warp.py:156"),
+        "roi_align": (kernels.ROI_ALIGN_FWD, "roi_align.cu",
+                      "roi_align.py:93"),
+        "nms": (kernels.NMS, "nms.cu", "nms.py:231"),
     }
+    for name, (e, t, b) in det.items():
+        err[name] = e
+        times[name] = t
+        bounds[name] = b
+    for name, (k, _, _) in meta.items():
+        print(f"[timing] {name}: kernel {times[name][0]:.4f} ms, plain "
+              f"{times[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]}) on {card}", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": pkg + src,
          "replaces": ref + tpu,
-         "launches": serving_launches[k.symbol] + train_launches[k.symbol],
+         "launches": (serving_launches[k.symbol] + train_launches[k.symbol]
+                      + det_launches[k.symbol]),
          "max_abs_err": err[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
         for name, (k, src, tpu) in meta.items()]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -50,7 +50,7 @@ class Batch(NamedTuple):
     ref_bone_len: torch.Tensor         # (B,)
 
 
-def _channel_constant(values, like: torch.Tensor) -> torch.Tensor:
+def channel_constant(values, like: torch.Tensor) -> torch.Tensor:
     """(C,) tensor of `values` on `like`'s device, written by fill kernels:
     a blocking host-to-device copy would wait for the stream to drain."""
     return torch.stack([torch.full((), float(v), dtype=like.dtype,
@@ -59,8 +59,8 @@ def _channel_constant(values, like: torch.Tensor) -> torch.Tensor:
 
 def _normalise(patch: torch.Tensor, color_scale: torch.Tensor,
                acfg: AugmentConfig) -> torch.Tensor:
-    mean = _channel_constant(acfg.pixel_mean, patch)
-    std = _channel_constant(acfg.pixel_std, patch)
+    mean = channel_constant(acfg.pixel_mean, patch)
+    std = channel_constant(acfg.pixel_std, patch)
     return torch.clamp((patch - mean) / std * color_scale, 0.0, 255.0)
 
 

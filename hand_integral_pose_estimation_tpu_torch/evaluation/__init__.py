@@ -1,4 +1,5 @@
-"""Evaluation: PA-MPJPE / MPJPE pipeline and test-split artifacts."""
+"""Evaluation: PA-MPJPE / MPJPE pipeline, test-split artifacts and the
+FreiHAND-challenge dump."""
 
 from hand_integral_pose_estimation_tpu_torch.evaluation.metrics import (  # noqa: F401
     EvalResult,
@@ -7,5 +8,6 @@ from hand_integral_pose_estimation_tpu_torch.evaluation.metrics import (  # noqa
     scale_by_ref_bone,
 )
 from hand_integral_pose_estimation_tpu_torch.evaluation.evaluator import (  # noqa: F401
+    evaluate_challenge,
     evaluate_test_split,
 )

@@ -1,14 +1,15 @@
-"""Test-split evaluation and its artifacts.
+"""Test-split evaluation, the FreiHAND-challenge dump and their artifacts.
 
-Port of `evaluate_test_split` in
+Port of `evaluate_test_split` and `evaluate_challenge` in
 hand_integral_pose_estimation_tpu/evaluation/evaluator.py (the reference's
-`FreiHand.evaluate`, FreiHand.py:670-835). The metric math runs on the CPU
-in the dtype of the collected arrays. The challenge dump and the offline
-scorer wait for a later port.
+`FreiHand.evaluate`, FreiHand.py:670-835, and `evaluate_evaluations`,
+FreiHand.py:853-917). The math runs on the CPU in the dtype of the
+collected arrays. The offline scorer waits for a later port.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Optional
 
@@ -16,6 +17,11 @@ import numpy as np
 import torch
 
 from hand_integral_pose_estimation_tpu_torch.evaluation import metrics
+from hand_integral_pose_estimation_tpu_torch.geometry import (
+    bbox as bbox_mod,
+    labels as lbl,
+    transforms,
+)
 
 
 def evaluate_test_split(coords_label: np.ndarray, batch,
@@ -55,3 +61,35 @@ def evaluate_test_split(coords_label: np.ndarray, batch,
             f.write(summary["p1_summary"] + "\n")
             f.write(summary["p2_summary"] + "\n")
     return summary
+
+
+def evaluate_challenge(coords_label: np.ndarray, bbox: np.ndarray,
+                       K: np.ndarray, ref_bone_len: np.ndarray,
+                       result_dir: str = ".",
+                       pred_name: str = "pred.json",
+                       scaling_constant: float = 100.0,
+                       patch_hw=(224, 224),
+                       num_verts: int = 778) -> np.ndarray:
+    """Challenge prediction dump (FreiHand.py:853-917): patch -> image ->
+    camera back-projection with the box-derived tprime (no rotation at
+    evaluation), the bone-(9, 10) rescale to the given scale, and a
+    [xyz_list, verts_list] pred.json with zero vertices, beside
+    evaluation_predictions.npy. Returns the (N, J, 3) predictions."""
+    t = torch.as_tensor
+    bbox = t(bbox)
+    K = t(K)
+    trans_inv = transforms.trans_from_patch(
+        bbox[:, 0], bbox[:, 1], bbox[:, 2], bbox[:, 3], patch_hw[1],
+        patch_hw[0], scale=1.0, inv=True)
+    tprime = bbox_mod.tprime_from_bbox(bbox, K, scaling_constant)
+    cam = lbl.patch_label_to_camera(t(coords_label), trans_inv, tprime, K,
+                                    R=None, patch_width=patch_hw[1],
+                                    patch_height=patch_hw[0], derotate=False)
+    preds = metrics.scale_by_ref_bone(cam, t(ref_bone_len)).numpy()
+
+    os.makedirs(result_dir, exist_ok=True)
+    np.save(os.path.join(result_dir, "evaluation_predictions.npy"), preds)
+    verts = [np.zeros((num_verts, 3)).tolist()] * preds.shape[0]
+    with open(os.path.join(result_dir, pred_name), "w") as f:
+        json.dump([[p.tolist() for p in preds], verts], f)
+    return preds

@@ -1,6 +1,6 @@
 """Device ops: the soft-argmax decode and the fused head, forward and
-backward, and the batched warps (CUDA kernels with plain PyTorch versions
-beside them)."""
+backward, the batched warps, NMS and ROIAlign (CUDA kernels with plain
+PyTorch versions beside them)."""
 
 from hand_integral_pose_estimation_tpu_torch.ops.fused_head import (  # noqa: F401
     head_projection_integral,

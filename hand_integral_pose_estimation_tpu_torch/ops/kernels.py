@@ -128,7 +128,7 @@ class Kernel:
         self.launches += 1
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 #: (hm, dtype, coords, m, s, B, H, W, J, D, stream)
 SOFTMAX_INTEGRAL_FWD = Kernel(
@@ -152,5 +152,14 @@ HEAD_PROJECTION_INTEGRAL_BWD = Kernel(
 WARP_TWOPASS = Kernel(
     "hipe_warp_twopass", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 
+#: (feats, rois, out, B, H, W, C, R, pooled, sampling ratio,
+#:  spatial scale, stream)
+ROI_ALIGN_FWD = Kernel(
+    "hipe_roi_align_fwd", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P])
+#: (boxes, alive, mask, keep, B, N, iou threshold, plus one, stop after,
+#:  stream)
+NMS = Kernel("hipe_nms", [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P])
+
 KERNELS = (SOFTMAX_INTEGRAL_FWD, HEAD_PROJECTION_INTEGRAL_FWD,
-           SOFTMAX_INTEGRAL_BWD, HEAD_PROJECTION_INTEGRAL_BWD, WARP_TWOPASS)
+           SOFTMAX_INTEGRAL_BWD, HEAD_PROJECTION_INTEGRAL_BWD, WARP_TWOPASS,
+           ROI_ALIGN_FWD, NMS)

@@ -7,6 +7,9 @@ the card's machine need not have):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import math
+
+import numpy as np
 import pytest
 import torch
 
@@ -14,6 +17,8 @@ from hand_integral_pose_estimation_tpu_torch.ops import (
     fused_head,
     integral,
     kernels,
+    nms,
+    roi_align,
     warp,
 )
 
@@ -41,6 +46,11 @@ FUSED_GRAD_ABS_SCALE = 1e-4
 # version (round-to-nearest intrinsics in the plain version's order) and
 # the same two taps: pixel values on the 0..255 scale agree to 1e-3.
 WARP_TOL = 1e-3
+# ROIAlign kernel and plain version weight the same float32 taps and sum
+# the 16 products of a bin in another order: a few ulps of the largest
+# feature. NMS keep sets are bitwise equal: the kernel forms the plain
+# version's float32 IoU with the same rounded operations.
+ROI_TOL = 1e-5
 
 
 @pytest.fixture
@@ -215,7 +225,8 @@ def test_autograd_functions_take_the_kernels_both_ways(dev):
                         "hipe_head_projection_integral_fwd": 1,
                         "hipe_softmax_integral_bwd": 1,
                         "hipe_head_projection_integral_bwd": 1,
-                        "hipe_warp_twopass": 0}
+                        "hipe_warp_twopass": 0, "hipe_roi_align_fwd": 0,
+                        "hipe_nms": 0}
 
     want_hm, = torch.autograd.grad(
         integral.softmax_integral_reference(hm, J, D)[0], hm, cot)
@@ -308,6 +319,114 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     fused_head.head_projection_integral(feats, w, b, J, D).sum().backward()
     torch.cuda.synchronize()
     assert [k.launches for k in kernels.KERNELS] == [
-        c + (k is not kernels.WARP_TWOPASS)
+        c + (k not in (kernels.WARP_TWOPASS, kernels.ROI_ALIGN_FWD,
+                       kernels.NMS))
         for k, c in zip(kernels.KERNELS, counts)]
     assert hm.grad.shape == hm.shape and w.grad.shape == w.shape
+
+
+def _nms_boxes(mode: str, B: int, N: int, seed: int):
+    """(B, N, 4) boxes and (B, N) scores on the host: the alternating chain
+    (every other box survives), random boxes, proposal-like clusters of
+    near-duplicates, or clusters with tied scores (a tenth of them -1, as
+    the min-size filter leaves them)."""
+    rng = np.random.RandomState(seed)
+    if mode == "chain":
+        i = np.arange(N, dtype=np.float64)
+        b = np.stack([4 * i, 0 * i, 4 * i + 10, 0 * i + 10], -1)
+        return (np.broadcast_to(b, (B, N, 4)).astype(np.float32),
+                np.broadcast_to(np.linspace(1.0, 0.5, N), (B, N))
+                .astype(np.float32))
+    if mode == "random":
+        ctr = rng.rand(B, N, 2) * 600
+        wh = rng.rand(B, N, 2) * 120 + 8
+    else:
+        k = max(N // 60, 1)
+        ctr = (rng.rand(B, N, 2) * 60
+               + np.repeat(rng.rand(B, k, 2) * 500, -(-N // k), axis=1)[:, :N])
+        wh = rng.rand(B, N, 2) * 60 + 40
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)
+    scores = rng.rand(B, N).astype(np.float32)
+    if mode == "ties":
+        scores = np.round(scores * 8) / 8
+        scores[rng.rand(B, N) < 0.1] = -1.0
+    return boxes, scores.astype(np.float32)
+
+
+# (mode, B, N, IoU threshold, top_k, score threshold): the chain across
+# many 64-box blocks, the RPN shape, the class-NMS shape, ties, top_k > N
+NMS_CASES = [("chain", 1, 1100, 0.3, 1100, -math.inf),
+             ("clustered", 4, 6000, 0.7, 300, 0.0),
+             ("random", 4, 6000, 0.7, 300, 0.0),
+             ("clustered", 4, 300, 0.3, 100, 0.001),
+             ("ties", 2, 700, 0.5, 50, 0.0),
+             ("random", 3, 40, 0.5, 100, -math.inf)]
+
+
+@pytest.mark.parametrize("early_exit", [False, True])
+@pytest.mark.parametrize("case", NMS_CASES)
+def test_nms_kernel_matches_plain(dev, case, early_exit):
+    mode, B, N, thr, top_k, score_thr = case
+    boxes, scores = _nms_boxes(mode, B, N, seed=N)
+    boxes, scores = torch.from_numpy(boxes).to(dev), torch.from_numpy(
+        scores).to(dev)
+    before = kernels.NMS.launches
+    got = nms.nms(boxes, scores, thr, top_k, score_thr, impl="cuda",
+                  early_exit=early_exit)
+    torch.cuda.synchronize()
+    assert kernels.NMS.launches == before + 1
+    want = nms.nms(boxes, scores, thr, top_k, score_thr, impl="plain",
+                   early_exit=early_exit)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if mode == "chain":
+        assert int(got[2].sum()) == N // 2
+        torch.testing.assert_close(got[0][0, :N // 2], boxes[0, ::2],
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(4, 38, 38, 1024, 300),
+                                   (2, 21, 19, 256, 13), (3, 9, 11, 6, 7)])
+def test_roi_align_kernel_matches_plain(dev, shape):
+    """The detector's shape, then H*W not a multiple of 8 with an odd RoI
+    count, then C not a multiple of 4 (the kernel's scalar path); RoIs
+    cross the border and some are thinner than a feature cell."""
+    B, H, W, C, R = shape
+    g = torch.Generator(device=dev).manual_seed(7)
+    feats = torch.randn(B, H, W, C, device=dev, generator=g)
+    lo = torch.rand(B, R, 2, device=dev, generator=g) * torch.tensor(
+        [16.0 * W, 16.0 * H], device=dev) - 40
+    wh = torch.rand(B, R, 2, device=dev, generator=g) * 300 + 4
+    rois = torch.cat([lo, lo + wh], -1)
+    before = kernels.ROI_ALIGN_FWD.launches
+    got = roi_align.roi_align_batched(feats, rois, 7, 1 / 16.0, 2)
+    torch.cuda.synchronize()
+    assert kernels.ROI_ALIGN_FWD.launches == before + 1
+    want = roi_align.roi_align_batched(feats, rois, 7, 1 / 16.0, 2,
+                                       impl="plain")
+    assert got.shape == (B, R, 7, 7, C) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=ROI_TOL * max(
+        1.0, float(feats.abs().max())))
+    assert float(got.abs().sum()) > 0
+
+
+def test_detector_kernel_wrappers_refuse_what_they_do_not_take(dev):
+    feats = torch.randn(1, 8, 8, 16, device=dev)
+    rois = torch.tensor([[[0.0, 0.0, 60.0, 60.0]]], device=dev)
+    boxes = torch.rand(1, 10, 4, device=dev)
+    counts = [k.launches for k in kernels.KERNELS]
+    with pytest.raises(TypeError):
+        roi_align.roi_align_cuda(feats.double(), rois)
+    with pytest.raises(ValueError, match="contiguous"):
+        roi_align.roi_align_cuda(feats.permute(0, 2, 1, 3), rois)
+    with pytest.raises(ValueError):
+        roi_align.roi_align_cuda(feats, rois.cpu())
+    with pytest.raises(ValueError):
+        roi_align.roi_align_cuda(feats, rois[:, :, :3])
+    with pytest.raises(ValueError):
+        nms._alive_cuda(boxes.cpu(), torch.ones(1, 10, dtype=torch.bool),
+                        0.5, True)
+    with pytest.raises(ValueError):
+        nms._alive_cuda(boxes, torch.ones(1, 9, dtype=torch.bool,
+                                          device=dev), 0.5, True)
+    assert [k.launches for k in kernels.KERNELS] == counts

@@ -42,13 +42,15 @@ def randomized_jax_variables(cfg: ModelConfig, seed: int,
     torch ones: conv kernels and biases N(0, 0.05), BN scale U(0.5, 1.5),
     bias N(0, 0.1), running mean N(0, 0.1), running var U(0.5, 1.5)."""
     net = jax_pose_net(cfg)
-    variables = net.init(jax.random.PRNGKey(0),
-                         jnp.zeros((1, *cfg.input_shape, 3)), train=False)
+    # every leaf is drawn anew: the init's shapes are all that is needed
+    variables = jax.eval_shape(
+        lambda x: net.init(jax.random.PRNGKey(0), x, train=False),
+        jnp.zeros((1, *cfg.input_shape, 3)))
     rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
         name = path[-1].key
-        shape = np.shape(leaf)
+        shape = leaf.shape
         if name == "scale":
             v = rng.uniform(0.5, 1.5, shape)
         elif name == "var":

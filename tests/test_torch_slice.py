@@ -183,6 +183,33 @@ NO_JAX_SCRIPT = textwrap.dedent("""
     cli_test.main(["--synthetic", "--synthetic-size", "2", "--batch-size",
                    "2", "--device", "cpu", "--model-dir", sys.argv[1] + "/m",
                    "--result-dir", sys.argv[1], *sizing])
+    # the two-stage serving slice: detector -> crop -> pose, then the
+    # challenge CLI with the detector and its crop-box cache
+    from hand_integral_pose_estimation_tpu_torch.cli import (
+        evaluate as cli_evaluate)
+    from hand_integral_pose_estimation_tpu_torch.config import DetectorConfig
+    from hand_integral_pose_estimation_tpu_torch.detect import build_detector
+    from hand_integral_pose_estimation_tpu_torch.inference import (
+        TwoStagePipeline)
+    import numpy as np
+    det_cfg = DetectorConfig(resnet_type=18, test_scale=64, test_max_size=64,
+                             rpn_pre_nms_top_n_test=64,
+                             rpn_post_nms_top_n_test=16, max_detections=5)
+    pipe = TwoStagePipeline(
+        cfg.replace(detector=det_cfg), model,
+        build_detector(det_cfg, generator=torch.Generator().manual_seed(0)),
+        device="cpu")
+    ds = SyntheticFreiHand(n=2, image_hw=(64, 64))
+    host = ds.host_batch(np.arange(2))
+    out = pipe(host["image"], host["K"], host["ref_bone_len"])
+    assert out.joints_cam.shape == (2, 21, 3)
+    assert bool(torch.isfinite(out.joints_cam).all())
+    cli_evaluate.main(["--synthetic", "--synthetic-size", "3", "--batch-size",
+                       "2", "--use-detector", "--detector-resnet", "18",
+                       "--detector-scale", "64", "--detector-proposals", "16",
+                       "--bbox-db", sys.argv[1] + "/bbox.npz", "--result-dir",
+                       sys.argv[1] + "/eval", "--model-dir", sys.argv[1] + "/m",
+                       "--device", "cpu", *sizing])
     assert rotation.sample_rotation_matrix(torch.Generator(), 2).shape == (
         2, 3, 3)
     assert callable(losses.combined_loss) and callable(
@@ -196,7 +223,8 @@ NO_JAX_SCRIPT = textwrap.dedent("""
 def test_port_runs_without_jax(tmp_path):
     """Every module of the port imports, and the CPU slices run (serving:
     both head arms, evaluation, the test CLI; training: the Trainer on both
-    arms, the train CLI's snapshot read back by the test CLI), with
+    arms, the train CLI's snapshot read back by the test CLI; two-stage
+    serving: the detector pipeline and the challenge CLI), with
     jax/flax/optax/orbax and the JAX package blocked by a sys.meta_path
     finder in a fresh interpreter."""
     env = dict(os.environ)
