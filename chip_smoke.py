@@ -10,25 +10,29 @@ before the result line.
    power limit, the torch and CUDA versions and the TF32 switches (both set
    off, so float32 matmuls and convs run in full float32);
 2. build: compiles the CUDA kernels from `csrc/` (one nvcc per source, all
-   at once) and prints the seconds;
+   at once) and prints the seconds, then counts the tensor-core product
+   instructions (HMMA / HGMMA) in the SASS of the fused head's bf16
+   kernels (kernels 3 and 4) and fails if any has none;
 3. kernels: each of the five pose kernels against its plain PyTorch
    version on the card, at the shapes of the two paths and at small ragged
-   shapes;
+   shapes; kernels 3 and 4 with bf16 features (tensor cores) and float32
+   ones (CUDA cores), and also at the two-stage path's pose batch of 4;
 4. serving: the flagship model (ModelConfig(): ResNet-50, 224x224, bf16,
    21 joints x 56 depth x 56x56) with seeded random weights sweeps 80
    synthetic samples through `Tester.run` at batch 32 (three batches, the
    last padded) on both head arms, then `evaluate_test_split`; it checks
    the launch counts, the finite metrics and the coords against the plain
-   head, and times the slice;
+   head, times the slice and profiles it (device busy, host issue time);
 5. training: `Trainer.fit` at ModelConfig() and batch 32 on
    SyntheticFreiHand(render_joints=True) takes a few steps on each head
    arm; it checks the launch counts per step (the warp on both arms, the
    fused head's forward and backward or the soft-argmax's), the finite
    losses, the snapshot it writes, and on one batch the kernel-backed
    step's gradients against a plain-backed step's from the same state;
-   then it times the train step on both arms;
+   then it times and profiles the train step on both arms;
 6. timing: each kernel against its plain version with CUDA events, in
-   turns (plain, kernel, kernel, plain), at the paths' shapes;
+   turns (plain, kernel, kernel, plain), at the paths' shapes; kernels 3
+   and 4 with both feature dtypes, kernel 3 also at batch 4;
 7. detection: the NMS and ROIAlign kernels against their plain versions
    (keep sets bitwise equal; the suppression chain, clustered boxes at the
    RPN and class-NMS shapes, both early-exit settings; ROIAlign at the
@@ -62,6 +66,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -79,7 +84,7 @@ N_SAMPLES = 80
 SEED = 0
 # training steps per arm in the counted run, and steps per timing reading;
 # (f) kept small so that the whole script, builds included, stays far
-# inside its time limit (about 40 s of command time on an H100)
+# inside its time limit (about 80 s of command time on an H100)
 TRAIN_STEPS = 3
 TIME_STEPS = 10
 # Coords are means of positions in [-0.5, 0.5] weighted by softmax terms
@@ -343,6 +348,49 @@ def gradient_check(name, trainer, batch, fuse, leaf_tol, total_tol):
     check(worst <= leaf_tol and total <= total_tol,
           f"{name}: kernel-backed gradients disagree with the plain ones "
           f"at {worst_name}")
+
+
+def device_profile(fn, n: int):
+    """`fn` called n times under torch.profiler: the device busy time per
+    call (sum of kernel time) and the kernel rows (name, ms per call,
+    launches per call), longest first. Kernel rows only: an operator's row
+    repeats its kernels' device time, and a user annotation's device row
+    (Adam's `Optimizer.step#Adam.step`) spans its kernels."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, getattr(e, "self_device_time_total", getattr(
+        e, "self_cuda_time_total", 0.0)) / n / 1e3, e.count / n)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)),
+        key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows
+
+
+def print_profile(title: str, fn, n: int, card: str, top: int = 12) -> None:
+    busy, rows = device_profile(fn, n)
+    print(f"[profile] {title}, {n} calls: device busy {busy:.3f} ms per "
+          f"call (sum of kernel time) on {card}; top kernels:", flush=True)
+    for key, ms, count in rows[:top]:
+        print(f"[profile]   {ms:8.3f} ms/call x{count:<6g} {key[:90]}",
+              flush=True)
+
+
+def issue_ms(fn, n: int = 5) -> float:
+    """Median host time to issue one call of `fn`, the device idle at its
+    start (host clock, a synchronize before each call)."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS):
@@ -733,26 +781,9 @@ def detection_phase(dev, g, card, cfg):
                   f"{k} {v:.3f} ms" for k, v in stage_ms.items()), card),
           flush=True)
 
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            pipe(host["image"], host["K"], host["ref_bone_len"])
-        torch.cuda.synchronize()
-    def dev_ms(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0)) / 3 / 1e3
-
-    # kernel rows only: an operator's row repeats its kernels' device time
-    kernel_rows = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(dev_ms(e) for e in kernel_rows)
-    print(f"[profile] TwoStagePipeline at batch {DET_BATCH}, 3 calls: device "
-          f"busy {busy:.3f} ms per call (sum of kernel time); top kernels:",
-          flush=True)
-    for e in sorted(kernel_rows, key=lambda e: -dev_ms(e))[:12]:
-        print(f"[profile]   {dev_ms(e):8.3f} ms/call x{e.count // 3:<4d} "
-              f"{e.key[:90]}", flush=True)
+    print_profile(f"TwoStagePipeline at batch {DET_BATCH}",
+                  lambda: pipe(host["image"], host["K"], host["ref_bone_len"]),
+                  3, card)
 
     for _ in range(2):
         pipe(host["image"], host["K"], host["ref_bone_len"])
@@ -830,6 +861,12 @@ def main() -> None:
     kernels.library()
     print(f"[build] {lib_path.name} from {kernels.CSRC.name}/ in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tensor_core = kernels.tensor_core_instructions()
+    print(f"[build] tensor-core product instructions (HMMA / HGMMA) in the "
+          f"SASS of the fused head's bf16 kernels: {tensor_core}", flush=True)
+    check(all(n > 0 for n in tensor_core.values()),
+          f"a bf16 fused-head kernel has no tensor-core product: "
+          f"{tensor_core}")
 
     # ---- 3. kernels against their plain versions
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -842,8 +879,9 @@ def main() -> None:
         "softmax_integral_fwd", "head_projection_integral_fwd",
         "softmax_integral_bwd", "head_projection_integral_bwd",
         "warp_twopass")}
-    for (B, H, W, j, d, f) in ((BATCH, Ho, Wo, J, D, F), (1, 8, 8, 3, 4, 40),
-                               (3, 7, 5, 2, 100, 40)):
+    shapes = ((BATCH, Ho, Wo, J, D, F), (1, 8, 8, 3, 4, 40),
+              (3, 7, 5, 2, 100, 40))
+    for (B, H, W, j, d, f) in shapes:
         for dt in (torch.float32, torch.bfloat16):
             hm = (3 * torch.randn(B, H, W, j * d, device=dev,
                                   generator=g)).to(dt)
@@ -861,12 +899,16 @@ def main() -> None:
                                                         cot, j, d),),
                 GRAD_ABS_SCALE["softmax_integral_bwd"])
             err["softmax_integral_bwd"] = max(err["softmax_integral_bwd"], e)
-        feats = torch.randn(B, H, W, f, device=dev,
-                            generator=g).to(torch.bfloat16)
+    # kernels 3 and 4 also at the two-stage path's pose batch, with bf16
+    # features (the tensor-core kernels) and float32 ones (CUDA cores)
+    for (B, H, W, j, d, f), fdt in itertools.product(
+            shapes + ((DET_BATCH, Ho, Wo, J, D, F),),
+            (torch.bfloat16, torch.float32)):
+        feats = torch.randn(B, H, W, f, device=dev, generator=g).to(fdt)
         w = 0.3 * torch.randn(j * d, f, device=dev, generator=g)
         b = torch.randn(j * d, device=dev, generator=g)
         e = compare(f"head_projection_integral_fwd {(B, H, W, f)}x"
-                    f"{(j * d, f)} bf16/f32",
+                    f"{(j * d, f)} {fdt}/f32",
                     lambda: head_projection_integral_cuda(feats, w, b, j, d),
                     lambda: head_projection_integral_reference(feats, w, b, j,
                                                                d))
@@ -876,7 +918,7 @@ def main() -> None:
         cot = torch.randn(B, j, 3, device=dev, generator=g)
         e = compare_grads(
             f"head_projection_integral_bwd {(B, H, W, f)}x{(j * d, f)} "
-            f"bf16/f32",
+            f"{fdt}/f32",
             lambda: head_projection_integral_bwd_cuda(feats, w, b, m, s,
                                                       coords, cot, j, d),
             lambda: head_projection_integral_bwd_reference(feats, w, b, m, s,
@@ -884,7 +926,7 @@ def main() -> None:
             GRAD_ABS_SCALE["head_projection_integral_bwd"])
         err["head_projection_integral_bwd"] = max(
             err["head_projection_integral_bwd"], e)
-        if B == BATCH:
+        if B == BATCH and fdt == torch.bfloat16:
             again = head_projection_integral_bwd_cuda(feats, w, b, m, s,
                                                       coords, cot, j, d)
             first = head_projection_integral_bwd_cuda(feats, w, b, m, s,
@@ -1008,7 +1050,9 @@ def main() -> None:
         per = (time.perf_counter() - t0) / 20 * 1e3
         print(f"[serving] {name} arm back to back: {per:.3f} ms/batch over "
               f"20 batches (host clock), {BATCH / per * 1e3:.1f} img/s on "
-              f"{card}", flush=True)
+              f"{card}; host issue of one batch {issue_ms(step):.3f} ms",
+              flush=True)
+        print_profile(f"serving, {name} arm, batch {BATCH}", step, 5, card)
     del fused, unfused, model
 
     # ---- 5. the training slice
@@ -1108,7 +1152,10 @@ def main() -> None:
             per = (time.perf_counter() - t0) / TIME_STEPS * 1e3
             print(f"[training] {arm} arm, Trainer.run_epoch back to back: "
                   f"{per:.3f} ms/step over {TIME_STEPS} steps (host clock), "
-                  f"{BATCH / per * 1e3:.1f} img/s on {card}", flush=True)
+                  f"{BATCH / per * 1e3:.1f} img/s on {card}; host issue of "
+                  f"one step {issue_ms(step):.3f} ms", flush=True)
+            print_profile(f"train step, {arm} arm, batch {BATCH}", step, 5,
+                          card, top=14)
             del trainer, batch
             torch.cuda.empty_cache()
 
@@ -1147,11 +1194,35 @@ def main() -> None:
     }
     k32, p32 = time_pair(lambda: softmax_integral_cuda(hm32, J, D),
                          lambda: softmax_integral_reference(hm32, J, D))
+    # kernels 3 and 4 with float32 features (compute_dtype="float32", the
+    # CUDA-core kernels), kernel 3 at the two-stage path's pose batch
+    feats32, feats4 = feats.float(), feats[:DET_BATCH].contiguous()
+    c32, m32, s32 = head_projection_integral_cuda(feats32, w, b, J, D)
+    more = {
+        "head_projection_integral_fwd, float32 features": time_pair(
+            lambda: head_projection_integral_cuda(feats32, w, b, J, D),
+            lambda: head_projection_integral_reference(feats32, w, b, J, D)),
+        "head_projection_integral_bwd, float32 features": time_pair(
+            lambda: head_projection_integral_bwd_cuda(
+                feats32, w, b, m32, s32, c32, cot, J, D),
+            lambda: head_projection_integral_bwd_reference(
+                feats32, w, b, m32, s32, c32, cot, J, D), iters=5),
+        f"head_projection_integral_fwd at batch {DET_BATCH}": time_pair(
+            lambda: head_projection_integral_cuda(feats4, w, b, J, D),
+            lambda: head_projection_integral_reference(feats4, w, b, J, D)),
+    }
     for name, (k, p) in times.items():
         print(f"[timing] {name} at the paths' shape: kernel {k:.4f} ms, "
               f"plain {p:.4f} ms on {card}", flush=True)
     print(f"[timing] softmax_integral_fwd with a float32 heatmap: kernel "
           f"{k32:.4f} ms, plain {p32:.4f} ms on {card}", flush=True)
+    b4_bound = bound(feats4.numel() * 2 + w.numel() * 4,
+                     2.0 * feats4.numel() * w.shape[0], BF16X3_FLOPS)
+    for name, (k, p) in more.items():
+        print(f"[timing] {name}: kernel {k:.4f} ms, plain {p:.4f} ms on "
+              f"{card}", flush=True)
+    print(f"[timing] head_projection_integral_fwd at batch {DET_BATCH}: "
+          f"bound {b4_bound[0]:.4f} ms ({b4_bound[1]})", flush=True)
 
     # the least time for each kernel's work at these shapes
     B, HW, JD = hm.shape[0], hm.shape[1] * hm.shape[2], hm.shape[3]
@@ -1182,13 +1253,13 @@ def main() -> None:
                                  "softmax_integral.cu", "integral.py:75"),
         "head_projection_integral_fwd": (
             kernels.HEAD_PROJECTION_INTEGRAL_FWD,
-            "head_projection_integral.cu", "fused_head.py:40"),
+            "head_projection_integral_mma.cu", "fused_head.py:40"),
         "softmax_integral_bwd": (kernels.SOFTMAX_INTEGRAL_BWD,
                                  "softmax_integral_bwd.cu",
                                  "integral.py:230"),
         "head_projection_integral_bwd": (
             kernels.HEAD_PROJECTION_INTEGRAL_BWD,
-            "head_projection_integral_bwd.cu", "fused_head.py:106"),
+            "head_projection_integral_bwd_mma.cu", "fused_head.py:106"),
         "warp_twopass": (kernels.WARP_TWOPASS, "warp_twopass.cu",
                          "warp.py:156"),
         "roi_align": (kernels.ROI_ALIGN_FWD, "roi_align.cu",

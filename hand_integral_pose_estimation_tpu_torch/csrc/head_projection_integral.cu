@@ -1,5 +1,7 @@
 // Fused 1x1 heatmap projection + soft-argmax forward: the heatmap never
-// reaches device memory.
+// reaches device memory. This file holds the CUDA-core kernel, taken for
+// float32 features (compute_dtype="float32"), and the C entry point; bf16
+// features take the tensor-core kernels of head_projection_integral_mma.cu.
 //
 // Replaces the TPU kernel hand_integral_pose_estimation_tpu/ops/fused_head.py:
 // _fwd_kernel (driver _forward_pallas). That kernel multiplies one spatial
@@ -24,9 +26,7 @@
 //
 // Bound: arithmetic. The projection is 2 * 3136 * 256 * 1176 = 1.9 GFLOP per
 // image, here on CUDA cores in f32; the feature reads (1.6 MB per image in
-// bf16) are re-read J times, mostly from L2. Moving the product to tensor
-// cores (mma.sync / wgmma), TMA staging and splitting H*W across CTAs for
-// small batches are later steps.
+// bf16) are re-read J times, mostly from L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,15 +151,29 @@ cudaError_t launch(const T* feats, const float* weight, const float* bias,
 }
 
 }  // namespace
+
+// head_projection_integral_mma.cu: the tensor-core path for bf16 features
+cudaError_t head_projection_fwd_mma(const __nv_bfloat16* feats,
+                                    const float* weight, const float* bias,
+                                    float* coords, float* m, float* s,
+                                    float* ws, int batch, int height,
+                                    int width, int num_feats, int num_joints,
+                                    int depth, int chunks,
+                                    cudaStream_t stream);
+
 }  // namespace hipe
 
-// feats_dtype: 0 = float32, 1 = bfloat16; weight and bias are float32. The
-// caller guarantees contiguity, 1 <= depth <= 128 and that the staged
-// weight fits in shared memory. Returns the launch's CUDA error code.
+// feats_dtype: 0 = float32 (the CUDA-core kernel above), 1 = bfloat16 (the
+// tensor-core kernels of head_projection_integral_mma.cu); weight and bias
+// are float32. The caller guarantees contiguity and 1 <= depth <= 128; for
+// float32 that the staged weight fits in shared memory, for bfloat16 that
+// F % 4 == 0, F <= 256 and a workspace ws of batch * chunks * J*D * 4
+// floats (unused for float32). Returns the first launch's CUDA error code.
 extern "C" int hipe_head_projection_integral_fwd(
     const void* feats, int feats_dtype, const void* weight, const void* bias,
-    void* coords, void* m, void* s, int batch, int height, int width,
-    int num_feats, int num_joints, int depth, void* stream) {
+    void* coords, void* m, void* s, void* ws, int batch, int height,
+    int width, int num_feats, int num_joints, int depth, int chunks,
+    void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto w = static_cast<const float*>(weight);
   auto bi = static_cast<const float*>(bias);
@@ -171,9 +185,10 @@ extern "C" int hipe_head_projection_integral_fwd(
     err = hipe::launch(static_cast<const float*>(feats), w, bi, c, mm, ss,
                        batch, height, width, num_feats, num_joints, depth, st);
   } else if (feats_dtype == 1) {
-    err = hipe::launch(static_cast<const __nv_bfloat16*>(feats), w, bi, c, mm,
-                       ss, batch, height, width, num_feats, num_joints, depth,
-                       st);
+    err = hipe::head_projection_fwd_mma(
+        static_cast<const __nv_bfloat16*>(feats), w, bi, c, mm, ss,
+        static_cast<float*>(ws), batch, height, width, num_feats, num_joints,
+        depth, chunks, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,5 +1,8 @@
 // Fused 1x1 heatmap projection + soft-argmax backward: the heatmap and its
-// gradient never reach device memory.
+// gradient never reach device memory. This file holds the CUDA-core path,
+// taken for float32 features (compute_dtype="float32"), the C entry point
+// and the shared sum (c); bf16 features take the tensor-core kernels of
+// head_projection_integral_bwd_mma.cu.
 //
 // Replaces the TPU kernel hand_integral_pose_estimation_tpu/ops/fused_head.py:
 // _bwd_kernel (launched by _hp_bwd). Per spatial tile it recomputes the
@@ -29,7 +32,7 @@
 //
 // Bound: arithmetic. (a) and (b) each recompute the projection, so the
 // kernel does 4 * 2 * B * H*W * F * J*D flops (241 GFLOP at B = 32) on
-// CUDA cores in float32; moving the products to tensor cores is later work.
+// CUDA cores in float32.
 // Shared memory per CTA: the feature tile [F][65], the joint's weight rows
 // [D8][F], the cotangent tile [D8][64] and five constant rows, 140 KB at
 // F = 256, D = 56 (D8 is D rounded up to 8).
@@ -377,8 +380,8 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 template <typename T>
 cudaError_t launch(const T* feats, const float* weight, const float* bias,
                    const float* m, const float* t, const float* a,
-                   const float* bc, T* dfeat, float* dweight, float* dbias,
-                   float* ws, float* ws_db, int batch, int height, int width,
+                   const float* bc, T* dfeat, float* ws, float* ws_db,
+                   int batch, int height, int width,
                    int num_feats, int num_joints, int depth,
                    int chunks_per_image, cudaStream_t stream) {
   const int hw_total = height * width;
@@ -413,26 +416,40 @@ cudaError_t launch(const T* feats, const float* weight, const float* bias,
         feats, weight, bias, m, t, a, bc, ws, ws_db, hw_total, width,
         num_feats, num_joints, depth, dpad, chunks_per_image);
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
-  const long long channels = (long long)num_joints * depth;
+// (c), after either path's (a) and (b)
+cudaError_t reduce(const float* ws, const float* ws_db, float* dweight,
+                   float* dbias, int partials, long long channels,
+                   int num_feats, cudaStream_t stream) {
   const long long n = channels * num_feats + channels;
   hp_bwd_reduce_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
-                         0, stream>>>(ws, ws_db, dweight, dbias,
-                                      batch * chunks_per_image, channels,
-                                      num_feats);
+                         0, stream>>>(ws, ws_db, dweight, dbias, partials,
+                                      channels, num_feats);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// head_projection_integral_bwd_mma.cu: (a) and (b) on the tensor cores
+// for bf16 features
+cudaError_t head_projection_bwd_mma(
+    const __nv_bfloat16* feats, const float* weight, const float* bias,
+    const float* m, const float* t, const float* a, const float* bc,
+    __nv_bfloat16* dfeat, float* ws, float* ws_db, int batch, int height,
+    int width, int num_feats, int num_joints, int depth, int chunks,
+    cudaStream_t stream);
+
 }  // namespace hipe
 
-// feats_dtype: 0 = float32, 1 = bfloat16, for feats and dfeat alike; every
-// other array is float32. The caller guarantees contiguity, F % 4 == 0,
-// F <= 256, 1 <= depth <= 128, that the shared memory above fits, and a
-// workspace of batch * chunks_per_image chunks. Returns the first launch
-// error.
+// feats_dtype: 0 = float32 (the CUDA-core kernels above), 1 = bfloat16
+// (the tensor-core kernels of head_projection_integral_bwd_mma.cu), for
+// feats and dfeat alike; every other array is float32. Both paths end in
+// the fixed-order sum (c). The caller guarantees contiguity, F % 4 == 0,
+// F <= 256, 1 <= depth <= 128, for float32 that the shared memory above
+// fits, and a workspace of batch * chunks_per_image chunks. Returns the
+// first launch error.
 extern "C" int hipe_head_projection_integral_bwd(
     const void* feats, int feats_dtype, const void* weight, const void* bias,
     const void* m, const void* t, const void* a, const void* bc, void* dfeat,
@@ -446,23 +463,25 @@ extern "C" int hipe_head_projection_integral_bwd(
   auto tt = static_cast<const float*>(t);
   auto aa = static_cast<const float*>(a);
   auto bb = static_cast<const float*>(bc);
-  auto dw = static_cast<float*>(dweight);
-  auto db = static_cast<float*>(dbias);
   auto wk = static_cast<float*>(ws);
   auto wkb = static_cast<float*>(ws_db);
   cudaError_t err;
   if (feats_dtype == 0) {
     err = hipe::launch(static_cast<const float*>(feats), w, bi, mm, tt, aa,
-                       bb, static_cast<float*>(dfeat), dw, db, wk, wkb, batch,
+                       bb, static_cast<float*>(dfeat), wk, wkb, batch,
                        height, width, num_feats, num_joints, depth,
                        chunks_per_image, st);
   } else if (feats_dtype == 1) {
-    err = hipe::launch(static_cast<const __nv_bfloat16*>(feats), w, bi, mm,
-                       tt, aa, bb, static_cast<__nv_bfloat16*>(dfeat), dw, db,
-                       wk, wkb, batch, height, width, num_feats, num_joints,
-                       depth, chunks_per_image, st);
+    err = hipe::head_projection_bwd_mma(
+        static_cast<const __nv_bfloat16*>(feats), w, bi, mm, tt, aa, bb,
+        static_cast<__nv_bfloat16*>(dfeat), wk, wkb, batch, height, width,
+        num_feats, num_joints, depth, chunks_per_image, st);
   } else {
     err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(hipe::reduce(
+      wk, wkb, static_cast<float*>(dweight), static_cast<float*>(dbias),
+      batch * chunks_per_image, (long long)num_joints * depth, num_feats,
+      st));
 }

@@ -1,4 +1,4 @@
-// Device code shared by the two forward kernels: the float32 / bf16 load
+// Device code shared by the forward kernels: the float32 / bf16 load
 // conversion and the online soft-argmax state.
 //
 // Every thread of a CTA folds the logits it sees into one running state for

@@ -8,14 +8,20 @@ of convention: the projection is passed as torch's (out, in) matrix,
 function takes its transpose (F, J*D). The bias is (J*D,).
 
 `head_projection_integral` is a `torch.autograd.Function`. For CUDA
-tensors its forward launches `csrc/head_projection_integral.cu` and its
-backward `csrc/head_projection_integral_bwd.cu`, which recomputes the
-logits per tile and contracts the soft-argmax cotangent into dfeat, dW and
-db without writing the heatmap or its gradient; for CPU tensors both take
-the plain versions.
+tensors its forward launches kernel 3 (`csrc/head_projection_integral.cu`)
+and its backward kernel 4 (`csrc/head_projection_integral_bwd.cu`), which
+recomputes the logits per tile and contracts the soft-argmax cotangent into
+dfeat, dW and db without writing the heatmap or its gradient; for CPU
+tensors both take the plain versions. bf16 features, the main path's, go to
+the tensor-core kernels (`csrc/*_mma.cu`): each float32 operand is split
+into bf16 parts (`bf16_split`) and multiplied part by part, which keeps
+float32 accuracy. float32 features go to the CUDA-core kernels.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -27,16 +33,53 @@ from hand_integral_pose_estimation_tpu_torch.ops.integral import (
 )
 
 _FEAT_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel stages a joint's (F, D rounded up to 8) float32 weight slice
-# plus a (64, 65) float32 feature slice in one CTA's shared memory
+# float32 features: the CUDA-core forward stages a joint's (F, D rounded up
+# to 8) float32 weight slice plus a (64, 65) float32 feature slice in one
+# CTA's shared memory
 _SMEM_BYTES = 232448 - 1024
-# the backward's tiles: 64 positions, at most 256 features (F % 4 == 0)
-_BWD_TILE = 64
+# tiles of 64 positions, at most 256 features (F % 4 == 0): the backward on
+# both paths and the bf16 forward
+_TILE = 64
 _BWD_MAX_FEATS = 256
-# dW partial sums over (image chunks x joints): one CTA fits an SM (140 KB
-# of shared memory), so about sixteen waves over the card's 132 SMs keep
-# the last, partial wave cheap
+# float32 features: dW partial sums over (image chunks x joints); one CTA
+# fits an SM (140 KB of shared memory), so about sixteen waves over the
+# card's 132 SMs keep the last, partial wave cheap
 _BWD_TARGET_CTAS = 16 * 132
+# bf16 features: the tensor-core kernels' blocks of 64 channels
+_MMA_BLOCK_C = 64
+
+
+def bf16_split(x: torch.Tensor, parts: int) -> list[torch.Tensor]:
+    """The bf16 parts the tensor-core kernels multiply in place of float32
+    `x` (as `csrc/bf16x3_mma.cuh` splits in shared memory): part k is what
+    the parts before it leave of `x`, rounded to the nearest bf16. Three
+    parts sum back to float32 `x` exactly (3 x 8 significand bits cover
+    float32's 24, for |x| in 2^-100 .. 2^100), two keep 16 bits."""
+    out, rest = [], x.float()
+    for _ in range(parts):
+        part = rest.to(torch.bfloat16)
+        out.append(part)
+        rest = rest - part.float()
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _mma_chunks(feats: torch.Tensor, num_channels: int) -> int:
+    """Chunks per image of the tensor-core grids, which have one CTA per
+    (image, chunk of its 64-position tiles, block of 64 channels) and one
+    CTA per SM: the count that least waves x (tiles per chunk + 1, the
+    weight staging's share) take, so the last wave is nearly full at any
+    batch."""
+    B, H, W, _ = feats.shape
+    tiles = -(-(H * W) // _TILE)
+    ctas = B * -(-num_channels // _MMA_BLOCK_C)
+    sms = _sm_count(feats.device.index or 0)
+    return min(range(1, tiles + 1), key=lambda c: (
+        math.ceil(ctas * c / sms) * (-(-tiles // c) + 1)))
 
 
 def head_projection_integral_reference(feats: torch.Tensor,
@@ -53,12 +96,28 @@ def head_projection_integral_reference(feats: torch.Tensor,
     return softmax_integral_reference(hm, num_joints, depth)
 
 
+def _check_feats(feats: torch.Tensor, weight: torch.Tensor, depth: int,
+                 direction: str) -> None:
+    F = feats.shape[-1]
+    for name, t in (("feats", feats), ("weight", weight)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if not 1 <= depth <= MAX_DEPTH:
+        raise ValueError(f"depth {depth} outside 1..{MAX_DEPTH}")
+    if ((feats.dtype == torch.bfloat16 or direction == "backward")
+            and (F % 4 or F > _BWD_MAX_FEATS)):
+        raise ValueError(f"the {direction} kernel takes {feats.dtype} "
+                         f"features with F a multiple of 4 up to "
+                         f"{_BWD_MAX_FEATS}, got {F}")
+
+
 def head_projection_integral_cuda(feats: torch.Tensor, weight: torch.Tensor,
                                   bias: torch.Tensor, num_joints: int,
                                   depth: int):
     """Launch the fused kernel. feats: contiguous CUDA (B, H, W, F) bfloat16
-    or float32; weight: contiguous float32 (J*D, F); bias: float32 (J*D,).
-    Returns (coords, m, s) in float32."""
+    (the tensor-core kernels: F % 4 == 0, F <= 256) or float32 (the
+    CUDA-core kernel); weight: contiguous float32 (J*D, F); bias: float32
+    (J*D,). Returns (coords, m, s) in float32."""
     for name, t in (("feats", feats), ("weight", weight), ("bias", bias)):
         if t.device.type != "cuda" or t.device != feats.device:
             raise ValueError(f"{name} must be on the CUDA device of feats, "
@@ -77,10 +136,10 @@ def head_projection_integral_cuda(feats: torch.Tensor, weight: torch.Tensor,
     if tuple(weight.shape) != (C, F) or tuple(bias.shape) != (C,):
         raise ValueError(f"weight {tuple(weight.shape)} / bias "
                          f"{tuple(bias.shape)} do not match ({C}, {F})")
-    if not 1 <= depth <= MAX_DEPTH:
-        raise ValueError(f"depth {depth} outside 1..{MAX_DEPTH}")
+    _check_feats(feats, weight, depth, "forward")
     depth_pad = -(-depth // 8) * 8
-    if 4 * (F * depth_pad + 64 * 65) > _SMEM_BYTES:
+    if (feats.dtype == torch.float32
+            and 4 * (F * depth_pad + 64 * 65) > _SMEM_BYTES):
         raise ValueError(f"F = {F} at depth {depth} does not fit the kernel's "
                          f"shared memory")
     if B * H * W * num_joints == 0:
@@ -90,10 +149,17 @@ def head_projection_integral_cuda(feats: torch.Tensor, weight: torch.Tensor,
         coords = torch.empty(B, num_joints, 3, **f32)
         m = torch.empty(B, num_joints, **f32)
         s = torch.empty(B, num_joints, **f32)
+        if feats.dtype == torch.bfloat16:
+            # per-(image, chunk, channel) partial states (m, s, sx, sy)
+            chunks = _mma_chunks(feats, C)
+            ws = torch.empty(B * chunks * C * 4, **f32)
+        else:
+            chunks, ws = 1, None
         kernels.HEAD_PROJECTION_INTEGRAL_FWD(
             feats.data_ptr(), _FEAT_DTYPE_CODES[feats.dtype],
             weight.data_ptr(), bias.data_ptr(), coords.data_ptr(),
-            m.data_ptr(), s.data_ptr(), B, H, W, F, num_joints, depth,
+            m.data_ptr(), s.data_ptr(), 0 if ws is None else ws.data_ptr(),
+            B, H, W, F, num_joints, depth, chunks,
             torch.cuda.current_stream().cuda_stream)
     return coords, m, s
 
@@ -137,10 +203,11 @@ def head_projection_integral_bwd_cuda(feats: torch.Tensor,
                                       cot: torch.Tensor, num_joints: int,
                                       depth: int):
     """Launch the fused-head backward (`csrc/head_projection_integral_bwd.cu`,
-    three launches: dfeat, per-chunk dW/db partials, their fixed-order sum).
-    Operands as `head_projection_integral_cuda` takes them, plus the
-    forward's m, s (B, J), coords and the cotangent (B, J, 3). Returns
-    (dfeat in the features' dtype, dW (J*D, F) float32, db (J*D,)
+    three launches: dfeat, per-chunk dW/db partials, their fixed-order sum;
+    on the tensor cores for bf16 features, `*_bwd_mma.cu`). Operands as
+    `head_projection_integral_cuda` takes them (F % 4 == 0, F <= 256),
+    plus the forward's m, s (B, J), coords and the cotangent (B, J, 3).
+    Returns (dfeat in the features' dtype, dW (J*D, F) float32, db (J*D,)
     float32); dW and db are the same bits from run to run."""
     for name, t in (("feats", feats), ("weight", weight), ("bias", bias),
                     ("m", m), ("s", s), ("coords", coords), ("cot", cot)):
@@ -167,20 +234,21 @@ def head_projection_integral_bwd_cuda(feats: torch.Tensor,
                            ("cot", cot, (B, num_joints, 3))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} is not {shape}")
-    if not 1 <= depth <= MAX_DEPTH:
-        raise ValueError(f"depth {depth} outside 1..{MAX_DEPTH}")
-    if F % 4 or F > _BWD_MAX_FEATS:
-        raise ValueError(f"the backward kernel takes F a multiple of 4 up to "
-                         f"{_BWD_MAX_FEATS}, got {F}")
+    _check_feats(feats, weight, depth, "backward")
     depth_pad = -(-depth // 8) * 8
-    if 4 * (F * (_BWD_TILE + 2) + depth_pad * F + depth_pad * _BWD_TILE
-            + 5 * depth_pad) > _SMEM_BYTES + 1024:
+    if (feats.dtype == torch.float32
+            and 4 * (F * (_TILE + 2) + depth_pad * F
+                     + depth_pad * _TILE + 5 * depth_pad)
+            > _SMEM_BYTES + 1024):
         raise ValueError(f"F = {F} at depth {depth} does not fit the "
                          f"backward kernel's shared memory")
     if B * H * W * num_joints == 0:
         raise ValueError(f"empty features {tuple(feats.shape)}")
-    tiles = -(-(H * W) // _BWD_TILE)
-    chunks = min(tiles, max(1, -(-_BWD_TARGET_CTAS // (B * num_joints))))
+    tiles = -(-(H * W) // _TILE)
+    if feats.dtype == torch.bfloat16:
+        chunks = _mma_chunks(feats, C)
+    else:
+        chunks = min(tiles, max(1, -(-_BWD_TARGET_CTAS // (B * num_joints))))
     with torch.cuda.device(feats.device):
         mvec, T, A, Bc = channel_constants(m, s, coords, cot, H, W, depth)
         f32 = dict(dtype=torch.float32, device=feats.device)

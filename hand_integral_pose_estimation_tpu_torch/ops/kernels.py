@@ -37,14 +37,20 @@ def _sources() -> list[Path]:
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str | None:
+    """Path of a CUDA toolkit program (`nvcc`, `cuobjdump`), or None."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
         or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
+    path = os.path.join(home, "bin", name)
+    return path if os.path.exists(path) else None
+
+
+def _nvcc() -> str:
+    path = cuda_tool("nvcc")
+    if path is None:
         raise RuntimeError("nvcc not found: the CUDA kernels are built from "
                            "source on first use and need the CUDA toolkit")
     return path
@@ -93,6 +99,37 @@ def build() -> Path:
     return out
 
 
+#: the tensor-core kernels of the fused head (kernels 3 and 4, bf16 path)
+MMA_KERNELS = ("hp_fwd_mma_kernel", "hp_bwd_dfeat_mma_kernel",
+               "hp_bwd_dweight_mma_kernel")
+
+
+def tensor_core_instructions(names=MMA_KERNELS) -> dict[str, int]:
+    """The number of tensor-core product instructions (HMMA, HGMMA) in the
+    SASS of each named kernel of the built library, from `cuobjdump
+    --dump-sass`; a name matches the kernels whose mangled names hold it.
+    Raises if `cuobjdump` is missing or a name matches no kernel."""
+    tool = cuda_tool("cuobjdump")
+    if tool is None:
+        raise RuntimeError("cuobjdump not found")
+    sass = subprocess.run([tool, "--dump-sass", str(build())],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            symbol = line.split("Function :", 1)[1].strip()
+            current = next((n for n in names if n in symbol), None)
+            if current is not None:
+                counts.setdefault(current, 0)
+        elif current is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[current] += 1
+    missing = [n for n in names if n not in counts]
+    if missing:
+        raise RuntimeError(f"no kernel named {missing} in the library")
+    return counts
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
@@ -133,10 +170,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: (hm, dtype, coords, m, s, B, H, W, J, D, stream)
 SOFTMAX_INTEGRAL_FWD = Kernel(
     "hipe_softmax_integral_fwd", [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P])
-#: (feats, dtype, weight, bias, coords, m, s, B, H, W, F, J, D, stream)
+#: (feats, dtype, weight, bias, coords, m, s, ws, B, H, W, F, J, D,
+#:  chunks per image, stream)
 HEAD_PROJECTION_INTEGRAL_FWD = Kernel(
     "hipe_head_projection_integral_fwd",
-    [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
 
 #: (hm, dtype, m, T, A, B, grad, B, H*W, W, J*D, stream)
 SOFTMAX_INTEGRAL_BWD = Kernel(

@@ -30,6 +30,12 @@ S_REL_TOL = 1e-4
 # (B, H, W, J, D): serving shape, ragged small shapes, depth > 32 and > 64
 SHAPES = [(32, 56, 56, 21, 56), (1, 8, 8, 3, 4), (3, 7, 5, 2, 40),
           (2, 9, 9, 2, 100)]
+# (B, H, W, J, D, F) for the fused head: the shapes above with F = 256 at
+# 56 x 56 and 40 (not a multiple of 16) otherwise, the two-stage path's
+# pose batch of 4 at full width, and F = 36 (not a multiple of 8: the
+# tensor-core kernels' 8-byte copies)
+HEAD_SHAPES = ([s + (256 if s[1] == 56 else 40,) for s in SHAPES]
+               + [(4, 56, 56, 21, 56, 256), (2, 7, 5, 3, 12, 36)])
 # The backward kernels fold the per-channel constants (exp(h - m) times
 # T + A col + B row) where the plain versions form p * sum cot (g - c):
 # the same float32 numbers combined in another order, so they agree to a
@@ -103,10 +109,9 @@ def test_softmax_integral_kernel_matches_plain(dev, shape, dtype):
 
 
 @pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
 def test_head_projection_kernel_matches_plain(dev, shape, feat_dtype):
-    B, H, W, J, D = shape
-    F = 256 if B == 32 else 40
+    B, H, W, J, D, F = shape
     g = torch.Generator(device=dev).manual_seed(1)
     feats = torch.randn(B, H, W, F, device=dev, generator=g).to(feat_dtype)
     w = 0.3 * torch.randn(J * D, F, device=dev, generator=g)
@@ -137,10 +142,9 @@ def test_softmax_integral_bwd_kernel_matches_plain(dev, shape, dtype):
 
 
 @pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
 def test_head_projection_bwd_kernel_matches_plain(dev, shape, feat_dtype):
-    B, H, W, J, D = shape
-    F = 256 if B == 32 else 40
+    B, H, W, J, D, F = shape
     g = torch.Generator(device=dev).manual_seed(3)
     feats = torch.randn(B, H, W, F, device=dev, generator=g).to(feat_dtype)
     w = 0.3 * torch.randn(J * D, F, device=dev, generator=g)
@@ -179,6 +183,16 @@ def test_head_projection_bwd_is_deterministic(dev):
         feats, w, b, m, s, coords, cot, J, D)
     for a, c in zip(first, second):
         assert torch.equal(a, c)
+
+
+def test_bf16_fused_head_runs_on_tensor_cores(dev):
+    """The bf16 path's kernels (fused head forward, both backward
+    launches) hold tensor-core products (HMMA / HGMMA) in their SASS."""
+    if kernels.cuda_tool("cuobjdump") is None:
+        pytest.skip("needs cuobjdump")
+    counts = kernels.tensor_core_instructions()
+    assert set(counts) == set(kernels.MMA_KERNELS)
+    assert all(n > 0 for n in counts.values()), counts
 
 
 @pytest.mark.parametrize("shape", [(32, 224, 224, 3, 224, 224),
