@@ -46,7 +46,10 @@ before the result line.
    the fused head) sweeps 8 synthetic 224^2 frames at batch 4 with its
    launch counts, `cli.evaluate --synthetic --use-detector` writes a
    pred.json, and the kernels, `detect`, `detect_split`, the detector's
-   stages and the pipeline are timed.
+   stages and the pipeline are timed: NMS at both of `detect`'s shapes,
+   its device time split into the mask and sweep launches (profile) with
+   the sweep's time per 64-box block, ROIAlign beside the bytes of feature
+   taps it reads.
 
 Each path's launch counts start from 0 just before the path runs and are
 read just after it; the launches in the kernels line are their sum. The
@@ -412,6 +415,48 @@ def clustered_boxes(g, B, N, dev):
             torch.rand(B, N, generator=g, device=dev))
 
 
+def roi_tap_reads(rois, height, width, pooled, sr, scale):
+    """Tap vectors (one per map position, all C channels) that kernel 6
+    reads for these RoIs (per group of kBands = 7 pooled rows: the group's
+    distinct tap rows times each bin column's distinct tap columns, taps of
+    weight zero left out), and that a kernel reading every sample's taps
+    would read (one CTA per bin: one to four per sample). Counted on the
+    host from the kernel's sample rules."""
+    bands = 7
+    r = rois.reshape(-1, 4).cpu().numpy().astype(np.float32)
+    s = np.arange(pooled * sr)
+
+    def taps(lo, hi, size):
+        lo = (lo * np.float32(scale)).astype(np.float32)
+        bsz = (np.maximum((hi * np.float32(scale)).astype(np.float32) - lo,
+                          1) / np.float32(pooled)).astype(np.float32)
+        c = (lo[:, None] + (s // sr) * bsz[:, None] + (s % sr + 0.5)
+             * (bsz / sr)[:, None]).astype(np.float32)
+        inside = (c >= -1) & (c <= size)
+        cc = np.clip(c, 0, size - 1)
+        i0 = np.floor(cc)
+        has1 = inside & (i0 + 1 <= size - 1)
+        return (inside, i0.astype(np.int64), has1,
+                has1 & (1 - (i0 + 1 - cc) != 0))
+
+    def distinct(inside, i0, nz1, lo, hi):
+        return len(set(i0[lo:hi][inside[lo:hi]])
+                   | set(i0[lo:hi][nz1[lo:hi]] + 1))
+
+    xin, x0, xh1, xnz1 = taps(r[:, 0], r[:, 2], width)
+    yin, y0, yh1, ynz1 = taps(r[:, 1], r[:, 3], height)
+    grouped = 0
+    for k in range(r.shape[0]):
+        cols = sum(distinct(xin[k], x0[k], xnz1[k], q * sr, (q + 1) * sr)
+                   for q in range(pooled))
+        grouped += cols * sum(
+            distinct(yin[k], y0[k], ynz1[k], p * sr,
+                     min(p + bands, pooled) * sr)
+            for p in range(0, pooled, bands))
+    per_sample = int(((1 + yh1).sum(1) * (1 + xh1).sum(1)).sum())
+    return grouped, per_sample
+
+
 @contextlib.contextmanager
 def plain_detector_ops():
     """Route NMS and ROIAlign on the card through their plain versions (the
@@ -509,7 +554,6 @@ def detection_phase(dev, g, card, cfg):
                                  (DET_BATCH, 300, 0.3, 100, 0.001)):
         b, sc = clustered_boxes(g, B, N, dev)
         cases.append((f"clustered {(B, N)}", b, sc, thr, top_k, st))
-    rpn_case = cases[1]
     for name, b, sc, thr, top_k, st in cases:
         for ee in (False, True):
             got = nms_mod.nms(b, sc, thr, top_k, st, impl="cuda",
@@ -677,39 +721,60 @@ def detection_phase(dev, g, card, cfg):
     check(cli_counts == want_counts, f"cli launches {cli_counts}")
 
     # ---- e. timing
+    # kernel 7 at both of detect's shapes (the RPN's and the class NMS's),
+    # its device time split into the mask and sweep launches from a
+    # profile. Bound from this run's inputs: the greedy result needs the
+    # IoU of each kept box with every later box (~17 float32 operations
+    # each); its bytes (boxes and flags in, keep flags out) are negligible.
+    # The sweep's serial chain of one resolve per 64-box block is outside
+    # any throughput bound.
+    nms_timing = {}
+    for label, (_, b, sc, thr, top_k, st) in (("RPN", cases[1]),
+                                              ("class NMS", cases[2])):
+        order = torch.sort(sc, dim=1, descending=True, stable=True).indices
+        b_sorted = torch.gather(b, 1, order[..., None].expand_as(b))
+        alive0 = torch.gather(sc, 1, order) > st
+        t = time_pair(
+            lambda: nms_mod._alive_cuda(b_sorted, alive0, thr, True),
+            lambda: nms_mod._alive_plain(b_sorted, alive0, thr, True))
+        t_call = time_pair(
+            lambda: nms_mod.nms(b, sc, thr, top_k, st, impl="cuda"),
+            lambda: nms_mod.nms(b, sc, thr, top_k, st, impl="plain"))
+        _, rows = device_profile(
+            lambda: nms_mod._alive_cuda(b_sorted, alive0, thr, True), 20)
+        mask_ms = sum(ms for key, ms, _ in rows if "nms_mask_kernel" in key)
+        sweep_ms = sum(ms for key, ms, _ in rows if "nms_sweep_kernel" in key)
+        B, N = sc.shape
+        blocks = math.ceil(N / 64)
+        keep = nms_mod._alive_plain(b_sorted, alive0, thr, True)
+        pos = torch.arange(N, device=dev)
+        pairs = float(((N - 1 - pos) * keep).sum())
+        nms_b = bound(b.numel() * 4 + alive0.numel() * 2, 17 * pairs)
+        nms_timing[label] = (t, nms_b)
+        print(f"[timing] nms kernel (mask + sweep) at the {label} shape "
+              f"{tuple(b.shape)} IoU {thr}, {int(keep.sum())} kept: "
+              f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {nms_b[0]:.4f} ms "
+              f"({nms_b[1]}); device time (profile, 20 calls) mask "
+              f"{mask_ms:.4f} ms + sweep {sweep_ms:.4f} ms, the sweep "
+              f"{sweep_ms / blocks * 1e3:.3f} us per 64-box block visited "
+              f"({blocks} per image, {B} images at once); whole nms() with "
+              f"sort and compaction {t_call[0]:.4f} ms, plain "
+              f"{t_call[1]:.4f} ms on {card}", flush=True)
+    t_nms, nms_bound = nms_timing["RPN"]
+
     feats, rois = path_roi
-    _, rb, rs, rthr, rk, rst = rpn_case
-    order = torch.sort(rs, dim=1, descending=True, stable=True).indices
-    rb_sorted = torch.gather(rb, 1, order[..., None].expand_as(rb))
-    alive0 = torch.gather(rs, 1, order) > rst
-    t_nms = time_pair(
-        lambda: nms_mod._alive_cuda(rb_sorted, alive0, rthr, True),
-        lambda: nms_mod._alive_plain(rb_sorted, alive0, rthr, True))
-    t_nms_call = time_pair(
-        lambda: nms_mod.nms(rb, rs, rthr, rk, rst, impl="cuda"),
-        lambda: nms_mod.nms(rb, rs, rthr, rk, rst, impl="plain"))
     t_roi = time_pair(
         lambda: roi_align_batched(feats, rois, 7, 1 / 16.0, 2, impl="cuda"),
         lambda: roi_align_batched(feats, rois, 7, 1 / 16.0, 2, impl="plain"))
-    print(f"[timing] nms kernel (mask + sweep) at the RPN shape "
-          f"{tuple(rb.shape)} IoU {rthr}: {t_nms[0]:.4f} ms, plain "
-          f"{t_nms[1]:.4f} ms; whole nms() with sort and compaction "
-          f"{t_nms_call[0]:.4f} ms, plain {t_nms_call[1]:.4f} ms on {card}",
-          flush=True)
+    H, W, C = feats.shape[1:]
+    taps, taps_per_sample = roi_tap_reads(rois, H, W, 7, 2, 1 / 16.0)
+    out_elems = rois.shape[0] * rois.shape[1] * 49 * C
     print(f"[timing] roi_align at {tuple(feats.shape)} x {rois.shape[1]} "
           f"RoIs: kernel {t_roi[0]:.4f} ms, plain {t_roi[1]:.4f} ms on "
-          f"{card}", flush=True)
-
-    # bounds from this run's inputs. NMS: the greedy result needs the IoU
-    # of each kept box with every later box (~17 float32 operations each);
-    # its bytes (boxes in, keep flags out) are negligible
-    keep = nms_mod._alive_plain(rb_sorted, alive0, rthr, True)
-    N = rb.shape[1]
-    pos = torch.arange(N, device=dev)
-    pairs = float(((N - 1 - pos) * keep).sum())
-    nms_bound = bound(rb.numel() * 4 + alive0.numel() * 2, 17 * pairs)
-    P, C = 7, feats.shape[-1]
-    out_elems = rois.shape[0] * rois.shape[1] * P * P * C
+          f"{card}; tap reads {taps * C * 4 / 1e9:.4f} GB "
+          f"({taps * C / out_elems:.3f} per output element; reading every "
+          f"sample's taps: {taps_per_sample * C * 4 / 1e9:.4f} GB, "
+          f"{taps_per_sample * C / out_elems:.3f} per element)", flush=True)
     roi_bound = bound(feats.numel() * 4 + rois.numel() * 4 + out_elems * 4,
                       out_elems * 4 * 10)
 

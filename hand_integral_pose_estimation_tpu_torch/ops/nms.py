@@ -14,8 +14,10 @@ Two resolvers of the greedy keep set over score-sorted boxes:
     the fixpoint of within-tile suppression. It is the plain version, taken
     for CPU tensors.
   * `_alive_cuda`, kernel 7 (`csrc/nms.cu`): a parallel launch builds the
-    64-bit suppression masks, then one CTA per image sweeps them in score
-    order. It replaces the TPU kernel `_nms_kernel` (nms.py:231).
+    upper triangle of the 64-bit suppression masks, then one CTA per image
+    sweeps them in score order, the row blocks staged ahead by bulk copies
+    and each block resolved by one warp. It replaces the TPU kernel
+    `_nms_kernel` (nms.py:231).
 Both apply `inter / max(union, 1e-12) > thr` with the same float32
 operations, so their keep sets are bitwise equal.
 """
@@ -103,9 +105,11 @@ def _alive_cuda(b: torch.Tensor, alive0: torch.Tensor, iou_threshold: float,
                 plus_one: bool, stop_after: int | None = None
                 ) -> torch.Tensor:
     """Kernel 7 on (B, N, 4) score-sorted CUDA boxes and (B, N) pre-alive:
-    the (B, N, ceil(N / 64)) suppression masks in a parallel launch, then a
-    serial sweep per image that stops after `stop_after` survivors (all N
-    boxes when None). Returns the (B, N) bool keep vector."""
+    the upper triangle of the 64-bit suppression masks in a parallel launch,
+    then a serial sweep per image that stops after `stop_after` survivors
+    (all N boxes when None). Returns the (B, N) bool keep vector. Bool flags
+    go in and come out as they are (one byte, 0 or 1): no conversion
+    launch."""
     if b.device.type != "cuda" or alive0.device != b.device:
         raise ValueError(f"nms_cuda needs CUDA boxes and scores on one "
                          f"device, got {b.device} and {alive0.device}")
@@ -119,17 +123,19 @@ def _alive_cuda(b: torch.Tensor, alive0: torch.Tensor, iou_threshold: float,
     if B * N * col_blocks >= 2**31 or col_blocks > 65535:
         raise ValueError(f"NMS over {N} boxes is too large for the kernel")
     boxes = b.to(torch.float32).contiguous()
-    alive_in = alive0.to(torch.uint8).contiguous()
+    alive_in = alive0.to(torch.bool).contiguous()   # no-op for bool
     with torch.cuda.device(b.device):
-        mask = torch.empty(B, N, col_blocks, dtype=torch.int64,
-                           device=b.device)
-        keep = torch.empty(B, N, dtype=torch.uint8, device=b.device)
+        # each image's row blocks, block-major: row block v holds the 64
+        # rows' words of its column blocks v .. col_blocks - 1
+        mask = torch.empty(B, 32 * col_blocks * (col_blocks + 1),
+                           dtype=torch.int64, device=b.device)
+        keep = torch.empty(B, N, dtype=torch.bool, device=b.device)
         kernels.NMS(boxes.data_ptr(), alive_in.data_ptr(), mask.data_ptr(),
                     keep.data_ptr(), B, N, float(iou_threshold),
                     1 if plus_one else 0,
                     N if stop_after is None else int(stop_after),
                     torch.cuda.current_stream().cuda_stream)
-    return keep.bool()
+    return keep
 
 
 def _compact(b: torch.Tensor, s: torch.Tensor, alive: torch.Tensor,

@@ -10,10 +10,12 @@ weights (roi_align.py:25-90): a (S, H) row and a (S, W) column weight
 matrix per RoI, S = pooled * sampling_ratio, contracted with the map, then
 averaged per bin. Autograd differentiates it. `roi_align_batched` takes the
 image batch; on a CUDA tensor it launches kernel 6 (`csrc/roi_align.cu`),
-which gathers each sample's four taps instead of building the TPU kernel's
-dense combined weights (`_ra_kernel`, roi_align.py:93). Forward only: the
-detector's training comes in a later port and differentiates the plain
-version, as the JAX package trains through its XLA path.
+which reads the taps directly in the same separable form (at each tap
+column, the tap rows of seven pooled rows at once) instead of building the
+TPU kernel's dense combined weights (`_ra_kernel`, roi_align.py:93).
+Forward only: the detector's training comes in a later port and
+differentiates the plain version, as the JAX package trains through its
+XLA path.
 """
 
 from __future__ import annotations

@@ -341,17 +341,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 def _nms_boxes(mode: str, B: int, N: int, seed: int):
     """(B, N, 4) boxes and (B, N) scores on the host: the alternating chain
-    (every other box survives), random boxes, proposal-like clusters of
-    near-duplicates, or clusters with tied scores (a tenth of them -1, as
-    the min-size filter leaves them)."""
+    (every other box survives), disjoint boxes (every box survives), random
+    boxes, random boxes of which image b has only 12 + 25 b alive (score -1
+    for the rest, so the images keep different counts), proposal-like
+    clusters of near-duplicates, or clusters with tied scores (a tenth of
+    them -1, as the min-size filter leaves them)."""
     rng = np.random.RandomState(seed)
-    if mode == "chain":
+    if mode in ("chain", "disjoint"):
         i = np.arange(N, dtype=np.float64)
-        b = np.stack([4 * i, 0 * i, 4 * i + 10, 0 * i + 10], -1)
+        step = 4 if mode == "chain" else 20
+        b = np.stack([step * i, 0 * i, step * i + 10, 0 * i + 10], -1)
         return (np.broadcast_to(b, (B, N, 4)).astype(np.float32),
                 np.broadcast_to(np.linspace(1.0, 0.5, N), (B, N))
                 .astype(np.float32))
-    if mode == "random":
+    if mode in ("random", "staggered"):
         ctr = rng.rand(B, N, 2) * 600
         wh = rng.rand(B, N, 2) * 120 + 8
     else:
@@ -364,17 +367,34 @@ def _nms_boxes(mode: str, B: int, N: int, seed: int):
     if mode == "ties":
         scores = np.round(scores * 8) / 8
         scores[rng.rand(B, N) < 0.1] = -1.0
+    if mode == "staggered":
+        for b in range(B):
+            scores[b, 12 + 25 * b:] = -1.0
     return boxes, scores.astype(np.float32)
 
 
 # (mode, B, N, IoU threshold, top_k, score threshold): the chain across
-# many 64-box blocks, the RPN shape, the class-NMS shape, ties, top_k > N
+# many 64-box blocks, the RPN shape, the class-NMS shape, ties, top_k > N;
+# then one box, one block short of full, one full block, one box past it;
+# every box dead (score threshold above every score); disjoint boxes, so
+# every block keeps all 64 rows (the most words to OR); with early_exit a
+# stop inside a block at B = 4 with other kept counts per image (12, 37,
+# 37, 37 at most); and B = 1 at N = 20 000, whose 313-word rows the sweep
+# stages in column chunks
 NMS_CASES = [("chain", 1, 1100, 0.3, 1100, -math.inf),
              ("clustered", 4, 6000, 0.7, 300, 0.0),
              ("random", 4, 6000, 0.7, 300, 0.0),
              ("clustered", 4, 300, 0.3, 100, 0.001),
              ("ties", 2, 700, 0.5, 50, 0.0),
-             ("random", 3, 40, 0.5, 100, -math.inf)]
+             ("random", 3, 40, 0.5, 100, -math.inf),
+             ("random", 2, 1, 0.5, 10, -math.inf),
+             ("random", 2, 63, 0.5, 70, 0.0),
+             ("clustered", 2, 64, 0.3, 70, 0.0),
+             ("random", 2, 65, 0.5, 70, 0.0),
+             ("clustered", 2, 500, 0.7, 100, 2.0),
+             ("disjoint", 2, 1000, 0.5, 1000, -math.inf),
+             ("staggered", 4, 300, 0.5, 37, 0.0),
+             ("clustered", 1, 20000, 0.7, 2000, 0.0)]
 
 
 @pytest.mark.parametrize("early_exit", [False, True])
@@ -397,31 +417,91 @@ def test_nms_kernel_matches_plain(dev, case, early_exit):
         assert int(got[2].sum()) == N // 2
         torch.testing.assert_close(got[0][0, :N // 2], boxes[0, ::2],
                                    rtol=0, atol=0)
+    if mode == "disjoint":
+        assert bool(got[2].all())
+    if score_thr > 1.0:
+        assert not bool(got[2].any())
+    if mode == "staggered":
+        assert got[2].sum(1).tolist()[0] <= 12
+        assert got[2].sum(1).tolist()[3] == top_k
 
 
-@pytest.mark.parametrize("shape", [(4, 38, 38, 1024, 300),
-                                   (2, 21, 19, 256, 13), (3, 9, 11, 6, 7)])
-def test_roi_align_kernel_matches_plain(dev, shape):
-    """The detector's shape, then H*W not a multiple of 8 with an odd RoI
-    count, then C not a multiple of 4 (the kernel's scalar path); RoIs
-    cross the border and some are thinner than a feature cell."""
+def test_nms_kernel_takes_and_returns_bool(dev):
+    """The wrapper hands the bool pre-alive flags to the kernel as they are
+    and returns the kernel's bool keep flags: one counted launch, and the
+    keep vector bitwise the plain version's (no early exit)."""
+    boxes, scores = _nms_boxes("clustered", 4, 6000, seed=3)
+    boxes, scores = torch.from_numpy(boxes).to(dev), torch.from_numpy(
+        scores).to(dev)
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    b = torch.gather(boxes, 1, order[..., None].expand_as(boxes))
+    alive0 = torch.gather(scores, 1, order) > 0.0
+    before = kernels.NMS.launches
+    keep = nms._alive_cuda(b, alive0, 0.7, True)
+    torch.cuda.synchronize()
+    assert kernels.NMS.launches == before + 1
+    assert keep.dtype == torch.bool and keep.shape == alive0.shape
+    assert torch.equal(keep, nms._alive_plain(b, alive0, 0.7, True))
+    with pytest.raises(ValueError, match="too large"):
+        nms._alive_cuda(torch.zeros(1, 400000, 4, device=dev),
+                        torch.ones(1, 400000, dtype=torch.bool, device=dev),
+                        0.5, True)
+
+
+# RoIs of the edge cases, xyxy in image pixels (stride 16): larger than a
+# 38 x 38 map on every side, zero width, zero height, inverted, entirely
+# before and entirely beyond the map, and a thin one across a cell border
+EDGE_ROIS = [[-500.0, -500.0, 2000.0, 2000.0], [300.0, 40.0, 300.0, 400.0],
+             [40.0, 300.0, 400.0, 300.0], [400.0, 420.0, 100.0, 60.0],
+             [-300.0, -250.0, -200.0, -100.0], [700.0, 650.0, 900.0, 990.0],
+             [100.0, 0.0, 127.9, 16.0]]
+
+
+def _roi_inputs(shape, g, dev, edge=False):
+    """Features and RoIs that cross the border, some thinner than a
+    feature cell; with `edge`, EDGE_ROIS replace the first RoIs of every
+    image."""
     B, H, W, C, R = shape
-    g = torch.Generator(device=dev).manual_seed(7)
     feats = torch.randn(B, H, W, C, device=dev, generator=g)
     lo = torch.rand(B, R, 2, device=dev, generator=g) * torch.tensor(
         [16.0 * W, 16.0 * H], device=dev) - 40
     wh = torch.rand(B, R, 2, device=dev, generator=g) * 300 + 4
     rois = torch.cat([lo, lo + wh], -1)
+    if edge:
+        rois[:, :len(EDGE_ROIS)] = torch.tensor(EDGE_ROIS, device=dev)
+    return feats, rois
+
+
+# (B, H, W, C, R, pooled, sampling ratio, edge RoIs): the detector's shape,
+# then H*W not a multiple of 8 with an odd RoI count, then C not a
+# multiple of 4 (the kernel's scalar path); then sampling ratios 1 and 4,
+# pooled 14, the edge RoIs, and C = 6 at the detector's 38 x 38
+ROI_CASES = [(4, 38, 38, 1024, 300, 7, 2, False),
+             (2, 21, 19, 256, 13, 7, 2, False), (3, 9, 11, 6, 7, 7, 2, False),
+             (2, 38, 38, 256, 40, 7, 1, False),
+             (2, 38, 38, 256, 40, 7, 4, True),
+             (2, 38, 38, 128, 30, 14, 2, True),
+             (2, 38, 38, 1024, 20, 7, 2, True),
+             (3, 38, 38, 6, 50, 7, 2, True)]
+
+
+@pytest.mark.parametrize("case", ROI_CASES)
+def test_roi_align_kernel_matches_plain(dev, case):
+    B, H, W, C, R, P, sr, edge = case
+    g = torch.Generator(device=dev).manual_seed(7)
+    feats, rois = _roi_inputs((B, H, W, C, R), g, dev, edge)
     before = kernels.ROI_ALIGN_FWD.launches
-    got = roi_align.roi_align_batched(feats, rois, 7, 1 / 16.0, 2)
+    got = roi_align.roi_align_batched(feats, rois, P, 1 / 16.0, sr)
     torch.cuda.synchronize()
     assert kernels.ROI_ALIGN_FWD.launches == before + 1
-    want = roi_align.roi_align_batched(feats, rois, 7, 1 / 16.0, 2,
+    want = roi_align.roi_align_batched(feats, rois, P, 1 / 16.0, sr,
                                        impl="plain")
-    assert got.shape == (B, R, 7, 7, C) and got.dtype == torch.float32
+    assert got.shape == (B, R, P, P, C) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=0, atol=ROI_TOL * max(
         1.0, float(feats.abs().max())))
     assert float(got.abs().sum()) > 0
+    if edge:   # the RoIs outside the map pool zeros
+        assert not bool(got[:, 4:6].any())
 
 
 def test_detector_kernel_wrappers_refuse_what_they_do_not_take(dev):

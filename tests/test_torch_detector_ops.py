@@ -75,16 +75,19 @@ def test_box_ops_match_jax_at_f64():
 
 def nms_inputs(mode: str, B: int, N: int, seed: int):
     """float32 boxes (B, N, 4) and scores (B, N): the alternating chain
-    across tiles, random boxes, proposal-like clusters of near-duplicates,
-    tied scores with a tenth at -1 (the min-size filter's ties)."""
+    across tiles, disjoint boxes (all survive), random boxes, random boxes
+    of which image b has only 12 + 25 b alive (score -1 for the rest),
+    proposal-like clusters of near-duplicates, tied scores with a tenth at
+    -1 (the min-size filter's ties)."""
     rng = np.random.RandomState(seed)
-    if mode == "chain":
+    if mode in ("chain", "disjoint"):
         i = np.arange(N, dtype=np.float64)
-        b = np.stack([4 * i, 0 * i, 4 * i + 10, 0 * i + 10], -1)
+        step = 4 if mode == "chain" else 20
+        b = np.stack([step * i, 0 * i, step * i + 10, 0 * i + 10], -1)
         return (np.broadcast_to(b, (B, N, 4)).astype(np.float32),
                 np.broadcast_to(np.linspace(1.0, 0.5, N), (B, N))
                 .astype(np.float32))
-    if mode == "random":
+    if mode in ("random", "staggered"):
         ctr = rng.rand(B, N, 2) * 300
         wh = rng.rand(B, N, 2) * 60 + 5
     else:
@@ -96,15 +99,30 @@ def nms_inputs(mode: str, B: int, N: int, seed: int):
     if mode == "ties":
         scores = np.round(scores * 8) / 8
         scores[rng.rand(B, N) < 0.1] = -1.0
+    if mode == "staggered":
+        for b in range(B):
+            scores[b, 12 + 25 * b:] = -1.0
     return boxes.astype(np.float32), scores.astype(np.float32)
 
 
-# (mode, B, N, IoU threshold, top_k, score threshold)
+# (mode, B, N, IoU threshold, top_k, score threshold); after the first
+# five, the edge cases the NMS kernel is held to on the card: one box, one
+# 64-box block short of full, full and one past it, every box dead,
+# disjoint boxes (every block keeps all 64 rows), a stop inside a block
+# with other kept counts per image, and the RPN's 6000 boxes
 NMS_CASES = [("chain", 1, 1100, 0.3, 1100, -math.inf),
              ("random", 2, 700, 0.7, 300, -math.inf),
              ("clustered", 2, 700, 0.7, 300, 0.0),
              ("ties", 2, 300, 0.5, 40, 0.0),
-             ("clustered", 2, 120, 0.3, 200, 0.5)]
+             ("clustered", 2, 120, 0.3, 200, 0.5),
+             ("random", 2, 1, 0.5, 10, -math.inf),
+             ("random", 2, 63, 0.5, 70, 0.0),
+             ("clustered", 2, 64, 0.3, 70, 0.0),
+             ("random", 2, 65, 0.5, 70, 0.0),
+             ("clustered", 2, 500, 0.7, 100, 2.0),
+             ("disjoint", 1, 1000, 0.5, 1000, -math.inf),
+             ("staggered", 4, 300, 0.5, 37, 0.0),
+             ("clustered", 1, 6000, 0.7, 300, 0.0)]
 
 
 @pytest.mark.parametrize("early_exit", [False, True])
@@ -134,6 +152,13 @@ def test_nms_matches_jax_and_the_oracle(case, early_exit):
                                           boxes[i, keep])
     if mode == "chain":
         assert int(got[2].sum()) == N // 2
+    if mode == "disjoint":
+        assert bool(got[2].all())
+    if score_thr > 1.0:
+        assert not bool(got[2].any())
+    if mode == "staggered":
+        assert got[2].sum(1).tolist()[0] <= 12
+        assert got[2].sum(1).tolist()[3] == top_k
 
 
 @pytest.mark.parametrize("case", [NMS_CASES[0], NMS_CASES[2], NMS_CASES[3]])
@@ -195,6 +220,41 @@ def test_roi_align_matches_jax(impl):
     one = proi.roi_align(torch.from_numpy(feats[1]), torch.from_numpy(rois[1]))
     np.testing.assert_allclose(one.numpy(), got[1].numpy(), rtol=1e-6,
                                atol=1e-6)
+
+
+# RoIs of the edge cases, xyxy in image pixels (stride 16): larger than a
+# 38 x 38 map on every side, zero width, zero height, inverted, entirely
+# before and entirely beyond the map, and a thin one across a cell border
+EDGE_ROIS = [[-500.0, -500.0, 2000.0, 2000.0], [300.0, 40.0, 300.0, 400.0],
+             [40.0, 300.0, 400.0, 300.0], [400.0, 420.0, 100.0, 60.0],
+             [-300.0, -250.0, -200.0, -100.0], [700.0, 650.0, 900.0, 990.0],
+             [100.0, 0.0, 127.9, 16.0]]
+
+
+# (B, H, W, C, R, pooled, sampling ratio): the edge cases the ROIAlign
+# kernel is held to on the card: sampling ratios 1 and 4, pooled 14, and
+# C = 6 (the kernel's scalar path) at the detector's 38 x 38, each with
+# EDGE_ROIS first
+@pytest.mark.parametrize("case", [(1, 38, 38, 16, 12, 7, 1),
+                                  (1, 38, 38, 16, 12, 7, 4),
+                                  (1, 38, 38, 8, 10, 14, 2),
+                                  (2, 38, 38, 6, 9, 7, 2)])
+def test_roi_align_edge_cases_match_jax(case):
+    """RoIs larger than the map, of zero width or height, inverted or
+    entirely outside it: the plain ROIAlign against the JAX vmap path at
+    1e-5 (float32 sums in another order); RoIs outside the map pool
+    zeros."""
+    B, H, W, C, R, P, sr = case
+    feats, rois = roi_inputs(B, H, W, C, R, seed=6)
+    rois[:, :len(EDGE_ROIS)] = np.asarray(EDGE_ROIS, np.float32)
+    got = proi.roi_align_batched(torch.from_numpy(feats),
+                                 torch.from_numpy(rois), P, 1 / 16.0, sr)
+    want = jroi.roi_align_batched(jnp.asarray(feats), jnp.asarray(rois), P,
+                                  1 / 16.0, sr, impl="xla")
+    assert got.shape == (B, R, P, P, C)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert not bool(got[:, 4:6].any()) and bool(got[:, :4].any())
 
 
 def test_roi_pool_matches_jax_and_roi_align_differentiates():
