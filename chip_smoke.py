@@ -15,8 +15,11 @@ before the result line.
    kernels (kernels 3 and 4) and fails if any has none;
 3. kernels: each of the five pose kernels against its plain PyTorch
    version on the card, at the shapes of the two paths and at small ragged
-   shapes; kernels 3 and 4 with bf16 features (tensor cores) and float32
-   ones (CUDA cores), and also at the two-stage path's pose batch of 4;
+   shapes; kernel 1 also at batch 1 with its planned chunks and with more
+   chunks than rows, on `hm[1:]` and on a base off 16 bytes (its generic
+   path), and twice at the serving shape for the same bits; kernels 3 and
+   4 with bf16 features (tensor cores) and float32 ones (CUDA cores), and
+   also at the two-stage path's pose batch of 4;
 4. serving: the flagship model (ModelConfig(): ResNet-50, 224x224, bf16,
    21 joints x 56 depth x 56x56) with seeded random weights sweeps 80
    synthetic samples through `Tester.run` at batch 32 (three batches, the
@@ -31,7 +34,11 @@ before the result line.
    step's gradients against a plain-backed step's from the same state;
    then it times and profiles the train step on both arms;
 6. timing: each kernel against its plain version with CUDA events, in
-   turns (plain, kernel, kernel, plain), at the paths' shapes; kernels 3
+   turns (plain, kernel, kernel, plain), at the paths' shapes; kernel 1
+   also with a float32 heatmap and at batch 4, each beside its own byte
+   bound, with its chunk plan, its two launches' device time and its
+   wrapper's host issue time; kernel 2's device kernels per call (the
+   kernel nodes of a captured CUDA graph; it fails unless 1); kernels 3
    and 4 with both feature dtypes, kernel 3 also at batch 4;
 7. detection: the NMS and ROIAlign kernels against their plain versions
    (keep sets bitwise equal; the suppression chain, clustered boxes at the
@@ -68,6 +75,7 @@ card's name and power limit; the last line is the JSON result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import itertools
 import json
@@ -239,6 +247,22 @@ def time_pair(kernel_fn, plain_fn, iters=10):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def softmax_integral_with_chunks(hm, J, D, chunks):
+    """Kernel 1's C entry with a chunk count of the caller's choosing (its
+    planner never leaves a chunk empty): (coords, m, s)."""
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
+    B, H, W, C = hm.shape
+    f32 = dict(dtype=torch.float32, device=hm.device)
+    coords, m, s = (torch.empty(B, J, 3, **f32), torch.empty(B, J, **f32),
+                    torch.empty(B, J, **f32))
+    ws = torch.empty(B * chunks * C * 4, **f32)
+    kernels.SOFTMAX_INTEGRAL_FWD(
+        hm.data_ptr(), int(hm.dtype == torch.bfloat16), coords.data_ptr(),
+        m.data_ptr(), s.data_ptr(), ws.data_ptr(), B, H, W, J, D, chunks,
+        torch.cuda.current_stream().cuda_stream)
+    return coords, m, s
+
+
 def homographies(B, g, dev):
     """Rotation, anisotropic scale, translation and a little perspective,
     as the augmentation's crop-after-rotation maps are."""
@@ -372,6 +396,38 @@ def device_profile(fn, n: int):
         and not getattr(e, "is_user_annotation", False)),
         key=lambda r: -r[1])
     return sum(r[1] for r in rows), rows
+
+
+def device_kernels_per_call(fn) -> tuple[int, int]:
+    """(kernel nodes, all nodes) of one call of `fn` captured in a CUDA
+    graph, counted by the driver (`cuGraphGetNodes`, `cuGraphNodeGetType`):
+    every device kernel the call issues, none dropped, as a profiler's
+    event buffers may drop them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture, as torch.cuda.graph asks
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    rc = cuda.cuGraphGetNodes(handle, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * max(1, n.value))()
+    if rc == 0:
+        rc = cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+    kinds = []
+    for i in range(n.value if rc == 0 else 0):
+        kind = ctypes.c_int(-1)
+        rc = rc or cuda.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
+                                           ctypes.byref(kind))
+        kinds.append(kind.value)
+    check(rc == 0, f"CUDA driver error {rc} reading a captured graph")
+    del graph
+    return sum(k == 0 for k in kinds), len(kinds)  # 0: a kernel node
 
 
 def print_profile(title: str, fn, n: int, card: str, top: int = 12) -> None:
@@ -893,8 +949,10 @@ def main() -> None:
         head_projection_integral_reference,
     )
     from hand_integral_pose_estimation_tpu_torch.ops.integral import (
+        channel_constants,
         softmax_integral_bwd_cuda,
         softmax_integral_bwd_reference,
+        softmax_integral_chunks,
         softmax_integral_cuda,
         softmax_integral_reference,
     )
@@ -964,6 +1022,43 @@ def main() -> None:
                                                         cot, j, d),),
                 GRAD_ABS_SCALE["softmax_integral_bwd"])
             err["softmax_integral_bwd"] = max(err["softmax_integral_bwd"], e)
+    # kernel 1's vectorised path at batch 1 (the planner's most chunks),
+    # with more chunks than rows (empty chunks), on hm[1:] of an odd batch
+    # and on a base off 16 bytes (the generic path); two calls at the
+    # serving shape give the same bits
+    for dt in (torch.float32, torch.bfloat16):
+        hm = (3 * torch.randn(1, Ho, Wo, J * D, device=dev,
+                              generator=g)).to(dt)
+        for n, run in (
+                (softmax_integral_chunks(hm),
+                 lambda: softmax_integral_cuda(hm, J, D)),
+                (Ho * Wo + 37,
+                 lambda: softmax_integral_with_chunks(hm, J, D, Ho * Wo + 37))):
+            e = compare(f"softmax_integral_fwd {tuple(hm.shape)} {dt}, "
+                        f"{n} chunks", run,
+                        lambda: softmax_integral_reference(hm, J, D))
+            err["softmax_integral_fwd"] = max(err["softmax_integral_fwd"], e)
+        hm = (3 * torch.randn(3, 7, 5, 2 * 100 + 1, device=dev,
+                              generator=g)).to(dt)
+        for name, view in (
+                ("hm[1:]", hm[..., :200].contiguous()[1:]),
+                ("a base off 16 bytes",
+                 hm.reshape(-1)[1:1 + 3 * 7 * 5 * 200].view(3, 7, 5, 200))):
+            e = compare(f"softmax_integral_fwd {tuple(view.shape)} {dt} on "
+                        f"{name} ({softmax_integral_chunks(view)} chunks)",
+                        lambda: softmax_integral_cuda(view, 2, 100),
+                        lambda: softmax_integral_reference(view, 2, 100))
+            err["softmax_integral_fwd"] = max(err["softmax_integral_fwd"], e)
+    hm = (3 * torch.randn(BATCH, Ho, Wo, J * D, device=dev,
+                          generator=g)).to(torch.bfloat16)
+    first = softmax_integral_cuda(hm, J, D)
+    again = softmax_integral_cuda(hm, J, D)
+    same = all(torch.equal(x, y) for x, y in zip(first, again))
+    print(f"[kernels] softmax_integral_fwd run twice at {tuple(hm.shape)}: "
+          f"coords, m and s bitwise equal: {same}", flush=True)
+    check(same, "the soft-argmax forward is not deterministic")
+    del hm, first, again
+
     # kernels 3 and 4 also at the two-stage path's pose batch, with bf16
     # features (the tensor-core kernels) and float32 ones (CUDA cores)
     for (B, H, W, j, d, f), fdt in itertools.product(
@@ -1259,6 +1354,9 @@ def main() -> None:
     }
     k32, p32 = time_pair(lambda: softmax_integral_cuda(hm32, J, D),
                          lambda: softmax_integral_reference(hm32, J, D))
+    hm4 = hm[:DET_BATCH].contiguous()
+    k4, p4 = time_pair(lambda: softmax_integral_cuda(hm4, J, D),
+                       lambda: softmax_integral_reference(hm4, J, D))
     # kernels 3 and 4 with float32 features (compute_dtype="float32", the
     # CUDA-core kernels), kernel 3 at the two-stage path's pose batch
     feats32, feats4 = feats.float(), feats[:DET_BATCH].contiguous()
@@ -1279,8 +1377,42 @@ def main() -> None:
     for name, (k, p) in times.items():
         print(f"[timing] {name} at the paths' shape: kernel {k:.4f} ms, "
               f"plain {p:.4f} ms on {card}", flush=True)
-    print(f"[timing] softmax_integral_fwd with a float32 heatmap: kernel "
-          f"{k32:.4f} ms, plain {p32:.4f} ms on {card}", flush=True)
+    # kernel 1: its plan, and float32 and batch-4 heatmaps beside their own
+    # byte bounds; its two launches' device time (profile)
+    for name, x, k, p in (("float32 heatmap", hm32, k32, p32),
+                          (f"batch {DET_BATCH}", hm4, k4, p4)):
+        bd = bound(x.numel() * x.element_size(), x.numel() * 8)
+        print(f"[timing] softmax_integral_fwd with a {name}: kernel {k:.4f} "
+              f"ms, plain {p:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}) on "
+              f"{card}", flush=True)
+    for x in (hm, hm32, hm4):
+        n = softmax_integral_chunks(x)
+        print(f"[timing] softmax_integral_fwd plan at {tuple(x.shape)} "
+              f"{x.dtype}: {n} chunks per image, {x.shape[0] * n} CTAs on "
+              f"{kernels.sm_count(x.device.index or 0)} SMs", flush=True)
+    print_profile(f"softmax_integral_fwd at {tuple(hm.shape)} bf16",
+                  lambda: softmax_integral_cuda(hm, J, D), 20, card, top=4)
+    # kernel 1's wrapper: host time to issue one call at batch 4, and the
+    # plan query's share of it
+    call_ms = issue_ms(lambda: softmax_integral_cuda(hm4, J, D), 21)
+    plan_ms = issue_ms(lambda: softmax_integral_chunks(hm4), 21)
+    print(f"[timing] softmax_integral_fwd host issue of one call at batch "
+          f"{DET_BATCH}: {call_ms:.4f} ms, of which the plan query "
+          f"{plan_ms:.4f} ms on {card}", flush=True)
+    # kernel 2: one device kernel per call, no torch glue around it; the
+    # counter must first see the glue that kernel 2 no longer needs
+    # (channel_constants)
+    glue, _ = device_kernels_per_call(
+        lambda: channel_constants(m1, s1, c1, cot, Ho, Wo, D))
+    per_call, nodes = device_kernels_per_call(
+        lambda: softmax_integral_bwd_cuda(hm, m1, s1, c1, cot, J, D))
+    print(f"[timing] softmax_integral_bwd device kernels per call: "
+          f"{per_call} ({nodes} graph nodes; channel_constants alone: "
+          f"{glue} kernels)", flush=True)
+    check(glue > 1, f"the graph count saw {glue} kernels in "
+          f"channel_constants, expected several")
+    check(per_call == 1, f"softmax_integral_bwd_cuda issued {per_call} "
+          f"device kernels per call, expected 1")
     b4_bound = bound(feats4.numel() * 2 + w.numel() * 4,
                      2.0 * feats4.numel() * w.shape[0], BF16X3_FLOPS)
     for name, (k, p) in more.items():

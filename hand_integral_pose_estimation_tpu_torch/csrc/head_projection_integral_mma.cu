@@ -25,8 +25,9 @@
 // channel (max, sum e, sum e col, sum e row). At the end the CTA merges
 // its lanes' and warpgroups' states in order and writes one partial state
 // per (image, chunk, channel). A second launch merges the chunks of each
-// channel in chunk order, then the channels of each joint (online_softmax.cuh
-// `finish`): coords, m and s. Every sum is taken in a fixed order.
+// channel in chunk order, then the channels of each joint
+// (chunk_merge.cuh `merge_chunks_kernel`, shared with kernel 1): coords,
+// m and s. Every sum is taken in a fixed order.
 //
 // Bound: the products, 3 x 2 x B*H*W x F x J*D flops (181 GFLOP at B = 32)
 // at the bf16 tensor-core rate; the features (51 MB at B = 32) are read
@@ -42,6 +43,7 @@
 #include <cuda_runtime.h>
 
 #include "bf16x3_mma.cuh"
+#include "chunk_merge.cuh"
 #include "online_softmax.cuh"
 
 namespace hipe {
@@ -50,8 +52,7 @@ using namespace mma;
 
 namespace {
 
-constexpr int kMergeThreads = 128;  // one thread per depth slot, D <= 128
-constexpr int kGroups = 3;          // warpgroups taking turns on the tiles
+constexpr int kGroups = 3;  // warpgroups taking turns on the tiles
 
 // online_softmax.cuh's fold without the depth sum: the depth slot is the
 // same for every logit of a channel, so the merge forms it from s
@@ -195,31 +196,6 @@ __global__ void __launch_bounds__(kGroups * kGroupThreads, 1)
   }
 }
 
-// One CTA per (image, joint): thread d merges channel j * D + d's chunk
-// states in chunk order, then the CTA merges the joint's channels.
-__global__ void __launch_bounds__(kMergeThreads)
-    hp_fwd_merge_kernel(const float4* __restrict__ ws, int chunks,
-                        int num_joints, int height, int width, int depth,
-                        float* __restrict__ coords, float* __restrict__ m_out,
-                        float* __restrict__ s_out) {
-  const int bj = blockIdx.x;
-  const int b = bj / num_joints;
-  const int j = bj - b * num_joints;
-  const int channels = num_joints * depth;
-  OnlineState st = empty_state();
-  for (int d = threadIdx.x; d < depth; d += blockDim.x) {
-    const int c = j * depth + d;
-    OnlineState cs = empty_state();
-    for (int k = 0; k < chunks; ++k) {
-      const float4 v = ws[((long long)b * chunks + k) * channels + c];
-      cs = merge(cs, OnlineState{v.x, v.y, v.z, v.w, 0.f});
-    }
-    cs.sz = cs.s * float(d);
-    st = merge(st, cs);
-  }
-  finish(st, bj, height, width, depth, coords, m_out, s_out);
-}
-
 }  // namespace
 
 // Both launches; ws holds batch * chunks * J*D float4 partial states.
@@ -250,7 +226,7 @@ cudaError_t head_projection_fwd_mma(const __nv_bfloat16* feats,
       chunks, per_chunk, ws4);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  hp_fwd_merge_kernel<<<batch * num_joints, kMergeThreads, 0, stream>>>(
+  merge_chunks_kernel<<<batch * num_joints, kMergeThreads, 0, stream>>>(
       ws4, chunks, num_joints, height, width, depth, coords, m, s);
   return cudaGetLastError();
 }

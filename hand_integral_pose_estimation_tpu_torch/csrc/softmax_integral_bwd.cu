@@ -4,28 +4,38 @@
 // _integral_bwd_kernel (launched by _softmax_integral_bwd_pallas). The
 // gradient of the coords with respect to the logits has a closed form,
 //   grad[b, hw, c] = exp(h - m_c) * (T_c + A_c * col(hw) + B_c * row(hw)),
-// where the per-channel constants fold in the joint's max m and sum s, its
-// coords and the incoming cotangent. The wrapper forms m, T, A and B in
-// torch as (B, J*D) float32 (integral.py:253-268); this kernel is the one
-// elementwise pass over the heatmap.
+// where, with j = c / D the channel's joint and gz = (c mod D) / D - 0.5,
+//   T_c = (cot_x (-0.5 - c_x) + cot_y (-0.5 - c_y) + cot_z (gz - c_z)) / s_j
+//   A_c = cot_x / (s_j W),   B_c = cot_y / (s_j H),   m_c = m_j
+// fold in the joint's max m_j and sum s_j, its coords c and the incoming
+// cotangent (integral.py:246-268). The JAX package forms them in XLA as
+// four (B, J*D) vectors. Here each thread forms its own channels' constants
+// in registers from the (B, J) statistics, so one call is one launch with
+// no tensor glue around it.
 //
 // Layout: heatmap and grad (B, H*W, J*D) in the heatmap's dtype (bf16 on
-// the training path); the constants (B, J*D) float32.
+// the training path); m, s (B, J), coords and cot (B, J, 3), float32.
 //
 // Bound: device memory. At B = 32 in bf16 it reads 236 MB and writes
 // 236 MB: 0.14 ms at 3.35 TB/s. When J*D is a multiple of 8 (the training
 // path's 1176 is), each thread owns one group of 8 consecutive channels
 // of one image, keeps that group's 32 constants in registers and walks
 // down a set of spatial rows, moving 16 bytes per access (8 bf16, or
-// 2 x 4 float32) with two rows in flight; the 32 lanes of a warp cover
-// 32 neighbouring groups, 512 contiguous bytes of a row. Otherwise (or on
-// a misaligned base) a generic kernel stages the image's constants in
-// shared memory and takes one element at a time.
+// 2 x 4 float32) with kRowsInFlight rows loaded before any is stored; the
+// 32 lanes of a warp cover 32 neighbouring groups, 512 contiguous bytes of
+// a row. The first rows' loads are issued before the constants are formed,
+// so forming them hides under the loads' latency. A group spans two joints
+// whenever D is not a multiple of 8, so the constants are indexed per
+// channel. Otherwise (or on a misaligned base) a generic kernel stages the
+// image's per-joint terms in shared memory (28 bytes a joint) and takes one
+// element at a time, forming its channel's constants from them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "vec8.cuh"
 
 namespace hipe {
 namespace {
@@ -42,24 +52,7 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// 8 consecutive values <-> float; 16- or 32-byte accesses.
-__device__ __forceinline__ void load8(const float* p, float (&v)[kVec]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      float (&v)[kVec]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
+// 8 consecutive values from float; 16- or 32-byte stores.
 __device__ __forceinline__ void store8(float* p, const float (&v)[kVec]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
@@ -74,81 +67,148 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p,
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
-constexpr int kGroupLanes = 32;    // channel groups per CTA (blockDim.x)
-constexpr int kRowLanes = 8;       // rows walked in parallel (blockDim.y)
-constexpr int kRowsPerThread = 16;  // rows each thread walks
+// A joint's share of its channels' constants: m, s, the cotangent's x and
+// y terms of T, its z weight and the joint's z coordinate, A and B.
+struct JointTerms {
+  float m, s, txy, cot_z, c_z, a, b;
+};
 
-// The vectorised path: blockIdx (group block, row block, image).
+// st: m, s, c_x, c_y, c_z, cot_x, cot_y, cot_z of one joint
+__device__ __forceinline__ JointTerms joint_terms(const float (&st)[8],
+                                                  int height, int width) {
+  const float s = st[1];
+  return JointTerms{st[0], s,
+                    st[5] * (-0.5f - st[2]) + st[6] * (-0.5f - st[3]),
+                    st[7], st[4], st[5] / (s * float(width)),
+                    st[6] / (s * float(height))};
+}
+
+__device__ __forceinline__ JointTerms joint_terms(
+    const float* __restrict__ m, const float* __restrict__ s,
+    const float* __restrict__ coords, const float* __restrict__ cot, int bj,
+    int height, int width) {
+  const float st[8] = {__ldg(m + bj),             __ldg(s + bj),
+                       __ldg(coords + 3 * bj),     __ldg(coords + 3 * bj + 1),
+                       __ldg(coords + 3 * bj + 2), __ldg(cot + 3 * bj),
+                       __ldg(cot + 3 * bj + 1),    __ldg(cot + 3 * bj + 2)};
+  return joint_terms(st, height, width);
+}
+
+// T of depth slot d
+__device__ __forceinline__ float channel_t(const JointTerms& jt, int d,
+                                           int depth) {
+  const float gz = float(d) / float(depth) - 0.5f;
+  return (jt.txy + jt.cot_z * (gz - jt.c_z)) / jt.s;
+}
+
+constexpr int kGroupLanes = 32;     // channel groups per CTA (blockDim.x)
+constexpr int kRowLanes = 8;        // rows walked in parallel (blockDim.y)
+constexpr int kRowsPerThread = 16;  // rows each thread walks
+constexpr int kRowsInFlight = 4;    // rows loaded before any is stored (2
+                                    // ran slower on the H100)
+static_assert(kRowsPerThread % kRowsInFlight == 0, "whole steps");
+
+// The vectorised path: blockIdx (group block, row block, image). The rows
+// in flight stay packed (16 registers of bf16), so three CTAs fit an SM
+// in bf16 (at most 85 registers a thread), two in float32.
 template <typename T>
-__global__ void __launch_bounds__(kGroupLanes * kRowLanes)
+__global__ void __launch_bounds__(kGroupLanes * kRowLanes,
+                                  sizeof(T) == 2 ? 3 : 2)
     softmax_integral_bwd_vec_kernel(const T* __restrict__ hm,
-                                    const float* __restrict__ mvec,
-                                    const float* __restrict__ tvec,
-                                    const float* __restrict__ avec,
-                                    const float* __restrict__ bvec,
+                                    const float* __restrict__ m_in,
+                                    const float* __restrict__ s_in,
+                                    const float* __restrict__ coords,
+                                    const float* __restrict__ cot,
                                     T* __restrict__ grad, int hw_total,
-                                    int width, int channels) {
-  const int cg = blockIdx.x * kGroupLanes + threadIdx.x;
-  if (cg * kVec >= channels) return;  // no barrier follows
+                                    int height, int width, int num_joints,
+                                    int depth) {
+  const int channels = num_joints * depth;
+  const int c0 = (blockIdx.x * kGroupLanes + threadIdx.x) * kVec;
+  if (c0 >= channels) return;  // no barrier follows
   const int b = blockIdx.z;
-  const long long cb = (long long)b * channels + cg * kVec;
-  float m[kVec], t[kVec], a[kVec], bc[kVec];
-  load8(mvec + cb, m);
-  load8(tvec + cb, t);
-  load8(avec + cb, a);
-  load8(bvec + cb, bc);
-  const long long base = (long long)b * hw_total * channels + cg * kVec;
-  const int row0 = blockIdx.y * kRowLanes * kRowsPerThread + threadIdx.y;
+  const long long base = (long long)b * hw_total * channels + c0;
+  int hw = blockIdx.y * kRowLanes * kRowsPerThread + threadIdx.y;
+  // this thread's rows step by kRowLanes: row and column stepped along,
+  // one division here and none per row
+  int row = hw / width, col = hw - row * width;
+  const int step_row = kRowLanes / width;
+  const int step_col = kRowLanes - step_row * width;
+
+  Vec8<T> x[kRowsInFlight];
+  const auto load_rows = [&](int first) {
+#pragma unroll
+    for (int u = 0; u < kRowsInFlight; ++u) {
+      const int r = first + u * kRowLanes;
+      if (r < hw_total) x[u].load(hm + base + (long long)r * channels);
+    }
+  };
+  load_rows(hw);
+
+  float mc[kVec], tc[kVec], ac[kVec], bc[kVec];
+  {
+    int j = c0 / depth, d = c0 - j * depth;
+    JointTerms jt = joint_terms(m_in, s_in, coords, cot, b * num_joints + j,
+                                height, width);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      if (k > 0 && ++d == depth) {
+        d = 0;
+        jt = joint_terms(m_in, s_in, coords, cot, b * num_joints + ++j,
+                         height, width);
+      }
+      mc[k] = jt.m;
+      tc[k] = channel_t(jt, d, depth);
+      ac[k] = jt.a;
+      bc[k] = jt.b;
+    }
+  }
+
 #pragma unroll 1
-  for (int i = 0; i < kRowsPerThread; i += 2) {
-    float x[2][kVec];
-    int hw[2];
+  for (int i = 0; i < kRowsPerThread; i += kRowsInFlight) {
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      hw[u] = row0 + (i + u) * kRowLanes;
-      if (hw[u] < hw_total)
-        load8(hm + base + (long long)hw[u] * channels, x[u]);
+    for (int u = 0; u < kRowsInFlight; ++u) {
+      const int r = hw + u * kRowLanes;
+      if (r < hw_total) {
+        const float fr = float(row), fc = float(col);
+        float g[kVec];
+#pragma unroll
+        for (int k = 0; k < kVec; ++k)
+          g[k] = expf(x[u][k] - mc[k]) * (tc[k] + ac[k] * fc + bc[k] * fr);
+        store8(grad + base + (long long)r * channels, g);
+      }
+      col += step_col;
+      row += step_row;
+      if (col >= width) {
+        col -= width;
+        ++row;
+      }
     }
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      if (hw[u] >= hw_total) continue;
-      const int r = hw[u] / width;
-      const float row = float(r);
-      const float col = float(hw[u] - r * width);
-      float g[kVec];
-#pragma unroll
-      for (int k = 0; k < kVec; ++k)
-        g[k] = expf(x[u][k] - m[k]) * (t[k] + a[k] * col + bc[k] * row);
-      store8(grad + base + (long long)hw[u] * channels, g);
-    }
+    hw += kRowsInFlight * kRowLanes;
+    if (i + kRowsInFlight < kRowsPerThread) load_rows(hw);
   }
 }
 
-// The generic path: grid (CTAs per image, B), the image's constants in
-// shared memory, a grid-stride loop over single elements.
+// The generic path: grid (CTAs per image, B), the image's joint terms in
+// shared memory, a grid-stride loop over single elements that forms each
+// element's channel constants from its joint's terms.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     softmax_integral_bwd_kernel(const T* __restrict__ hm,
-                                const float* __restrict__ mvec,
-                                const float* __restrict__ tvec,
-                                const float* __restrict__ avec,
-                                const float* __restrict__ bvec,
-                                T* __restrict__ grad, int hw_total, int width,
-                                int channels) {
-  extern __shared__ float consts[];  // [4][channels]: m, T, A, B
+                                const float* __restrict__ m_in,
+                                const float* __restrict__ s_in,
+                                const float* __restrict__ coords,
+                                const float* __restrict__ cot,
+                                T* __restrict__ grad, int hw_total,
+                                int height, int width, int num_joints,
+                                int depth) {
+  extern __shared__ float smem[];  // [J] JointTerms
+  JointTerms* terms = reinterpret_cast<JointTerms*>(smem);
+  const int channels = num_joints * depth;
   const int b = blockIdx.y;
-  for (int c = threadIdx.x; c < channels; c += blockDim.x) {
-    const long long o = (long long)b * channels + c;
-    consts[c] = mvec[o];
-    consts[channels + c] = tvec[o];
-    consts[2 * channels + c] = avec[o];
-    consts[3 * channels + c] = bvec[o];
-  }
+  for (int j = threadIdx.x; j < num_joints; j += blockDim.x)
+    terms[j] = joint_terms(m_in, s_in, coords, cot, b * num_joints + j,
+                           height, width);
   __syncthreads();
-  const float* m_s = consts;
-  const float* t_s = consts + channels;
-  const float* a_s = consts + 2 * channels;
-  const float* b_s = consts + 3 * channels;
 
   // the caller guarantees hw_total * channels < 2^31
   const int plane = hw_total * channels;
@@ -158,32 +218,37 @@ __global__ void __launch_bounds__(kThreads)
        e += gridDim.x * blockDim.x) {
     const int hw = e / channels;
     const int c = e - hw * channels;
+    const int j = c / depth;
+    const JointTerms jt = terms[j];
     const int r = hw / width;
     const float row = float(r);
     const float col = float(hw - r * width);
-    store_f(dst + e, expf(load_f(src + e) - m_s[c]) *
-                         (t_s[c] + a_s[c] * col + b_s[c] * row));
+    store_f(dst + e, expf(load_f(src + e) - jt.m) *
+                         (channel_t(jt, c - j * depth, depth) + jt.a * col +
+                          jt.b * row));
   }
 }
 
 template <typename T>
-cudaError_t launch(const T* hm, const float* m, const float* t,
-                   const float* a, const float* bc, T* grad, int batch,
-                   int hw_total, int width, int channels,
+cudaError_t launch(const T* hm, const float* m, const float* s,
+                   const float* coords, const float* cot, T* grad, int batch,
+                   int height, int width, int num_joints, int depth,
                    cudaStream_t stream) {
+  const int hw_total = height * width;
+  const int channels = num_joints * depth;
   // 16-byte accesses need 8-channel rows and 16-byte aligned bases
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  if (channels % kVec == 0 && aligned(hm) && aligned(grad) && aligned(m) &&
-      aligned(t) && aligned(a) && aligned(bc)) {
+  if (channels % kVec == 0 && aligned(hm) && aligned(grad)) {
     const int groups = channels / kVec;
     const int rows = kRowLanes * kRowsPerThread;
     const dim3 grid((groups + kGroupLanes - 1) / kGroupLanes,
                     (hw_total + rows - 1) / rows, batch);
     softmax_integral_bwd_vec_kernel<T>
         <<<grid, dim3(kGroupLanes, kRowLanes), 0, stream>>>(
-            hm, m, t, a, bc, grad, hw_total, width, channels);
+            hm, m, s, coords, cot, grad, hw_total, height, width, num_joints,
+            depth);
   } else {
     // about eight CTAs per SM over the whole batch, never more than the
     // image has elements for
@@ -191,10 +256,12 @@ cudaError_t launch(const T* hm, const float* m, const float* t,
     int per_image = (8 * 132 + batch - 1) / batch;
     const int needed = (plane + kThreads - 1) / kThreads;
     if (per_image > needed) per_image = needed;
-    const size_t smem = sizeof(float) * 4 * (size_t)channels;
+    const size_t smem = sizeof(JointTerms) * (size_t)num_joints;
+    if (smem > 48 * 1024) return cudaErrorInvalidValue;
     softmax_integral_bwd_kernel<T>
         <<<dim3(per_image, batch), kThreads, smem, stream>>>(
-            hm, m, t, a, bc, grad, hw_total, width, channels);
+            hm, m, s, coords, cot, grad, hw_total, height, width, num_joints,
+            depth);
   }
   return cudaGetLastError();
 }
@@ -202,30 +269,31 @@ cudaError_t launch(const T* hm, const float* m, const float* t,
 }  // namespace
 }  // namespace hipe
 
-// dtype: 0 = float32, 1 = bfloat16, for heatmap and grad alike. The four
-// constant vectors are (B, channels) float32. The caller guarantees
-// contiguity, 16 * channels bytes <= 48 KB and hw_total * channels < 2^31.
-// Returns the launch error.
+// dtype: 0 = float32, 1 = bfloat16, for heatmap and grad alike. m and s
+// are (B, J), coords and cot (B, J, 3), all float32 and contiguous. The
+// caller guarantees contiguity and H * W * J * D < 2^31. The generic path
+// refuses (cudaErrorInvalidValue) more joints than its 48 KB of shared
+// memory holds (1755). Returns the launch error.
 extern "C" int hipe_softmax_integral_bwd(const void* hm, int dtype,
-                                         const void* m, const void* t,
-                                         const void* a, const void* bc,
-                                         void* grad, int batch, int hw_total,
-                                         int width, int channels,
+                                         const void* m, const void* s,
+                                         const void* coords, const void* cot,
+                                         void* grad, int batch, int height,
+                                         int width, int num_joints, int depth,
                                          void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto mm = static_cast<const float*>(m);
-  auto tt = static_cast<const float*>(t);
-  auto aa = static_cast<const float*>(a);
-  auto bb = static_cast<const float*>(bc);
+  auto ss = static_cast<const float*>(s);
+  auto cc = static_cast<const float*>(coords);
+  auto tt = static_cast<const float*>(cot);
   cudaError_t err;
   if (dtype == 0) {
-    err = hipe::launch(static_cast<const float*>(hm), mm, tt, aa, bb,
-                       static_cast<float*>(grad), batch, hw_total, width,
-                       channels, st);
+    err = hipe::launch(static_cast<const float*>(hm), mm, ss, cc, tt,
+                       static_cast<float*>(grad), batch, height, width,
+                       num_joints, depth, st);
   } else if (dtype == 1) {
-    err = hipe::launch(static_cast<const __nv_bfloat16*>(hm), mm, tt, aa, bb,
-                       static_cast<__nv_bfloat16*>(grad), batch, hw_total,
-                       width, channels, st);
+    err = hipe::launch(static_cast<const __nv_bfloat16*>(hm), mm, ss, cc, tt,
+                       static_cast<__nv_bfloat16*>(grad), batch, height, width,
+                       num_joints, depth, st);
   } else {
     err = cudaErrorInvalidValue;
   }

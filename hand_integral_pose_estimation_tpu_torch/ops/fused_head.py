@@ -20,7 +20,6 @@ float32 accuracy. float32 features go to the CUDA-core kernels.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -63,11 +62,6 @@ def bf16_split(x: torch.Tensor, parts: int) -> list[torch.Tensor]:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _mma_chunks(feats: torch.Tensor, num_channels: int) -> int:
     """Chunks per image of the tensor-core grids, which have one CTA per
     (image, chunk of its 64-position tiles, block of 64 channels) and one
@@ -77,7 +71,7 @@ def _mma_chunks(feats: torch.Tensor, num_channels: int) -> int:
     B, H, W, _ = feats.shape
     tiles = -(-(H * W) // _TILE)
     ctas = B * -(-num_channels // _MMA_BLOCK_C)
-    sms = _sm_count(feats.device.index or 0)
+    sms = kernels.sm_count(feats.device.index or 0)
     return min(range(1, tiles + 1), key=lambda c: (
         math.ceil(ctas * c / sms) * (-(-tiles // c) + 1)))
 

@@ -15,6 +15,13 @@ versions, `softmax_integral_reference` and
 dL/dh = p * sum_a cot_a (g_a - c_a) of the JAX package's custom VJP
 (integral.py:302-331): the probability volume is recomputed from the saved
 per-joint max and sum, never stored.
+
+The forward kernel cuts each image's H*W rows into chunks
+(`softmax_integral_chunks`), writes one online-softmax state per (image,
+chunk, channel) into a workspace allocated here, and merges the chunks in
+order in a second launch behind the same C entry. The backward kernel forms
+its per-channel constants from the (B, J) statistics itself: one call is
+one launch.
 """
 
 from __future__ import annotations
@@ -25,6 +32,17 @@ from hand_integral_pose_estimation_tpu_torch.ops import kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DEPTH = 128
+
+
+def softmax_integral_chunks(heatmap: torch.Tensor) -> int:
+    """Chunks per image of kernel 1's vectorised path for this CUDA
+    heatmap (B, H, W, C) float32 or bfloat16, 0 where it takes the generic
+    path; the C library plans them (`kernels.softmax_integral_fwd_chunks`)
+    for the heatmap's device."""
+    B, H, W, C = heatmap.shape
+    return kernels.softmax_integral_fwd_chunks(
+        heatmap.data_ptr(), _DTYPE_CODES[heatmap.dtype], B, H * W, C,
+        heatmap.device.index)
 
 
 def softmax_integral_reference(heatmap: torch.Tensor, num_joints: int,
@@ -58,8 +76,8 @@ def softmax_integral_cuda(heatmap: torch.Tensor, num_joints: int,
                           depth: int):
     """Launch the soft-argmax kernel (`csrc/softmax_integral.cu`).
 
-    heatmap: contiguous CUDA (B, H, W, J*D) float32 or bfloat16.
-    Returns (coords, m, s) in float32, as `softmax_integral_reference`."""
+    heatmap: contiguous CUDA (B, H, W, J*D) float32 or bfloat16. Returns
+    (coords, m, s) in float32, as `softmax_integral_reference`."""
     if heatmap.device.type != "cuda":
         raise ValueError(f"softmax_integral_cuda needs a CUDA tensor, got "
                          f"{heatmap.device}")
@@ -73,18 +91,20 @@ def softmax_integral_cuda(heatmap: torch.Tensor, num_joints: int,
         raise ValueError("softmax_integral_cuda needs a contiguous heatmap")
     if not 1 <= depth <= MAX_DEPTH:
         raise ValueError(f"depth {depth} outside 1..{MAX_DEPTH}")
-    B, H, W, _ = heatmap.shape
+    B, H, W, C = heatmap.shape
     if B * H * W * num_joints == 0:
         raise ValueError(f"empty heatmap {tuple(heatmap.shape)}")
     with torch.cuda.device(heatmap.device):
+        chunks = softmax_integral_chunks(heatmap)
         f32 = dict(dtype=torch.float32, device=heatmap.device)
         coords = torch.empty(B, num_joints, 3, **f32)
         m = torch.empty(B, num_joints, **f32)
         s = torch.empty(B, num_joints, **f32)
+        ws = torch.empty(B * chunks * C * 4 if chunks else 0, **f32)
         kernels.SOFTMAX_INTEGRAL_FWD(
             heatmap.data_ptr(), _DTYPE_CODES[heatmap.dtype], coords.data_ptr(),
-            m.data_ptr(), s.data_ptr(), B, H, W, num_joints, depth,
-            torch.cuda.current_stream().cuda_stream)
+            m.data_ptr(), s.data_ptr(), ws.data_ptr(), B, H, W, num_joints,
+            depth, chunks, torch.cuda.current_stream().cuda_stream)
     return coords, m, s
 
 
@@ -123,7 +143,9 @@ def channel_constants(m: torch.Tensor, s: torch.Tensor, coords: torch.Tensor,
     """The per-channel constants of the folded backward
     (integral.py:253-268), each (B, J*D) in `dtype` with channel j*D + d:
     grad = exp(h - m_c) * (T_c + A_c * col + B_c * row), col and row in
-    raw grid units. Formed on the tensors' device with no host sync."""
+    raw grid units. Formed on the tensors' device with no host sync, for
+    the fused head's backward (kernel 2 forms the same numbers in its
+    registers)."""
     B, J = m.shape
     m, s, coords, cot = (t.to(dtype) for t in (m, s, coords, cot))
     gz = torch.arange(depth, dtype=dtype, device=m.device) / depth - 0.5
@@ -144,10 +166,12 @@ def softmax_integral_bwd_cuda(heatmap: torch.Tensor, m: torch.Tensor,
                               cot: torch.Tensor, num_joints: int,
                               depth: int) -> torch.Tensor:
     """Launch the soft-argmax backward kernel
-    (`csrc/softmax_integral_bwd.cu`). heatmap: contiguous CUDA
-    (B, H, W, J*D) float32 or bfloat16; m, s (B, J), coords and cot
-    (B, J, 3) on the same device. Returns the gradient in the heatmap's
-    dtype, as `softmax_integral_bwd_reference`."""
+    (`csrc/softmax_integral_bwd.cu`): one launch, which forms the
+    per-channel constants of `channel_constants` itself. heatmap:
+    contiguous CUDA (B, H, W, J*D) float32 or bfloat16; m, s (B, J),
+    coords and cot (B, J, 3), contiguous float32 on the same device.
+    Returns the gradient in the heatmap's dtype, as
+    `softmax_integral_bwd_reference`."""
     if heatmap.device.type != "cuda":
         raise ValueError(f"softmax_integral_bwd_cuda needs a CUDA tensor, "
                          f"got {heatmap.device}")
@@ -167,21 +191,22 @@ def softmax_integral_bwd_cuda(heatmap: torch.Tensor, m: torch.Tensor,
         if t.device != heatmap.device or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape} on {heatmap.device}, "
                              f"got {tuple(t.shape)} on {t.device}")
-    if 16 * C > 48 * 1024:
-        raise ValueError(f"{C} channels do not fit the kernel's shared "
-                         f"memory (at most 3072)")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
     if H * W * C >= 2**31:
         raise ValueError(f"heatmap image {(H, W, C)} is too large for the "
                          f"kernel's 32-bit indexing")
     if B * H * W * C == 0:
         raise ValueError(f"empty heatmap {tuple(heatmap.shape)}")
     with torch.cuda.device(heatmap.device):
-        mvec, T, A, Bc = channel_constants(m, s, coords, cot, H, W, depth)
         grad = torch.empty_like(heatmap)
         kernels.SOFTMAX_INTEGRAL_BWD(
-            heatmap.data_ptr(), _DTYPE_CODES[heatmap.dtype], mvec.data_ptr(),
-            T.data_ptr(), A.data_ptr(), Bc.data_ptr(), grad.data_ptr(), B,
-            H * W, W, C, torch.cuda.current_stream().cuda_stream)
+            heatmap.data_ptr(), _DTYPE_CODES[heatmap.dtype], m.data_ptr(),
+            s.data_ptr(), coords.data_ptr(), cot.data_ptr(), grad.data_ptr(),
+            B, H, W, num_joints, depth,
+            torch.cuda.current_stream().cuda_stream)
     return grad
 
 
@@ -206,8 +231,8 @@ class SoftmaxIntegral(torch.autograd.Function):
         heatmap, m, s, coords = ctx.saved_tensors
         num_joints, depth = ctx.dims
         # (b) autograd may hand over a non-contiguous cotangent in another
-        # dtype; the kernel and the folded constants read (B, J, 3) in the
-        # forward's accumulation dtype (float32 on CUDA)
+        # dtype; the kernel reads a contiguous (B, J, 3) in the forward's
+        # accumulation dtype (float32 on CUDA)
         cot = grad_coords.to(coords.dtype).contiguous()
         if heatmap.device.type == "cuda":
             grad = softmax_integral_bwd_cuda(heatmap, m, s, coords, cot,

@@ -14,6 +14,7 @@ can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -21,6 +22,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -167,19 +170,52 @@ class Kernel:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-#: (hm, dtype, coords, m, s, B, H, W, J, D, stream)
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_entry():
+    fn = library().hipe_softmax_integral_fwd_chunks
+    fn.argtypes = [_P, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def softmax_integral_fwd_chunks(hm: int, dtype: int, batch: int, rows: int,
+                                channels: int, device: int) -> int:
+    """Chunks per image of kernel 1's vectorised path for a heatmap at
+    address `hm` of (batch, rows, channels), dtype code `dtype` (0 float32,
+    1 bfloat16), on CUDA device `device`; 0 where it takes the generic
+    path. The C library owns the plan (`hipe_softmax_integral_fwd_chunks`);
+    it launches nothing."""
+    out = ctypes.c_int(0)
+    rc = _plan_entry()(hm, dtype, batch, rows, channels, device,
+                       ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"hipe_softmax_integral_fwd_chunks: CUDA error "
+                           f"{rc} ({library().hipe_error_string(rc).decode()})")
+    return out.value
+
+
+#: (hm, dtype, coords, m, s, ws, B, H, W, J, D, chunks per image (0: the
+#:  generic path, no workspace), stream)
 SOFTMAX_INTEGRAL_FWD = Kernel(
-    "hipe_softmax_integral_fwd", [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+    "hipe_softmax_integral_fwd",
+    [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 #: (feats, dtype, weight, bias, coords, m, s, ws, B, H, W, F, J, D,
 #:  chunks per image, stream)
 HEAD_PROJECTION_INTEGRAL_FWD = Kernel(
     "hipe_head_projection_integral_fwd",
     [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
 
-#: (hm, dtype, m, T, A, B, grad, B, H*W, W, J*D, stream)
+#: (hm, dtype, m, s, coords, cot, grad, B, H, W, J, D, stream)
 SOFTMAX_INTEGRAL_BWD = Kernel(
     "hipe_softmax_integral_bwd",
-    [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+    [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 #: (feats, dtype, weight, bias, m, T, A, B, dfeat, dW, db, ws, ws_db,
 #:  B, H, W, F, J, D, chunks per image, stream)
 HEAD_PROJECTION_INTEGRAL_BWD = Kernel(

@@ -15,7 +15,8 @@ column, the tap rows of seven pooled rows at once) instead of building the
 TPU kernel's dense combined weights (`_ra_kernel`, roi_align.py:93).
 Forward only: the detector's training comes in a later port and
 differentiates the plain version, as the JAX package trains through its
-XLA path.
+XLA path; until then `roi_align_cuda` raises for inputs that require grad
+under grad mode, so the kernel never returns a silently detached result.
 """
 
 from __future__ import annotations
@@ -88,7 +89,15 @@ def roi_align_cuda(features: torch.Tensor, rois: torch.Tensor,
 
     features: contiguous CUDA (B, H, W, C) float32; rois (B, R, 4) on the
     same device, any float dtype (taken as float32). Returns
-    (B, R, pooled, pooled, C) float32."""
+    (B, R, pooled, pooled, C) float32. The kernel has no backward: under
+    grad mode, features or RoIs that require grad raise (`impl="plain"`
+    is the differentiable path)."""
+    if torch.is_grad_enabled() and (features.requires_grad
+                                    or rois.requires_grad):
+        raise RuntimeError("roi_align_cuda has no backward and would return "
+                           "a result detached from inputs that require "
+                           "grad: use roi_align_batched(..., impl=\"plain\") "
+                           "to differentiate, or run under torch.no_grad()")
     if features.device.type != "cuda" or rois.device != features.device:
         raise ValueError(f"roi_align_cuda needs CUDA features and RoIs on "
                          f"one device, got {features.device} and "
@@ -127,9 +136,10 @@ def roi_align_batched(features: torch.Tensor, rois: torch.Tensor,
                       impl: str = "auto") -> torch.Tensor:
     """(B, H, W, C) x (B, R, 4) -> (B, R, P, P, C).
 
-    impl: "cuda" (kernel 6, CUDA tensors, forward only), "plain" (the
-    separable weights, differentiable) or "auto" (the kernel for a CUDA
-    tensor, the plain version for a CPU tensor)."""
+    impl: "cuda" (kernel 6, CUDA tensors, forward only: it raises for
+    inputs that require grad under grad mode), "plain" (the separable
+    weights, differentiable) or "auto" (the kernel for a CUDA tensor, the
+    plain version for a CPU tensor)."""
     if impl == "auto":
         impl = "cuda" if features.device.type == "cuda" else "plain"
     if impl == "cuda":

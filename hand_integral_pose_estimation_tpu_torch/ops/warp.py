@@ -176,7 +176,16 @@ def warp_perspective_cuda(images: torch.Tensor, H_mats: torch.Tensor,
     images: contiguous CUDA (B, Hs, Ws, C) float32; H_mats (B, 3, 3) on the
     same device, any float dtype. The 8 coefficients per image are formed
     here in torch (no host sync) and handed to the kernel as float32, as
-    the TPU kernel takes them. Returns (B, Ho, Wo, C) float32."""
+    the TPU kernel takes them. Returns (B, Ho, Wo, C) float32. The kernel
+    has no backward: under grad mode, images or maps that require grad
+    raise (method "twopass" is the differentiable path)."""
+    if torch.is_grad_enabled() and (images.requires_grad
+                                    or H_mats.requires_grad):
+        raise RuntimeError("warp_perspective_cuda has no backward and would "
+                           "return a result detached from inputs that "
+                           "require grad: use warp_perspective_batch(..., "
+                           "method=\"twopass\") to differentiate, or run "
+                           "under torch.no_grad()")
     if images.device.type != "cuda" or H_mats.device != images.device:
         raise ValueError(f"warp_perspective_cuda needs CUDA images and maps "
                          f"on one device, got {images.device} and "
@@ -216,7 +225,8 @@ def warp_perspective_batch(images: torch.Tensor, H_mats: torch.Tensor,
                            method: str = "auto") -> torch.Tensor:
     """(B, H, W, C) x (B, 3, 3) -> (B, Ho, Wo, C).
 
-    method: "kernel" (the two-pass CUDA kernel, CUDA tensors only),
+    method: "kernel" (the two-pass CUDA kernel, CUDA tensors only,
+    forward only: it raises for inputs that require grad under grad mode),
     "twopass" (its plain version), "auto" (the kernel for a CUDA tensor,
     "twopass" for a CPU tensor), "affine" (axis-aligned maps only, see
     :func:`warp_axis_aligned_batch`) or "gather" (single-pass bilinear,

@@ -141,6 +141,167 @@ def test_softmax_integral_bwd_kernel_matches_plain(dev, shape, dtype):
                                                         cot, J, D), dtype)
 
 
+def _forward_with_chunks(hm, J, D, chunks):
+    """Kernel 1's C entry with a chunk count of the caller's choosing (the
+    planner never leaves a chunk empty): (coords, m, s)."""
+    B, H, W, C = hm.shape
+    f32 = dict(dtype=torch.float32, device=hm.device)
+    coords, m, s = (torch.empty(B, J, 3, **f32), torch.empty(B, J, **f32),
+                    torch.empty(B, J, **f32))
+    ws = torch.empty(B * chunks * C * 4, **f32)
+    kernels.SOFTMAX_INTEGRAL_FWD(
+        hm.data_ptr(), integral._DTYPE_CODES[hm.dtype], coords.data_ptr(),
+        m.data_ptr(), s.data_ptr(), ws.data_ptr(), B, H, W, J, D, chunks,
+        torch.cuda.current_stream().cuda_stream)
+    return coords, m, s
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunks", ["planned", "more_than_rows"])
+def test_softmax_integral_kernel_at_batch_one_with_the_most_chunks(
+        dev, chunks, dtype):
+    """Kernel 1's vectorised path at batch 1, where the planner cuts the
+    image into the most chunks, and with more chunks than rows, whose
+    empty chunks hold the empty state and must add nothing."""
+    B, H, W, J, D = 1, 56, 56, 21, 56
+    g = torch.Generator(device=dev).manual_seed(7)
+    hm = (3 * torch.randn(B, H, W, J * D, device=dev, generator=g)).to(dtype)
+    planned = integral.softmax_integral_chunks(hm)
+    assert planned >= integral.softmax_integral_chunks(
+        hm.expand(32, H, W, J * D).contiguous()) >= 1
+    if chunks == "planned":
+        got = integral.softmax_integral_cuda(hm, J, D)
+    else:
+        got = _forward_with_chunks(hm, J, D, H * W + 37)
+    _check(got, integral.softmax_integral_reference(hm, J, D))
+    small = hm[:, :3, :2].contiguous()   # 6 rows, up to 43 chunks
+    _check(_forward_with_chunks(small, J, D, 43),
+           integral.softmax_integral_reference(small, J, D))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_integral_kernel_on_unaligned_views(dev, dtype):
+    """`hm[1:]` of an odd-sized batch starts mid-allocation; a heatmap
+    whose base is off 16 bytes (8-channel rows notwithstanding) takes the
+    generic path, and the C entry refuses a vectorised launch of it."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    for (B, H, W, J, D) in ((3, 7, 5, 3, 4), (3, 7, 5, 2, 40)):
+        hm = (3 * torch.randn(B, H, W, J * D, device=dev, generator=g)
+              ).to(dtype)
+        view = hm[1:]
+        assert view.is_contiguous()
+        _check(integral.softmax_integral_cuda(view, J, D),
+               integral.softmax_integral_reference(view, J, D))
+    B, H, W, J, D = 3, 7, 5, 2, 40
+    flat = (3 * torch.randn(B * H * W * J * D + 1, device=dev, generator=g)
+            ).to(dtype)
+    off = flat[1:].view(B, H, W, J * D)
+    assert off.data_ptr() % 16 and integral.softmax_integral_chunks(off) == 0
+    _check(integral.softmax_integral_cuda(off, J, D),
+           integral.softmax_integral_reference(off, J, D))
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        _forward_with_chunks(off, J, D, 4)
+
+
+def test_softmax_integral_kernel_is_deterministic(dev):
+    """Chunks and channels are merged in a fixed order: two calls at the
+    serving shape give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    hm = (3 * torch.randn(32, 56, 56, 21 * 56, device=dev, generator=g)
+          ).to(torch.bfloat16)
+    first = integral.softmax_integral_cuda(hm, 21, 56)
+    second = integral.softmax_integral_cuda(hm, 21, 56)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_integral_bwd_is_one_device_kernel(dev, dtype):
+    """One call of the backward wrapper issues one device kernel: the
+    per-channel constants are formed inside it, with no torch glue."""
+    B, H, W, J, D = 4, 56, 56, 21, 56
+    g = torch.Generator(device=dev).manual_seed(10)
+    hm = (3 * torch.randn(B, H, W, J * D, device=dev, generator=g)).to(dtype)
+    coords, m, s = integral.softmax_integral_cuda(hm, J, D)
+    cot = torch.randn(B, J, 3, device=dev, generator=g)
+    integral.softmax_integral_bwd_cuda(hm, m, s, coords, cot, J, D)
+    torch.cuda.synchronize()
+    calls = 3
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            integral.softmax_integral_bwd_cuda(hm, m, s, coords, cot, J, D)
+        torch.cuda.synchronize()
+    device_kernels = sum(
+        e.count for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False))
+    assert device_kernels == calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_integral_autograd_round_trip(dev, dtype):
+    """`softmax_integral` on CUDA (both kernels, vectorised paths, D not
+    a multiple of 8) against autograd through the plain forward."""
+    B, H, W, J, D = 3, 9, 7, 4, 6
+    g = torch.Generator(device=dev).manual_seed(11)
+    hm = (3 * torch.randn(B, H, W, J * D, device=dev, generator=g)
+          ).to(dtype).requires_grad_()
+    cot = torch.randn(B, J, 3, device=dev, generator=g)
+    assert integral.softmax_integral_chunks(hm) > 0
+    counts = [k.launches for k in (kernels.SOFTMAX_INTEGRAL_FWD,
+                                   kernels.SOFTMAX_INTEGRAL_BWD)]
+    coords = integral.softmax_integral(hm, J, D)
+    got, = torch.autograd.grad(coords, hm, cot)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (kernels.SOFTMAX_INTEGRAL_FWD,
+                                 kernels.SOFTMAX_INTEGRAL_BWD)] == [
+        c + 1 for c in counts]
+    want_coords = integral.softmax_integral_reference(hm, J, D)[0]
+    want, = torch.autograd.grad(want_coords, hm, cot)
+    torch.testing.assert_close(coords, want_coords, rtol=0, atol=COORD_TOL)
+    assert got.dtype == dtype
+    _close(got, want, dtype)
+
+
+def test_forward_only_kernels_refuse_inputs_that_require_grad(dev):
+    """ROIAlign and the warp have no backward kernel: under grad mode,
+    inputs that require grad raise instead of a detached result; under
+    no_grad, or for inputs that need none, they run."""
+    feats = torch.randn(1, 8, 8, 16, device=dev)
+    rois = torch.tensor([[[0.0, 0.0, 60.0, 60.0]]], device=dev)
+    images = torch.rand(2, 16, 16, 3, device=dev)
+    H = torch.eye(3, device=dev).expand(2, 3, 3).contiguous()
+    counts = [k.launches for k in kernels.KERNELS]
+    for f, r in ((feats.clone().requires_grad_(), rois),
+                 (feats, rois.clone().requires_grad_())):
+        with pytest.raises(RuntimeError, match="impl=\"plain\""):
+            roi_align.roi_align_cuda(f, r)
+        with pytest.raises(RuntimeError, match="impl=\"plain\""):
+            roi_align.roi_align_batched(f, r)
+    for im, h in ((images.clone().requires_grad_(), H),
+                  (images, H.clone().requires_grad_())):
+        with pytest.raises(RuntimeError, match="twopass"):
+            warp.warp_perspective_cuda(im, h, (16, 16))
+        with pytest.raises(RuntimeError, match="twopass"):
+            warp.warp_perspective_batch(im, h, (16, 16))
+    assert [k.launches for k in kernels.KERNELS] == counts
+
+    with torch.no_grad():
+        pooled = roi_align.roi_align_cuda(feats.clone().requires_grad_(),
+                                          rois)
+        out = warp.warp_perspective_cuda(images.clone().requires_grad_(), H,
+                                         (16, 16))
+    pooled_needs_none = roi_align.roi_align_cuda(feats, rois)
+    torch.cuda.synchronize()
+    assert not pooled.requires_grad and not out.requires_grad
+    torch.testing.assert_close(pooled, pooled_needs_none)
+    torch.testing.assert_close(out, images, rtol=0, atol=1e-5)
+    grad_plain = roi_align.roi_align_batched(
+        feats.clone().requires_grad_(), rois, impl="plain")
+    assert grad_plain.requires_grad
+
+
 @pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", HEAD_SHAPES)
 def test_head_projection_bwd_kernel_matches_plain(dev, shape, feat_dtype):
