@@ -19,7 +19,10 @@ before the result line.
    chunks than rows, on `hm[1:]` and on a base off 16 bytes (its generic
    path), and twice at the serving shape for the same bits; kernels 3 and
    4 with bf16 features (tensor cores) and float32 ones (CUDA cores), and
-   also at the two-stage path's pose batch of 4;
+   also at the two-stage path's pose batch of 4; kernel 5 bitwise against
+   its plain version with float32 and uint8 frames, with and without its
+   normalising epilogue, and on degenerate maps (singular, an exact
+   90-degree turn, a horizon inside the output, positions at +-inf);
 4. serving: the flagship model (ModelConfig(): ResNet-50, 224x224, bf16,
    21 joints x 56 depth x 56x56) with seeded random weights sweeps 80
    synthetic samples through `Tester.run` at batch 32 (three batches, the
@@ -39,7 +42,10 @@ before the result line.
    bound, with its chunk plan, its two launches' device time and its
    wrapper's host issue time; kernel 2's device kernels per call (the
    kernel nodes of a captured CUDA graph; it fails unless 1); kernels 3
-   and 4 with both feature dtypes, kernel 3 also at batch 4;
+   and 4 with both feature dtypes, kernel 3 also at batch 4; kernel 5 on
+   the training path's call (uint8 frames to the normalised patch) against
+   its plain chain, both beside their byte bounds, with the wrapper's host
+   issue time and its device kernels per call (it fails unless 1);
 7. detection: the NMS and ROIAlign kernels against their plain versions
    (keep sets bitwise equal; the suppression chain, clustered boxes at the
    RPN and class-NMS shapes, both early-exit settings; ROIAlign at the
@@ -113,10 +119,9 @@ S_REL_TOL = 1e-4
 GRAD_ABS_SCALE = {"softmax_integral_bwd": 1e-5,
                   "head_projection_integral_bwd": 1e-4}
 GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
-# The warp kernel forms the plain version's float32 source positions with
-# the same rounded operations and takes the same two taps: 1e-3 on the
-# 0..255 pixel scale.
-WARP_TOL = 1e-3
+# The warp kernel forms the plain version's coefficients, positions,
+# weights, sums and normalised values with the same rounded operations in
+# the same order: bitwise equal, nan in the same places.
 # The unfused arm decodes the bf16 heatmap of the bf16 final conv, where
 # the fused arm forms float32 logits from float32 weights. bf16 keeps 8
 # bits: at logit magnitudes up to ~30 the rounding moves a logit by up to
@@ -261,6 +266,63 @@ def softmax_integral_with_chunks(hm, J, D, chunks):
         m.data_ptr(), s.data_ptr(), ws.data_ptr(), B, H, W, J, D, chunks,
         torch.cuda.current_stream().cuda_stream)
     return coords, m, s
+
+
+def compare_warp(name, images, Hm, out_hw, normalise=None, inverse=False,
+                 want_nan=None):
+    """Kernel 5 (one launch, counted) against its plain version: bitwise,
+    nan in the same places. `want_nan`: "all", "some" or "none" of the
+    plain version's pixels must be nan (default: none). Returns the max
+    abs difference over the pixels (0 when bitwise)."""
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels, warp
+    before = kernels.WARP_TWOPASS.launches
+    if normalise is None:
+        got = warp.warp_perspective_cuda(images, Hm, out_hw, inverse)
+    else:
+        got = warp.warp_normalise_batch(images, Hm, out_hw, *normalise,
+                                        inverse=inverse)
+    torch.cuda.synchronize()
+    launched = kernels.WARP_TWOPASS.launches - before
+    if normalise is None:
+        want = warp.warp_perspective_twopass(images, Hm, out_hw, inverse)
+    else:
+        want = warp.warp_normalise_twopass(images, Hm, out_hw, *normalise,
+                                           inverse=inverse)
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    same = (got.shape == want.shape and got.dtype == want.dtype
+            and bool(torch.equal(nan_g, nan_w))
+            and bool(torch.equal(got[~nan_w], want[~nan_w])))
+    e = float((got - want)[~nan_w].abs().max()) if same and bool(
+        (~nan_w).any()) else (0.0 if same else math.inf)
+    frac = float(nan_w.float().mean())
+    nan_ok = {"all": frac == 1.0, "some": 0.0 < frac < 1.0,
+              None: frac == 0.0}[want_nan]
+    ok = same and launched == 1 and nan_ok and (
+        frac == 1.0 or float(want[~nan_w].abs().sum()) > 0)
+    print(f"[kernels] warp_twopass {name}: bitwise equal to the plain "
+          f"version {same} (nan share {frac:.4f}), {launched} launch "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    check(ok, f"the warp kernel disagrees with its plain version ({name})")
+    return e
+
+
+def degenerate_maps(dev):
+    """16 x 16 -> 16 x 16 maps (batch of 2) whose warp is all nan (a
+    singular map, an exact 90-degree turn: e = h = 0 in pass A's divisor),
+    partly nan (a horizon inside the output) or 0 on a column (a dst ->
+    src map whose denominator is 0 there: positions at +-inf), as
+    {name: (maps, inverse, nan share)}."""
+    def two(H):
+        return torch.tensor([H, H], device=dev)
+    return {
+        "singular": (two([[1.0, 2, 3], [2, 4, 6], [0, 0, 1]]), False, "all"),
+        "90-degree": (two([[0.0, -1, 15], [1, 0, 0], [0, 0, 1]]), False,
+                      "all"),
+        "horizon": (two([[1.0, 0, 0], [0, 1, 0], [0.2, 0, 1]]), False,
+                    "some"),
+        "+-inf": (two([[1.0, 0.05, 0.5], [0.1, 1, 0.3], [-0.125, 0, 1]]),
+                  True, None),
+    }
 
 
 def homographies(B, g, dev):
@@ -433,7 +495,8 @@ def device_kernels_per_call(fn) -> tuple[int, int]:
 def print_profile(title: str, fn, n: int, card: str, top: int = 12) -> None:
     busy, rows = device_profile(fn, n)
     print(f"[profile] {title}, {n} calls: device busy {busy:.3f} ms per "
-          f"call (sum of kernel time) on {card}; top kernels:", flush=True)
+          f"call (sum of kernel time), {sum(r[2] for r in rows):g} kernel "
+          f"launches per call, on {card}; top kernels:", flush=True)
     for key, ms, count in rows[:top]:
         print(f"[profile]   {ms:8.3f} ms/call x{count:<6g} {key[:90]}",
               flush=True)
@@ -957,6 +1020,8 @@ def main() -> None:
         softmax_integral_reference,
     )
     from hand_integral_pose_estimation_tpu_torch.ops.warp import (
+        warp_normalise_batch,
+        warp_normalise_twopass,
         warp_perspective_cuda,
         warp_perspective_twopass,
     )
@@ -1095,20 +1160,30 @@ def main() -> None:
             print(f"[kernels] head_projection_integral_bwd run twice: dW, db "
                   f"and dfeat bitwise equal: {same}", flush=True)
             check(same, "the fused-head backward is not deterministic")
+    acfg = cfg.augment
     for (B, Hs, Ws, C, Ho2, Wo2) in ((BATCH, IH, IW, 3, IH, IW),
                                      (2, 37, 41, 3, 29, 33)):
         images = 255 * torch.rand(B, Hs, Ws, C, device=dev, generator=g)
+        colour = 0.8 + 0.4 * torch.rand(B, C, device=dev, generator=g)
         Hm = homographies(B, g, dev)
-        got = warp_perspective_cuda(images, Hm, (Ho2, Wo2))
-        torch.cuda.synchronize()
-        want = warp_perspective_twopass(images, Hm, (Ho2, Wo2))
-        e = float((got - want).abs().max())
-        print(f"[kernels] warp_twopass {(B, Hs, Ws, C)} -> {(Ho2, Wo2)}: "
-              f"max|d| {e:.3e} (tol {WARP_TOL:g}) "
-              f"{'ok' if e <= WARP_TOL else 'FAILED'}", flush=True)
-        check(e <= WARP_TOL and float(want.abs().sum()) > 0,
-              "the warp kernel disagrees with its plain version")
-        err["warp_twopass"] = max(err["warp_twopass"], e)
+        for frames, norm in itertools.product(("float32", "uint8"),
+                                              (False, True)):
+            e = compare_warp(
+                f"{(B, Hs, Ws, C)} {frames} -> {(Ho2, Wo2)}"
+                f"{', normalised' if norm else ''}",
+                images.to(torch.uint8) if frames == "uint8" else images, Hm,
+                (Ho2, Wo2), (colour, acfg.pixel_mean, acfg.pixel_std)
+                if norm else None)
+            err["warp_twopass"] = max(err["warp_twopass"], e)
+    images = (255 * torch.rand(2, 16, 16, 3, device=dev, generator=g)).to(
+        torch.uint8)
+    colour = 0.8 + 0.4 * torch.rand(2, 3, device=dev, generator=g)
+    for name, (Hm, inverse, want_nan) in degenerate_maps(dev).items():
+        for norm in (False, True):
+            compare_warp(f"(2, 16, 16, 3) uint8, {name} map"
+                         f"{', normalised' if norm else ''}", images, Hm,
+                         (16, 16), (colour, acfg.pixel_mean, acfg.pixel_std)
+                         if norm else None, inverse, want_nan)
 
     # ---- 4. the serving slice
     model = get_pose_net(cfg.model,
@@ -1421,6 +1496,58 @@ def main() -> None:
     print(f"[timing] head_projection_integral_fwd at batch {DET_BATCH}: "
           f"bound {b4_bound[0]:.4f} ms ({b4_bound[1]})", flush=True)
 
+    # kernel 5 on the training path's call: uint8 frames to the normalised
+    # patch in one launch, against its plain chain (frames as float32, the
+    # two-pass warp, `_normalise`'s formula); bounds from this run's
+    # inputs; one device kernel per call, counted after the counter has
+    # seen the plain chain's many
+    frames8 = images.to(torch.uint8)
+    colour = 0.8 + 0.4 * torch.rand(BATCH, 3, device=dev, generator=g)
+    acfg = cfg.augment
+
+    def fused_call():
+        return warp_normalise_batch(frames8, Hm, (IH, IW), colour,
+                                    acfg.pixel_mean, acfg.pixel_std)
+
+    def plain_chain():
+        return warp_normalise_twopass(frames8, Hm, (IH, IW), colour,
+                                      acfg.pixel_mean, acfg.pixel_std)
+
+    k8, p8 = time_pair(fused_call, plain_chain)
+    b8 = bound(frames8.numel() + 4 * images.numel(), images.numel() * 30)
+    b32 = bound(2 * images.numel() * 4, images.numel() * 30)
+    k32w, p32w = times["warp_twopass"]
+    print(f"[timing] warp_twopass at {tuple(images.shape)} -> {(IH, IW)}: "
+          f"float32 frames, warp alone: kernel {k32w:.4f} ms, plain "
+          f"{p32w:.4f} ms, bound {b32[0]:.4f} ms ({b32[1]}); uint8 frames "
+          f"to the normalised patch (the training path's call): kernel "
+          f"{k8:.4f} ms, plain chain {p8:.4f} ms, bound {b8[0]:.4f} ms "
+          f"({b8[1]}) on {card}", flush=True)
+    warp_issue = issue_ms(fused_call, 21)
+    warp_issue32 = issue_ms(lambda: warp_perspective_cuda(images, Hm,
+                                                          (IH, IW)), 21)
+    _, rows = device_profile(fused_call, 20)
+    dev8 = sum(ms for key, ms, _ in rows if "warp_kernel" in key)
+    _, rows = device_profile(
+        lambda: warp_perspective_cuda(images, Hm, (IH, IW)), 20)
+    dev32 = sum(ms for key, ms, _ in rows if "warp_kernel" in key)
+    print(f"[timing] warp_twopass device time (profile, 20 calls): "
+          f"{dev8:.4f} ms (uint8 + epilogue), {dev32:.4f} ms (float32, warp "
+          f"alone) on {card}", flush=True)
+    glue, _ = device_kernels_per_call(plain_chain)
+    per_call8, nodes8 = device_kernels_per_call(fused_call)
+    per_call32, _ = device_kernels_per_call(
+        lambda: warp_perspective_cuda(images, Hm, (IH, IW)))
+    print(f"[timing] warp_twopass host issue of one call: {warp_issue:.4f} "
+          f"ms (uint8 + epilogue), {warp_issue32:.4f} ms (float32, warp "
+          f"alone); device kernels per call {per_call8} ({nodes8} graph "
+          f"nodes) and {per_call32}; the plain chain alone: {glue} kernels "
+          f"on {card}", flush=True)
+    check(glue > 1, f"the graph count saw {glue} kernels in the warp's "
+          f"plain chain, expected several")
+    check(per_call8 == 1 and per_call32 == 1, f"the warp issued "
+          f"{per_call8} and {per_call32} device kernels per call, expected 1")
+
     # the least time for each kernel's work at these shapes
     B, HW, JD = hm.shape[0], hm.shape[1] * hm.shape[2], hm.shape[3]
     proj_flops = 2.0 * B * HW * F * JD
@@ -1437,7 +1564,7 @@ def main() -> None:
             2 * feats.numel() * 2 + 2 * w.numel() * 4, 3 * proj_flops,
             BF16X3_FLOPS),
         # read the float32 images once and write the warped ones
-        "warp_twopass": bound(2 * images.numel() * 4, images.numel() * 30),
+        "warp_twopass": b32,
     }
 
     # ---- 7. the two-stage (detector -> pose) serving path

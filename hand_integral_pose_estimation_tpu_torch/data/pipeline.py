@@ -26,6 +26,8 @@ from hand_integral_pose_estimation_tpu_torch.geometry import (
     transforms,
 )
 from hand_integral_pose_estimation_tpu_torch.ops.warp import (
+    normalise_patch,
+    warp_normalise_batch,
     warp_perspective_batch,
 )
 
@@ -50,18 +52,10 @@ class Batch(NamedTuple):
     ref_bone_len: torch.Tensor         # (B,)
 
 
-def channel_constant(values, like: torch.Tensor) -> torch.Tensor:
-    """(C,) tensor of `values` on `like`'s device, written by fill kernels:
-    a blocking host-to-device copy would wait for the stream to drain."""
-    return torch.stack([torch.full((), float(v), dtype=like.dtype,
-                                   device=like.device) for v in values])
-
-
 def _normalise(patch: torch.Tensor, color_scale: torch.Tensor,
                acfg: AugmentConfig) -> torch.Tensor:
-    mean = channel_constant(acfg.pixel_mean, patch)
-    std = channel_constant(acfg.pixel_std, patch)
-    return torch.clamp((patch - mean) / std * color_scale, 0.0, 255.0)
+    return normalise_patch(patch, color_scale, acfg.pixel_mean,
+                           acfg.pixel_std)
 
 
 def _resolve_bbox(joint_cam, R, K, bbox_detector, pad_factor):
@@ -138,14 +132,16 @@ def make_train_batch_with(R: torch.Tensor, color: torch.Tensor,
     to box the projected rotated joints; labelled (B,) bool;
     teacher_cam_normalized (B, J, 3) cached pseudo-GT or None; ref_bone_len
     (B,). All on one device; geometry follows K's dtype, the patch is
-    float32. The warp is the two-pass kernel on the card and its plain
-    version on the CPU (`warp_perspective_batch`'s "auto")."""
+    float32 (float64 for float64 frames, on the CPU). From the frames to
+    the normalised patch is one launch of the warp kernel on the card
+    (uint8 or float32 frames) and its plain chain on the CPU
+    (`warp_normalise_batch`'s "auto")."""
     B, J = joint_cam.shape[0], joint_cam.shape[1]
     out, label_teacher, bb, H_total = _labels_one(
         joint_cam, K, bbox_detector, teacher_cam_normalized, R, acfg,
         patch_hw)
-    patch = warp_perspective_batch(images.float(), H_total, patch_hw)
-    patch = _normalise(patch, color.to(patch.dtype)[:, None, None, :], acfg)
+    patch = warp_normalise_batch(images, H_total, patch_hw, color.float(),
+                                 acfg.pixel_mean, acfg.pixel_std)
     return Batch(
         image=patch,
         label=out.label,

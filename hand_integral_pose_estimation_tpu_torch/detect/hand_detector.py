@@ -23,9 +23,6 @@ from typing import NamedTuple, Optional
 import torch
 
 from hand_integral_pose_estimation_tpu_torch.config import DetectorConfig
-from hand_integral_pose_estimation_tpu_torch.data.pipeline import (
-    channel_constant,
-)
 from hand_integral_pose_estimation_tpu_torch.detect import box_ops
 from hand_integral_pose_estimation_tpu_torch.detect.faster_rcnn import (
     DetectionOutputs,
@@ -34,6 +31,7 @@ from hand_integral_pose_estimation_tpu_torch.detect.faster_rcnn import (
 from hand_integral_pose_estimation_tpu_torch.geometry import bbox as bbox_mod
 from hand_integral_pose_estimation_tpu_torch.ops.nms import nms
 from hand_integral_pose_estimation_tpu_torch.ops.warp import (
+    channel_constant,
     warp_axis_aligned_batch,
 )
 

@@ -155,20 +155,35 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self._fn = None
 
     def __call__(self, *args) -> None:
-        lib = library()
-        fn = getattr(lib, self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        rc = fn(*args)
+        if self._fn is None:
+            fn = getattr(library(), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        rc = self._fn(*args)
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} "
-                               f"({lib.hipe_error_string(rc).decode()})")
+                               f"({library().hipe_error_string(rc).decode()})")
         self.launches += 1
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
+
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_handle(index: int) -> int:
+    """The handle of PyTorch's current CUDA stream on device `index`, read
+    without building a `torch.cuda.Stream` (a few microseconds of host time
+    a launch)."""
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 @functools.lru_cache(maxsize=None)
@@ -222,9 +237,12 @@ HEAD_PROJECTION_INTEGRAL_BWD = Kernel(
     "hipe_head_projection_integral_bwd",
     [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
      _I, _I, _I, _I, _I, _I, _I, _P])
-#: (images, coef, tmp, out, B, Hs, Ws, Ho, Wo, C, stream)
+#: (images, image dtype (0 float32, 1 uint8), maps, map dtype (0 float32,
+#:  1 float64), map strides (3), inverse, colour or NULL, host means and
+#:  stds or NULL, out, B, Hs, Ws, Ho, Wo, C, stream)
 WARP_TWOPASS = Kernel(
-    "hipe_warp_twopass", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    "hipe_warp_twopass", [_P, _I, _P, _I, _L, _L, _L, _I, _P, _P, _P, _I,
+                          _I, _I, _I, _I, _I, _P])
 
 #: (feats, rois, out, B, H, W, C, R, pooled, sampling ratio,
 #:  spatial scale, stream)

@@ -9,17 +9,27 @@ and "gather".
 
 Semantics of cv2.warpPerspective(..., INTER_LINEAR) with a constant-zero
 border: dst(x, y) = src(H^-1 [x, y, 1]), without cv2's 1/32-pixel
-quantisation of source coordinates. Inverses use `torch.linalg.inv_ex`,
-which skips the host-side singularity check (a device sync per call); a
-singular map gives inf/nan, as in the JAX package.
+quantisation of source coordinates. The two-pass warp forms H^-1 scaled to
+[2, 2] = 1 from the float64 adjugate (`warp_coefficients`): a map whose
+determinant is exactly 0 gives nan coefficients, and a nan source position
+gives a nan pixel, as in the JAX package; a position at +-inf reads 0.
+The single-pass and axis-aligned warps invert with `torch.linalg.inv_ex`,
+which skips the host-side singularity check (a device sync per call).
 
 The two-pass warp is the TPU kernel's filter: "kernel" launches
 `csrc/warp_twopass.cu` on a CUDA tensor, and `warp_perspective_twopass` is
 its plain version, taken for a CPU tensor. "auto" picks between the two by
 the tensor's device, so the CPU and the card compute the same filter.
+`warp_normalise_batch` is the training path's call: one launch from the
+stored uint8 frames to the normalised patch on the card, the plain chain
+`warp_normalise_twopass` on the CPU.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import math
 
 import torch
 
@@ -101,11 +111,31 @@ def warp_axis_aligned_batch(images: torch.Tensor, H_mats: torch.Tensor,
     return torch.einsum("bjoc,bjy->byoc", tmp, Wy)
 
 
-def _normalised_inverse(H_mats: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """(B, 3, 3) dst -> src maps scaled so that [2, 2] = 1 (warp.py:320-321);
-    its first 8 entries are the coefficients a..h of the two passes."""
-    Hi = H_mats if inverse else torch.linalg.inv_ex(H_mats).inverse
-    return Hi / Hi[:, 2:3, 2:3]
+def warp_coefficients(H_mats: torch.Tensor, inverse: bool = False,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, 3, 3) maps -> (B, 8) coefficients a..h of the dst -> src map
+    scaled so that its [2, 2] entry is 1 (warp.py:320-322), the kernel's
+    prologue operation for operation.
+
+    In float64: for `inverse=False` the adjugate of the forward map, its
+    nine 2x2 minors each formed as p*q - r*s (Hinv / Hinv[2, 2] = adj / adj
+    [2, 2]: the determinant cancels), nan where the determinant is exactly
+    0, as `jnp.linalg.inv` gives; for `inverse=True` the map itself. Divided
+    by the [2, 2] entry in float64 and rounded once to `dtype`, the type
+    of the warp's positions."""
+    m = H_mats.to(torch.float64).reshape(-1, 9)
+    if not inverse:
+        h = m.unbind(1)
+
+        def minor(p, q, r, s):
+            return h[p] * h[q] - h[r] * h[s]
+
+        adj = (minor(4, 8, 5, 7), minor(2, 7, 1, 8), minor(1, 5, 2, 4),
+               minor(5, 6, 3, 8), minor(0, 8, 2, 6), minor(2, 3, 0, 5),
+               minor(3, 7, 4, 6), minor(1, 6, 0, 7), minor(0, 4, 1, 3))
+        det = h[0] * adj[0] + h[1] * adj[3] + h[2] * adj[6]
+        m = torch.stack(adj, 1).masked_fill((det == 0)[:, None], math.nan)
+    return (m[:, :8] / m[:, 8:]).to(dtype)
 
 
 def _resample_2tap(src: torch.Tensor, coord: torch.Tensor,
@@ -114,7 +144,8 @@ def _resample_2tap(src: torch.Tensor, coord: torch.Tensor,
     float positions `coord`, which has `src`'s shape without C and with the
     resampled axis replaced: the 2-tap bilinear weights 1 - frac and frac,
     equal to the TPU kernel's dense relu(1 - |i - coord|) weights, with taps
-    outside the axis reading zero."""
+    outside the axis reading zero. A nan position gives nan, a +-inf one 0,
+    as the dense weights give them."""
     n = src.shape[dim]
     i0 = torch.floor(coord)
     frac = (coord - i0).to(src.dtype)[..., None]
@@ -126,7 +157,7 @@ def _resample_2tap(src: torch.Tensor, coord: torch.Tensor,
             *coord.shape, src.shape[-1]))
         out = out + torch.where(valid[..., None], vals * w,
                                 torch.zeros_like(vals))
-    return out
+    return out.masked_fill(torch.isnan(coord)[..., None], math.nan)
 
 
 def warp_perspective_twopass(images: torch.Tensor, H_mats: torch.Tensor,
@@ -136,27 +167,28 @@ def warp_perspective_twopass(images: torch.Tensor, H_mats: torch.Tensor,
     (Catmull-Smith), the plain version of the warp kernel: a batched port
     of `warp_perspective_twopass` (warp.py:77-153) at full precision.
 
-    With Hinv normalised so that Hinv[2, 2] = 1 and coefficients a..h,
-    pass A resamples every source row s horizontally at
-    u*(x', s) = u(x', yA), yA = (s g x' + s - d x' - f) / (e - s h), and
-    pass B every intermediate column x' vertically at
-    v*(x', y') = (d x' + e y' + f) / (g x' + h y' + 1). For maps with
-    cross terms (rotations) this is a different bilinear filter from the
-    single-pass `warp_perspective` (warp.py:99-106); for axis-aligned maps
-    the two are equal.
+    With Hinv normalised so that Hinv[2, 2] = 1 and coefficients a..h
+    (:func:`warp_coefficients`), pass A resamples every source row s
+    horizontally at u*(x', s) = u(x', yA),
+    yA = (s g x' + s - d x' - f) / (e - s h), and pass B every intermediate
+    column x' vertically at v*(x', y') = (d x' + e y' + f) / (g x' + h y'
+    + 1). For maps with cross terms (rotations) this is a different
+    bilinear filter from the single-pass `warp_perspective` (warp.py:
+    99-106); for axis-aligned maps the two are equal.
 
-    images (B, Hs, Ws, C) of any real dtype -> (B, Ho, Wo, C) in at least
-    float32; coordinates are computed in the wider of that and H's dtype.
-    The weights are 2-tap gathers instead of the JAX function's dense
-    weight matrices (the same numbers: relu(1 - |i - u|) is nonzero only
-    at the two taps)."""
+    images (B, Hs, Ws, C) of any real dtype -> (B, Ho, Wo, C) in the wider
+    of that and float32; the coefficients and positions are in the wider of
+    that and H's dtype (float32 for float32 frames and maps, as the TPU
+    kernel takes them). The weights are 2-tap gathers instead of the JAX
+    function's dense weight matrices (the same numbers: relu(1 - |i - u|)
+    is nonzero only at the two taps)."""
     B, Hs, Ws, C = images.shape
     Ho, Wo = out_hw
-    Hi = _normalised_inverse(H_mats, inverse)
     dt = torch.promote_types(images.dtype, torch.float32)
-    ct = torch.promote_types(dt, Hi.dtype)
-    a, b, c, d, e, f, g, h = (Hi.reshape(B, 9)[:, k, None, None].to(ct)
-                              for k in range(8))
+    ct = torch.promote_types(dt, H_mats.dtype)
+    a, b, c, d, e, f, g, h = (
+        k[:, None, None] for k in warp_coefficients(H_mats, inverse,
+                                                    ct).unbind(1))
     dev = images.device
     xo = torch.arange(Wo, dtype=ct, device=dev)[None, None, :]
     ys = torch.arange(Hs, dtype=ct, device=dev)[None, :, None]
@@ -168,56 +200,139 @@ def warp_perspective_twopass(images: torch.Tensor, H_mats: torch.Tensor,
     return _resample_2tap(tmp, v, dim=1)
 
 
-def warp_perspective_cuda(images: torch.Tensor, H_mats: torch.Tensor,
-                          out_hw: tuple[int, int],
-                          inverse: bool = False) -> torch.Tensor:
-    """Launch the two-pass warp kernel (`csrc/warp_twopass.cu`).
+def channel_constant(values, like: torch.Tensor) -> torch.Tensor:
+    """(C,) tensor of `values` on `like`'s device, written by fill kernels:
+    a blocking host-to-device copy would wait for the stream to drain."""
+    return torch.stack([torch.full((), float(v), dtype=like.dtype,
+                                   device=like.device) for v in values])
 
-    images: contiguous CUDA (B, Hs, Ws, C) float32; H_mats (B, 3, 3) on the
-    same device, any float dtype. The 8 coefficients per image are formed
-    here in torch (no host sync) and handed to the kernel as float32, as
-    the TPU kernel takes them. Returns (B, Ho, Wo, C) float32. The kernel
-    has no backward: under grad mode, images or maps that require grad
-    raise (method "twopass" is the differentiable path)."""
-    if torch.is_grad_enabled() and (images.requires_grad
-                                    or H_mats.requires_grad):
+
+def normalise_patch(patch: torch.Tensor, colour: torch.Tensor, mean,
+                    std) -> torch.Tensor:
+    """clamp((patch - mean) / std * colour, 0, 255), the training patch's
+    normalisation (the JAX package's data/pipeline.py:55-60): `mean` and `std` hold one float
+    per channel, `colour` broadcasts against `patch`. nan passes the clamp,
+    as in `jnp.clip`."""
+    return torch.clamp((patch - channel_constant(mean, patch))
+                       / channel_constant(std, patch) * colour, 0.0, 255.0)
+
+
+def warp_normalise_twopass(images: torch.Tensor, H_mats: torch.Tensor,
+                           out_hw: tuple[int, int], colour: torch.Tensor,
+                           mean, std, inverse: bool = False) -> torch.Tensor:
+    """The plain version of the fused kernel call: the stored frames
+    (B, Hs, Ws, C) of any real dtype (uint8 frames become float32, exactly)
+    warped by :func:`warp_perspective_twopass`, then
+    :func:`normalise_patch` with the per-image colour scale (B, C)."""
+    patch = warp_perspective_twopass(images, H_mats, out_hw, inverse)
+    return normalise_patch(patch, colour.to(patch.dtype)[:, None, None, :],
+                           mean, std)
+
+
+@functools.lru_cache(maxsize=None)
+def _mean_std_block(mean: tuple, std: tuple):
+    """(array, its address): the epilogue's means then stds as a host
+    float32 array, which the C entry copies into the kernel's parameters.
+    The cache keeps the array alive for every launch that reads it."""
+    block = (ctypes.c_float * (2 * len(mean)))(*mean, *std)
+    return block, ctypes.addressof(block)
+
+
+_IMAGE_DTYPES = {torch.float32: 0, torch.uint8: 1}
+_MAP_DTYPES = {torch.float32: 0, torch.float64: 1}
+
+
+def warp_perspective_cuda(images: torch.Tensor, H_mats: torch.Tensor,
+                          out_hw: tuple[int, int], inverse: bool = False,
+                          normalise=None) -> torch.Tensor:
+    """Launch the warp kernel (`csrc/warp_twopass.cu`): one launch from the
+    frames to the (optionally normalised) patch.
+
+    images: contiguous CUDA (B, Hs, Ws, C) uint8 or float32; H_mats
+    (B, 3, 3) float32 or float64 on the same device, any strides. The
+    kernel forms the coefficients itself, as :func:`warp_coefficients`
+    does, and its positions in the map's type, as the plain version
+    does. `normalise`: None, or (colour, mean, std) with colour a
+    contiguous (B, C) float32 tensor on the device and mean, std C floats
+    each (C <= 4), for :func:`warp_normalise_twopass`'s epilogue. Returns
+    (B, Ho, Wo, C) float32; nothing else runs on the device. The kernel has
+    no backward: under grad mode, inputs that require grad raise (method
+    "twopass" is the differentiable path)."""
+    colour = None if normalise is None else normalise[0]
+    if torch.is_grad_enabled() and (
+            images.requires_grad or H_mats.requires_grad
+            or (colour is not None and colour.requires_grad)):
         raise RuntimeError("warp_perspective_cuda has no backward and would "
                            "return a result detached from inputs that "
                            "require grad: use warp_perspective_batch(..., "
                            "method=\"twopass\") to differentiate, or run "
                            "under torch.no_grad()")
-    if images.device.type != "cuda" or H_mats.device != images.device:
+    dev = images.device
+    if dev.type != "cuda" or H_mats.device != dev:
         raise ValueError(f"warp_perspective_cuda needs CUDA images and maps "
-                         f"on one device, got {images.device} and "
-                         f"{H_mats.device}")
-    if images.dtype != torch.float32:
-        raise TypeError(f"warp_perspective_cuda takes float32 images, got "
-                        f"{images.dtype}")
+                         f"on one device, got {dev} and {H_mats.device}")
+    image_code = _IMAGE_DTYPES.get(images.dtype)
+    map_code = _MAP_DTYPES.get(H_mats.dtype)
+    if image_code is None or map_code is None:
+        raise TypeError(f"warp_perspective_cuda takes uint8 or float32 "
+                        f"images and float32 or float64 maps, got "
+                        f"{images.dtype} and {H_mats.dtype}")
     if images.dim() != 4 or not images.is_contiguous():
         raise ValueError(f"images must be a contiguous (B, H, W, C) tensor, "
                          f"got {tuple(images.shape)}")
     B, Hs, Ws, C = images.shape
     Ho, Wo = out_hw
-    if tuple(H_mats.shape) != (B, 3, 3):
+    if H_mats.shape != (B, 3, 3):
         raise ValueError(f"H_mats shape {tuple(H_mats.shape)} is not "
                          f"({B}, 3, 3)")
     if min(B, Hs, Ws, C, Ho, Wo) < 1:
         raise ValueError(f"empty warp {tuple(images.shape)} -> {out_hw}")
-    if B * max(Hs, Ho) * Wo >= 2**31:
-        raise ValueError(f"warp of {tuple(images.shape)} -> {out_hw} is too "
-                         f"large for the kernel's 32-bit indexing")
-    coefs = _normalised_inverse(H_mats, inverse).reshape(B, 9)[:, :8].to(
-        torch.float32).contiguous()
-    with torch.cuda.device(images.device):
-        tmp = torch.empty(B, Hs, Wo, C, dtype=torch.float32,
-                          device=images.device)
-        out = torch.empty(B, Ho, Wo, C, dtype=torch.float32,
-                          device=images.device)
+    if Hs * Ws * C >= 2**31:
+        raise ValueError(f"frames of {(Hs, Ws, C)} are too large for the "
+                         f"kernel's 32-bit offsets within a frame")
+    block = colour_ptr = None
+    if normalise is not None:
+        mean, std = tuple(normalise[1]), tuple(normalise[2])
+        if (colour.device != dev or colour.dtype != torch.float32
+                or colour.shape != (B, C) or not colour.is_contiguous()):
+            raise ValueError(f"colour must be a contiguous ({B}, {C}) "
+                             f"float32 tensor on {dev}, got "
+                             f"{tuple(colour.shape)} {colour.dtype} on "
+                             f"{colour.device}")
+        if not len(mean) == len(std) == C <= 4:
+            raise ValueError(f"the epilogue takes one mean and std per "
+                             f"channel, at most 4 channels: got {len(mean)} "
+                             f"and {len(std)} for C = {C}")
+        block = _mean_std_block(mean, std)[1]
+        colour_ptr = colour.data_ptr()
+    with torch.cuda.device(dev):
+        out = torch.empty(B, Ho, Wo, C, dtype=torch.float32, device=dev)
         kernels.WARP_TWOPASS(
-            images.data_ptr(), coefs.data_ptr(), tmp.data_ptr(),
+            images.data_ptr(), image_code, H_mats.data_ptr(), map_code,
+            *H_mats.stride(), int(inverse), colour_ptr, block,
             out.data_ptr(), B, Hs, Ws, Ho, Wo, C,
-            torch.cuda.current_stream().cuda_stream)
+            kernels.stream_handle(dev.index))
     return out
+
+
+def warp_normalise_batch(images: torch.Tensor, H_mats: torch.Tensor,
+                         out_hw: tuple[int, int], colour: torch.Tensor, mean,
+                         std, inverse: bool = False,
+                         method: str = "auto") -> torch.Tensor:
+    """Stored frames (B, Hs, Ws, C) -> normalised patch (B, Ho, Wo, C):
+    :func:`warp_normalise_twopass`'s function. method: "kernel" (one launch
+    of the warp kernel with its epilogue; CUDA tensors only, uint8 or
+    float32 frames), "twopass" (the plain chain) or "auto" (the kernel for
+    a CUDA tensor, the plain chain for a CPU one)."""
+    if method == "auto":
+        method = "kernel" if images.device.type == "cuda" else "twopass"
+    if method == "kernel":
+        return warp_perspective_cuda(images, H_mats, out_hw, inverse,
+                                     normalise=(colour, mean, std))
+    if method == "twopass":
+        return warp_normalise_twopass(images, H_mats, out_hw, colour, mean,
+                                      std, inverse)
+    raise ValueError(f"unknown warp method {method!r}")
 
 
 def warp_perspective_batch(images: torch.Tensor, H_mats: torch.Tensor,

@@ -7,6 +7,7 @@ the card's machine need not have):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -48,10 +49,10 @@ GRAD_ABS_SCALE = 1e-5
 # channels and dW over B*H*W rows in another order: 1e-4 of the largest
 # entry leaves room for that and still catches an indexing fault.
 FUSED_GRAD_ABS_SCALE = 1e-4
-# The warp kernel forms the same float32 source positions as the plain
-# version (round-to-nearest intrinsics in the plain version's order) and
-# the same two taps: pixel values on the 0..255 scale agree to 1e-3.
-WARP_TOL = 1e-3
+# The warp kernel forms the plain version's coefficients, positions,
+# weights, sums and normalised values with round-to-nearest intrinsics in
+# the plain version's order: its output equals the plain version's bit for
+# bit, nan in the same places.
 # ROIAlign kernel and plain version weight the same float32 taps and sum
 # the 16 products of a bin in another order: a few ulps of the largest
 # feature. NMS keep sets are bitwise equal: the kernel forms the plain
@@ -356,22 +357,168 @@ def test_bf16_fused_head_runs_on_tensor_cores(dev):
     assert all(n > 0 for n in counts.values()), counts
 
 
+def _frames(images, frames):
+    return images.to(torch.uint8) if frames == "uint8" else images
+
+
+def _epilogue(B, C, g, dev):
+    colour = 0.8 + 0.4 * torch.rand(B, C, device=dev, generator=g)
+    return colour, tuple(0.25 * k + 0.4559 for k in range(C)), \
+        tuple(1.0 + 0.125 * k for k in range(C))
+
+
+def _warp_both(images, H, out_hw, normalise, inverse=False):
+    """(kernel, plain version) of the warp, with the epilogue or without;
+    the kernel's launch counted."""
+    before = kernels.WARP_TWOPASS.launches
+    if normalise is None:
+        got = warp.warp_perspective_cuda(images, H, out_hw, inverse)
+    else:
+        got = warp.warp_normalise_batch(images, H, out_hw, *normalise,
+                                        inverse=inverse)
+    torch.cuda.synchronize()
+    assert kernels.WARP_TWOPASS.launches == before + 1
+    if normalise is None:
+        want = warp.warp_perspective_twopass(images, H, out_hw, inverse)
+    else:
+        want = warp.warp_normalise_twopass(images, H, out_hw, *normalise,
+                                           inverse=inverse)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    return got, want
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("frames", ["float32", "uint8"])
 @pytest.mark.parametrize("shape", [(32, 224, 224, 3, 224, 224),
                                    (2, 37, 41, 3, 29, 33),
                                    (3, 30, 20, 1, 17, 23)])
-def test_warp_kernel_matches_plain(dev, shape):
+def test_warp_kernel_matches_plain(dev, shape, frames, epilogue):
+    """float32 and uint8 frames, with and without the normalising
+    epilogue: bit for bit the plain version (the same rounded operations
+    in the same order)."""
     B, Hs, Ws, C, Ho, Wo = shape
     g = torch.Generator(device=dev).manual_seed(5)
-    images = 255 * torch.rand(B, Hs, Ws, C, device=dev, generator=g)
+    images = _frames(255 * torch.rand(B, Hs, Ws, C, device=dev, generator=g),
+                     frames)
     H = _homographies(B, g, dev)
-    before = kernels.WARP_TWOPASS.launches
-    got = warp.warp_perspective_cuda(images, H, (Ho, Wo))
-    torch.cuda.synchronize()
-    assert kernels.WARP_TWOPASS.launches == before + 1
-    want = warp.warp_perspective_twopass(images, H, (Ho, Wo))
-    assert got.shape == (B, Ho, Wo, C) and got.dtype == torch.float32
-    torch.testing.assert_close(got, want, rtol=0, atol=WARP_TOL)
+    norm = _epilogue(B, C, g, dev) if epilogue else None
+    got, want = _warp_both(images, H, (Ho, Wo), norm)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert float(got.abs().sum()) > 0
+    if not epilogue:   # the frames as float32 give the same bits
+        torch.testing.assert_close(warp.warp_perspective_cuda(
+            images.float(), H, (Ho, Wo)), got, rtol=0, atol=0)
+
+
+def _degenerate_maps(name, dtype, dev):
+    """(forward maps, inverse flag) on 16 x 16 -> 16 x 16: a singular map
+    and an exact 90-degree turn (all nan), a horizon inside the output
+    (some nan) and a dst -> src map whose denominator is 0 on column 8
+    (positions at +-inf, that column 0)."""
+    if name == "singular":
+        H, inverse = [[1.0, 2, 3], [2, 4, 6], [0, 0, 1]], False
+    elif name == "rot90":
+        H, inverse = [[0.0, -1, 15], [1, 0, 0], [0, 0, 1]], False
+    elif name == "horizon":
+        H, inverse = [[1.0, 0, 0], [0, 1, 0], [0.2, 0, 1]], False
+    else:
+        H, inverse = [[1.0, 0.05, 0.5], [0.1, 1, 0.3], [-0.125, 0, 1]], True
+    return torch.tensor([H, H], dtype=dtype, device=dev), inverse
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("map_dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["singular", "rot90", "horizon", "inf"])
+def test_warp_kernel_on_degenerate_maps(dev, name, map_dtype, epilogue):
+    """nan where the plain version has nan (all of it for a singular map
+    or an exact 90-degree turn, as in the JAX package), 0 where positions
+    are at +-inf, and the same bits elsewhere."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    images = (255 * torch.rand(2, 16, 16, 3, device=dev, generator=g)).to(
+        torch.uint8)
+    H, inverse = _degenerate_maps(name, map_dtype, dev)
+    norm = _epilogue(2, 3, g, dev) if epilogue else None
+    got, want = _warp_both(images, H, (16, 16), norm, inverse)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    nan = torch.isnan(want)
+    if name in ("singular", "rot90"):
+        assert bool(nan.all())
+    elif name == "horizon":
+        assert bool(nan.any()) and not bool(nan.all())
+    else:
+        assert not bool(nan.any()) and bool((want[:, :, 8] == 0).all())
+
+
+def test_warp_kernel_takes_float64_and_strided_maps(dev):
+    """float64 maps (positions in float64, as the plain version forms
+    them), a transposed view and an expanded map (stride 0 over the batch)
+    give the plain version's bits."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    images = 255 * torch.rand(2, 37, 41, 3, device=dev, generator=g)
+    H = _homographies(2, g, dev)
+    got, want = _warp_both(images, H.double(), (29, 33), None)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    Ht = H.transpose(1, 2).contiguous().transpose(1, 2)
+    got, want = _warp_both(images, Ht, (29, 33), None)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    got, want = _warp_both(images, H[:1].expand(2, 3, 3), (29, 33), None)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, warp.warp_perspective_cuda(
+        images, H[:1].repeat(2, 1, 1), (29, 33)), rtol=0, atol=0)
+
+
+def _device_kernels_per_call(fn):
+    """Kernel nodes of one call of `fn` captured in a CUDA graph, counted
+    by the driver (`cuGraphGetNodes`, `cuGraphNodeGetType`): every device
+    kernel the call issues, where a profiler's event buffers may drop
+    some."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture, as torch.cuda.graph asks
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * max(1, n.value))()
+    assert cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for i in range(n.value):
+        kind = ctypes.c_int(-1)
+        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
+                                       ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    del graph
+    return sum(k == 0 for k in kinds)  # 0: a kernel node
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_warp_is_one_device_kernel(dev, epilogue):
+    """One call of the warp wrapper issues one device kernel: the map is
+    inverted and the frames normalised inside it, with no torch glue,
+    where the plain chain issues many (the count sees them)."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    images = (255 * torch.rand(4, 64, 64, 3, device=dev, generator=g)).to(
+        torch.uint8)
+    H = _homographies(4, g, dev)
+    norm = _epilogue(4, 3, g, dev) if epilogue else None
+    if norm is None:
+        assert _device_kernels_per_call(
+            lambda: warp.warp_perspective_cuda(images, H, (56, 56))) == 1
+        plain = _device_kernels_per_call(
+            lambda: warp.warp_perspective_twopass(images, H, (56, 56)))
+    else:
+        assert _device_kernels_per_call(
+            lambda: warp.warp_normalise_batch(images, H, (56, 56),
+                                              *norm)) == 1
+        plain = _device_kernels_per_call(
+            lambda: warp.warp_normalise_twopass(images, H, (56, 56), *norm))
+    assert plain > 1
 
 
 def test_autograd_functions_take_the_kernels_both_ways(dev):
@@ -484,6 +631,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         warp.warp_perspective_cuda(images.permute(0, 2, 1, 3), H, (8, 8))
     with pytest.raises(ValueError):
         warp.warp_perspective_cuda(images.cpu(), H, (8, 8))
+    with pytest.raises(TypeError):
+        warp.warp_perspective_cuda(images, H.half(), (8, 8))
+    colour = torch.ones(2, 3, device=dev)
+    mean_std = ((0.5, 0.5, 0.5), (1.0, 1.0, 1.0))
+    for bad in (colour.double(), colour[:, :2], colour.t().contiguous().t(),
+                colour.cpu()):
+        with pytest.raises(ValueError, match="colour"):
+            warp.warp_perspective_cuda(images, H, (8, 8),
+                                       normalise=(bad, *mean_std))
+    with pytest.raises(ValueError, match="channel"):
+        warp.warp_perspective_cuda(images, H, (8, 8),
+                                   normalise=(colour, (0.5,), (1.0,)))
+    images5 = torch.rand(2, 16, 16, 5, device=dev)
+    with pytest.raises(ValueError, match="channel"):
+        warp.warp_perspective_cuda(
+            images5, H, (8, 8), normalise=(torch.ones(2, 5, device=dev),
+                                           (0.5,) * 5, (1.0,) * 5))
     assert [k.launches for k in kernels.KERNELS] == counts
 
     # grad-requiring inputs now launch the forward kernels, and the
