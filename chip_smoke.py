@@ -26,16 +26,25 @@ before the result line.
 4. serving: the flagship model (ModelConfig(): ResNet-50, 224x224, bf16,
    21 joints x 56 depth x 56x56) with seeded random weights sweeps 80
    synthetic samples through `Tester.run` at batch 32 (three batches, the
-   last padded) on both head arms, then `evaluate_test_split`; it checks
-   the launch counts, the finite metrics and the coords against the plain
-   head, times the slice and profiles it (device busy, host issue time);
+   last padded) on both head arms, eagerly and as CUDA-graph replays
+   (the first batch eager, then one replay a batch), then
+   `evaluate_test_split`; it checks the launch counts (on the replayed
+   sweep: the graph's kernel nodes, read through libcuda, times its
+   replays), the replayed coords and Batch fields bitwise against the
+   eager ones, the finite metrics and the coords against the plain head,
+   times the slice and profiles it (device busy, host issue time), eager
+   against the bare replay and against the whole captured call;
 5. training: `Trainer.fit` at ModelConfig() and batch 32 on
-   SyntheticFreiHand(render_joints=True) takes a few steps on each head
-   arm; it checks the launch counts per step (the warp on both arms, the
-   fused head's forward and backward or the soft-argmax's), the finite
-   losses, the snapshot it writes, and on one batch the kernel-backed
-   step's gradients against a plain-backed step's from the same state;
-   then it times and profiles the train step on both arms;
+   SyntheticFreiHand(render_joints=True) takes a few eager steps on each
+   head arm; it checks the launch counts per step (the warp on both arms,
+   the fused head's forward and backward or the soft-argmax's), the
+   finite losses, the snapshot it writes, and on one batch the
+   kernel-backed step's gradients against a plain-backed step's from the
+   same state; then `Trainer.fit` with scan_steps=4 as graph replays (one
+   eager warm-up chunk, then one replay a chunk) against the same Trainer
+   run eagerly under cuDNN's deterministic algorithms: launch counts from
+   the graph's nodes and the training state bitwise equal; then it times
+   and profiles the train step on both arms, eager against graph;
 6. timing: each kernel against its plain version with CUDA events, in
    turns (plain, kernel, kernel, plain), at the paths' shapes; kernel 1
    also with a float32 heatmap and at batch 4, each beside its own byte
@@ -81,7 +90,6 @@ card's name and power limit; the last line is the JSON result.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import dataclasses
 import itertools
 import json
@@ -103,7 +111,11 @@ SEED = 0
 # (f) kept small so that the whole script, builds included, stays far
 # inside its time limit (about 80 s of command time on an H100)
 TRAIN_STEPS = 3
-TIME_STEPS = 10
+TIME_STEPS = 12
+# Trainer(scan_steps=k) on the card, k = 1 and GRAPH_CHUNK: one eager
+# warm-up chunk, then GRAPH_STEPS / k - 1 replays of one captured chunk
+GRAPH_CHUNK = 4
+GRAPH_STEPS = 12
 # Coords are means of positions in [-0.5, 0.5] weighted by softmax terms
 # that kernel and plain version compute from the same float32 logits; only
 # the summation order differs (~1e-6 relative over 175k terms), so 1e-4 is
@@ -439,6 +451,15 @@ def gradient_check(name, trainer, batch, fuse, leaf_tol, total_tol):
           f"at {worst_name}")
 
 
+def training_state(trainer) -> dict:
+    """Parameters, buffers and Adam's state of a Trainer, by name."""
+    out = dict(trainer.model.state_dict())
+    for i, p in enumerate(trainer.model.parameters()):
+        for k, v in trainer.optimizer.state[p].items():
+            out[f"adam.{i}.{k}"] = v
+    return out
+
+
 def device_profile(fn, n: int):
     """`fn` called n times under torch.profiler: the device busy time per
     call (sum of kernel time) and the kernel rows (name, ms per call,
@@ -460,11 +481,12 @@ def device_profile(fn, n: int):
     return sum(r[1] for r in rows), rows
 
 
-def device_kernels_per_call(fn) -> tuple[int, int]:
-    """(kernel nodes, all nodes) of one call of `fn` captured in a CUDA
-    graph, counted by the driver (`cuGraphGetNodes`, `cuGraphNodeGetType`):
-    every device kernel the call issues, none dropped, as a profiler's
-    event buffers may drop them."""
+def device_kernels_per_call(fn) -> int:
+    """Kernel nodes of one call of `fn` captured in a CUDA graph, read
+    through libcuda (`kernels.graph_kernel_names`: `cuGraphGetNodes`
+    and the nodes' function names): every device kernel the call issues,
+    none dropped, as a profiler's event buffers may drop them."""
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -474,22 +496,7 @@ def device_kernels_per_call(fn) -> tuple[int, int]:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    cuda = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    rc = cuda.cuGraphGetNodes(handle, None, ctypes.byref(n))
-    nodes = (ctypes.c_void_p * max(1, n.value))()
-    if rc == 0:
-        rc = cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
-    kinds = []
-    for i in range(n.value if rc == 0 else 0):
-        kind = ctypes.c_int(-1)
-        rc = rc or cuda.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
-                                           ctypes.byref(kind))
-        kinds.append(kind.value)
-    check(rc == 0, f"CUDA driver error {rc} reading a captured graph")
-    del graph
-    return sum(k == 0 for k in kinds), len(kinds)  # 0: a kernel node
+    return len(kernels.graph_kernel_names(graph))
 
 
 def print_profile(title: str, fn, n: int, card: str, top: int = 12) -> None:
@@ -513,6 +520,57 @@ def issue_ms(fn, n: int = 5) -> float:
         times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     return statistics.median(times)
+
+
+def path_launches(*steps) -> dict[str, int]:
+    """Kernel launches of a path since the counters were set to 0: the
+    wrappers' counts (eager calls) plus, for each captured step, each
+    graph's kernel nodes times its replays (read through libcuda)."""
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
+    out = {k.symbol: k.launches for k in kernels.KERNELS}
+    for step in steps:
+        for symbol, n in step.kernel_launches().items():
+            out[symbol] += n
+    return out
+
+
+def compare_graph_timing(title, unit, eager_fn, replay, call, eager_per,
+                         per_replay, card, n=20):
+    """Eager against CUDA graph on one path, per `unit` (a replay runs
+    `per_replay` of them): back to back on the host clock (the eager
+    figure `eager_per` measured by the caller), the host time to issue one
+    call with the device idle, device busy (profile: the sum of kernel
+    time) and the CUDA-event time of one call; for the bare replay (inputs
+    already in its static buffers, as the eager step's are on the card)
+    and for the whole captured call (host batch packed and copied, replay,
+    outputs copied)."""
+    for _ in range(2):
+        replay()
+    torch.cuda.synchronize()
+    rates = {}
+    for name, fn in (("replay", replay), ("call", call)):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        rates[name] = (time.perf_counter() - t0) / n * 1e3 / per_replay
+    issue_eager = issue_ms(eager_fn)
+    issue_replay = issue_ms(replay) / per_replay
+    issue_call = issue_ms(call) / per_replay
+    busy_eager, _ = device_profile(eager_fn, 5)
+    busy_graph, rows = device_profile(replay, 5)
+    busy_graph /= per_replay
+    kernels_graph = sum(r[2] for r in rows) / per_replay
+    ev_graph = statistics.median(event_ms(replay, 1) for _ in range(10)) \
+        / per_replay
+    print(f"[graphs] {title}, eager against graph, per {unit}: back to "
+          f"back {eager_per:.3f} ms eager, {rates['replay']:.3f} ms replay, "
+          f"{rates['call']:.3f} ms whole call; host issue "
+          f"{issue_eager:.3f} ms eager, {issue_replay:.3f} ms replay, "
+          f"{issue_call:.3f} ms whole call; device busy {busy_eager:.3f} ms "
+          f"eager, {busy_graph:.3f} ms graph ({kernels_graph:g} kernels "
+          f"traced per {unit}); replay event time {ev_graph:.3f} ms; on "
+          f"{card}", flush=True)
 
 
 def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS):
@@ -1031,6 +1089,9 @@ def main() -> None:
         compare_state_dicts,
         load_checkpoint,
     )
+    from hand_integral_pose_estimation_tpu_torch.training.trainer import (
+        EVAL_FIELDS,
+    )
 
     # ---- 1. device
     card = card_line()
@@ -1189,8 +1250,10 @@ def main() -> None:
     model = get_pose_net(cfg.model,
                          generator=torch.Generator().manual_seed(SEED))
     dataset = SyntheticFreiHand(n=N_SAMPLES, render_joints=True, seed=SEED)
+    # the eager sweeps: Testers whose graphs are set aside
     fused = Tester(cfg, dataset, model, device=dev, fuse_head=True)
     unfused = Tester(cfg, dataset, model, device=dev, fuse_head=False)
+    fused.graphs = unfused.graphs = None
     probe = fused.preprocess(dataset.host_batch(np.arange(BATCH)))
     scale_projection(model, probe.image)
 
@@ -1203,18 +1266,47 @@ def main() -> None:
     sweep_s = time.perf_counter() - t0
     serving_launches = {k.symbol: k.launches for k in kernels.KERNELS}
     n_batches = math.ceil(N_SAMPLES / BATCH)
-    print(f"[serving] swept {N_SAMPLES} samples in {n_batches} batches of "
-          f"{BATCH} per arm ({sweep_s:.2f} s host clock, first calls "
-          f"included); launches {serving_launches}", flush=True)
-    check(serving_launches == {
-        kernels.HEAD_PROJECTION_INTEGRAL_FWD.symbol: n_batches,
-        kernels.SOFTMAX_INTEGRAL_FWD.symbol: n_batches,
-        kernels.SOFTMAX_INTEGRAL_BWD.symbol: 0,
-        kernels.HEAD_PROJECTION_INTEGRAL_BWD.symbol: 0,
-        kernels.WARP_TWOPASS.symbol: 0, kernels.ROI_ALIGN_FWD.symbol: 0,
-        kernels.NMS.symbol: 0},
-        f"serving launches {serving_launches}, expected {n_batches} of each "
-        f"forward kernel and nothing else")
+    want_serving = {k.symbol: n_batches if k in (
+        kernels.HEAD_PROJECTION_INTEGRAL_FWD, kernels.SOFTMAX_INTEGRAL_FWD)
+        else 0 for k in kernels.KERNELS}
+    print(f"[serving] eager: swept {N_SAMPLES} samples in {n_batches} "
+          f"batches of {BATCH} per arm ({sweep_s:.2f} s host clock, first "
+          f"calls included); launches {serving_launches}", flush=True)
+    check(serving_launches == want_serving,
+          f"serving launches {serving_launches}, expected {n_batches} of "
+          f"each forward kernel and nothing else")
+
+    # the same sweeps as CUDA-graph replays (the Tester's default on the
+    # card): the first batch eager, then one replay a batch; launches are
+    # the eager calls' plus each graph's kernel nodes times its replays
+    fused_g = Tester(cfg, dataset, model, device=dev, fuse_head=True)
+    unfused_g = Tester(cfg, dataset, model, device=dev, fuse_head=False)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    coords_fg, batch_fg = fused_g.run(batch_size=BATCH)
+    coords_ug, batch_ug = unfused_g.run(batch_size=BATCH)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    graph_launches = path_launches(fused_g.graphs, unfused_g.graphs)
+    replays = [sum(t.graphs.replays.values()) for t in (fused_g, unfused_g)]
+    print(f"[serving] graphs: swept {N_SAMPLES} samples per arm, "
+          f"{replays} replays ({sweep_s:.2f} s host clock, captures "
+          f"included); launches {graph_launches}", flush=True)
+    check(graph_launches == want_serving and replays == [n_batches - 1] * 2,
+          f"graph serving launches {graph_launches}, replays {replays}")
+    for name, got, want in (("fused", (coords_fg, batch_fg),
+                             (coords_f, batch_f)),
+                            ("unfused", (coords_ug, batch_ug),
+                             (coords_u, batch_u))):
+        same = np.array_equal(got[0], want[0]) and all(
+            (g is None and w is None) or np.array_equal(g, w)
+            for g, w in zip(got[1], want[1]))
+        print(f"[serving] {name} arm: graph sweep coords and Batch fields "
+              f"bitwise equal to the eager sweep's: {same}", flush=True)
+        check(same, f"{name}: the replayed sweep disagrees with the eager one")
+    for k, v in graph_launches.items():
+        serving_launches[k] += v
 
     for name, coords, batch in (("fused", coords_f, batch_f),
                                 ("unfused", coords_u, batch_u)):
@@ -1258,10 +1350,12 @@ def main() -> None:
     # while the host issues the batch's ops), then 20 batches back to back
     # on the host clock, ending in a synchronize (host issue overlaps device
     # work). Host batches are already on the card.
+    host_np = dataset.host_batch(np.arange(BATCH))
     host = {k: (None if v is None else torch.from_numpy(
-        np.ascontiguousarray(v)).to(dev))
-        for k, v in dataset.host_batch(np.arange(BATCH)).items()}
-    for name, tester in (("fused", fused), ("unfused", unfused)):
+        np.ascontiguousarray(v)).to(dev)) for k, v in host_np.items()}
+    host_np = {k: host_np[k] for k in EVAL_FIELDS}
+    for name, tester, graphs in (("fused", fused, fused_g.graphs),
+                                 ("unfused", unfused, unfused_g.graphs)):
         def step():
             batch = make_eval_batch(host["image"], host["joint_cam"],
                                     host["K"], host["bbox_detector"],
@@ -1288,7 +1382,12 @@ def main() -> None:
               f"{card}; host issue of one batch {issue_ms(step):.3f} ms",
               flush=True)
         print_profile(f"serving, {name} arm, batch {BATCH}", step, 5, card)
-    del fused, unfused, model
+        eager_b2b = per
+        (graph,) = graphs.graphs.values()
+        compare_graph_timing(
+            f"serving, {name} arm, batch {BATCH}", "batch", step,
+            graph.replay, lambda: graphs(host_np), eager_b2b, 1, card)
+    del fused, unfused, fused_g, unfused_g, model
 
     # ---- 5. the training slice
     train_data = SyntheticFreiHand(n=2 * BATCH, render_joints=True, seed=SEED)
@@ -1298,6 +1397,7 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as model_dir:
             trainer = Trainer(cfg, train_data, model_dir=model_dir,
                               seed=SEED, device=dev, fuse_head=fuse)
+            trainer.graphs = None   # eager steps
             gen = torch.Generator(device=dev).manual_seed(SEED)
             batch = trainer.preprocess(
                 gen, train_data.host_batch(np.arange(BATCH)))
@@ -1305,6 +1405,7 @@ def main() -> None:
                   and bool(torch.isfinite(batch.image).all()),
                   f"{arm}: the augmented batch is malformed")
             scale_projection(trainer.model, batch.image)
+            probe_images = batch.image
 
             # one batch, same state: the kernel-backed train step against
             # a plain-backed one, on the bf16 path and at float32 compute
@@ -1314,6 +1415,7 @@ def main() -> None:
                 cfg.model, compute_dtype="float32"))
             trainer32 = Trainer(cfg32, train_data, model_dir=model_dir,
                                 seed=SEED, device=dev, fuse_head=fuse)
+            trainer32.graphs = None
             scale_projection(trainer32.model, batch.image)
             gradient_check(arm + " float32", trainer32, batch, fuse,
                            GRAD_LEAF_REL_F32, GRAD_TOTAL_REL_F32)
@@ -1391,7 +1493,86 @@ def main() -> None:
                   f"one step {issue_ms(step):.3f} ms", flush=True)
             print_profile(f"train step, {arm} arm, batch {BATCH}", step, 5,
                           card, top=14)
-            del trainer, batch
+            eager_b2b = per
+
+            # Trainer.fit with scan_steps=1 and 4 as CUDA-graph replays,
+            # each against the same Trainer run eagerly (graphs set aside)
+            # from the same seed, both under cuDNN's deterministic
+            # algorithms: bitwise equal parameters, statistics and Adam
+            # state. The counted launches are the eager warm-up chunk's
+            # plus the graph's nodes times its replays.
+            for chunk in (1, GRAPH_CHUNK):
+                torch.backends.cudnn.deterministic = True
+                twins = {}
+                for graphs in (False, True):
+                    twin = Trainer(cfg, train_data, model_dir=model_dir,
+                                   seed=SEED, device=dev, fuse_head=fuse,
+                                   scan_steps=chunk)
+                    if not graphs:
+                        twin.graphs = None
+                    scale_projection(twin.model, probe_images)
+                    twins[graphs] = twin
+                for k in kernels.KERNELS:
+                    k.launches = 0
+                twins[True].fit(end_epoch=1, steps_per_epoch=GRAPH_STEPS)
+                torch.cuda.synchronize()
+                counts = path_launches(twins[True].graphs)
+                for k, v in counts.items():
+                    train_launches[k] += v
+                twins[False].run_epoch(0, num_steps=GRAPH_STEPS)
+                torch.backends.cudnn.deterministic = False
+                want_counts = {k.symbol: (GRAPH_STEPS if k in (
+                    fwd, bwd, kernels.WARP_TWOPASS) else 0)
+                    for k in kernels.KERNELS}
+                replays = sum(twins[True].graphs.replays.values())
+                state_g = training_state(twins[True])
+                state_e = training_state(twins[False])
+                differ = [k for k in state_e
+                          if not torch.equal(state_g[k], state_e[k])]
+                print(f"[training] {arm} arm: Trainer.fit with scan_steps="
+                      f"{chunk}: {GRAPH_STEPS} steps, {replays} replays of "
+                      f"one captured chunk after the eager warm-up chunk, "
+                      f"launches {counts}; against the eager twin: "
+                      f"{len(state_e) - len(differ)} of {len(state_e)} "
+                      f"tensors (parameters, statistics, Adam state) "
+                      f"bitwise equal", flush=True)
+                check(counts == want_counts, f"{arm}, scan_steps={chunk}: "
+                      f"graph launches {counts}, expected {want_counts}")
+                check(replays == GRAPH_STEPS // chunk - 1,
+                      f"{arm}, scan_steps={chunk}: {replays} replays")
+                check(not differ, f"{arm}, scan_steps={chunk}: the replayed "
+                      f"steps differ from the eager ones at {differ[:5]}")
+                del twins, twin
+                torch.cuda.empty_cache()
+
+            # timing, eager against graph, with the default algorithms: a
+            # fresh graph Trainer whose first epoch warms up and captures
+            gtrainer = Trainer(cfg, train_data, model_dir=model_dir,
+                               seed=SEED, device=dev, fuse_head=fuse,
+                               scan_steps=GRAPH_CHUNK)
+            scale_projection(gtrainer.model, probe_images)
+            gtrainer.run_epoch(0, num_steps=2 * GRAPH_CHUNK)
+            t0 = time.perf_counter()
+            gtrainer.run_epoch(1, num_steps=TIME_STEPS)
+            torch.cuda.synchronize()
+            per_g = (time.perf_counter() - t0) / TIME_STEPS * 1e3
+            print(f"[training] {arm} arm, Trainer.run_epoch with scan_steps="
+                  f"{GRAPH_CHUNK} as graph replays back to back: {per_g:.3f} "
+                  f"ms/step over {TIME_STEPS} steps (host clock: sampling, "
+                  f"stacking, one copy and one replay a chunk), "
+                  f"{BATCH / per_g * 1e3:.1f} img/s, against {eager_b2b:.3f} "
+                  f"ms/step eager, on {card}", flush=True)
+            (graph,) = gtrainer.graphs.graphs.values()
+            rng = np.random.RandomState(SEED)
+            hosts = [train_data.host_batch(train_data.sample_indices(
+                rng, BATCH)) for _ in range(GRAPH_CHUNK)]
+            chunk = {k: None if hosts[0][k] is None
+                     else np.stack([h[k] for h in hosts]) for k in hosts[0]}
+            compare_graph_timing(
+                f"train step, {arm} arm, batch {BATCH}", "step", step,
+                graph.replay, lambda: gtrainer.graphs(chunk), eager_b2b,
+                GRAPH_CHUNK, card, n=5)
+            del trainer, gtrainer, graph, batch, probe_images
             torch.cuda.empty_cache()
 
     # ---- 6. kernel timings at the paths' shapes
@@ -1477,13 +1658,13 @@ def main() -> None:
     # kernel 2: one device kernel per call, no torch glue around it; the
     # counter must first see the glue that kernel 2 no longer needs
     # (channel_constants)
-    glue, _ = device_kernels_per_call(
+    glue = device_kernels_per_call(
         lambda: channel_constants(m1, s1, c1, cot, Ho, Wo, D))
-    per_call, nodes = device_kernels_per_call(
+    per_call = device_kernels_per_call(
         lambda: softmax_integral_bwd_cuda(hm, m1, s1, c1, cot, J, D))
     print(f"[timing] softmax_integral_bwd device kernels per call: "
-          f"{per_call} ({nodes} graph nodes; channel_constants alone: "
-          f"{glue} kernels)", flush=True)
+          f"{per_call} (channel_constants alone: {glue} kernels)",
+          flush=True)
     check(glue > 1, f"the graph count saw {glue} kernels in "
           f"channel_constants, expected several")
     check(per_call == 1, f"softmax_integral_bwd_cuda issued {per_call} "
@@ -1534,15 +1715,14 @@ def main() -> None:
     print(f"[timing] warp_twopass device time (profile, 20 calls): "
           f"{dev8:.4f} ms (uint8 + epilogue), {dev32:.4f} ms (float32, warp "
           f"alone) on {card}", flush=True)
-    glue, _ = device_kernels_per_call(plain_chain)
-    per_call8, nodes8 = device_kernels_per_call(fused_call)
-    per_call32, _ = device_kernels_per_call(
+    glue = device_kernels_per_call(plain_chain)
+    per_call8 = device_kernels_per_call(fused_call)
+    per_call32 = device_kernels_per_call(
         lambda: warp_perspective_cuda(images, Hm, (IH, IW)))
     print(f"[timing] warp_twopass host issue of one call: {warp_issue:.4f} "
           f"ms (uint8 + epilogue), {warp_issue32:.4f} ms (float32, warp "
-          f"alone); device kernels per call {per_call8} ({nodes8} graph "
-          f"nodes) and {per_call32}; the plain chain alone: {glue} kernels "
-          f"on {card}", flush=True)
+          f"alone); device kernels per call {per_call8} and {per_call32}; "
+          f"the plain chain alone: {glue} kernels on {card}", flush=True)
     check(glue > 1, f"the graph count saw {glue} kernels in the warp's "
           f"plain chain, expected several")
     check(per_call8 == 1 and per_call32 == 1, f"the warp issued "

@@ -8,11 +8,13 @@ net (`models/`), the fused projection + soft-argmax decode, the plain
 soft-argmax decode, their backwards, the two-pass warp, NMS and ROIAlign
 (`ops/`, with hand-written CUDA kernels in `csrc/`), the Faster R-CNN hand
 detector (`detect/`) and the detector -> crop -> pose pipeline
-(`inference.py`), the losses, Adam with the step schedule and checkpoints
-(`losses.py`, `training/`), and the PA-MPJPE / MPJPE evaluation and the
-challenge dump (`evaluation/`), driven by `training.Trainer`,
-`training.Tester`, `inference.TwoStagePipeline` and `cli/{train,test,
-evaluate}.py`.
+(`inference.py`), the losses, Adam with the step schedule, checkpoints
+and CUDA-graph replay of the train chunks and eval batches (`losses.py`,
+`training/`), the PA-MPJPE / MPJPE evaluation, the challenge dump and the
+offline PCK / AUC scorer (`evaluation/`) and the metrics writer
+(`utils/`), driven by `training.Trainer`, `training.Tester`,
+`training.Evaluator`, `inference.TwoStagePipeline` and `cli/{train,test,
+evaluate,score}.py`.
 
 Public layouts follow the JAX package so the two compare like with like:
 images NHWC (B, H, W, 3), features (B, H, W, F), heatmap channel

@@ -3,8 +3,9 @@
 Port of `evaluate_test_split` and `evaluate_challenge` in
 hand_integral_pose_estimation_tpu/evaluation/evaluator.py (the reference's
 `FreiHand.evaluate`, FreiHand.py:670-835, and `evaluate_evaluations`,
-FreiHand.py:853-917). The math runs on the CPU in the dtype of the
-collected arrays. The offline scorer waits for a later port.
+FreiHand.py:853-917), and the offline scorer `score_predictions`
+(main/eval.py:167-219). The math runs on the CPU in the dtype of the
+collected arrays.
 """
 
 from __future__ import annotations
@@ -93,3 +94,27 @@ def evaluate_challenge(coords_label: np.ndarray, bbox: np.ndarray,
     with open(os.path.join(result_dir, pred_name), "w") as f:
         json.dump([[p.tolist() for p in preds], verts], f)
     return preds
+
+
+def score_predictions(pred: np.ndarray, gt: np.ndarray,
+                      output_dir: Optional[str] = None) -> dict:
+    """Offline scorer (main/eval.py:167-219): the unaligned and aligned
+    EvalUtil measures over metric 3D keypoints (N, J, 3); writes
+    scores.txt, in the JAX package's format, when `output_dir` is set."""
+    pred, gt = torch.as_tensor(pred), torch.as_tensor(gt)
+    raw = metrics.pck_auc(pred, gt)
+    al = metrics.aligned_pck_auc(pred, gt)
+    out = {
+        "xyz_mean3d_cm": float(raw.epe_mean) * 100.0,
+        "xyz_auc3d": float(raw.auc),
+        "xyz_al_mean3d_cm": float(al.epe_mean) * 100.0,
+        "xyz_al_auc3d": float(al.auc),
+    }
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+        with open(os.path.join(output_dir, "scores.txt"), "w") as f:
+            f.write(f"xyz_mean3d: {out['xyz_mean3d_cm']:f}\n")
+            f.write(f"xyz_auc3d: {out['xyz_auc3d']:f}\n")
+            f.write(f"xyz_al_mean3d: {out['xyz_al_mean3d_cm']:f}\n")
+            f.write(f"xyz_al_auc3d: {out['xyz_al_auc3d']:f}\n")
+    return out

@@ -22,6 +22,7 @@ from hand_integral_pose_estimation_tpu_torch.geometry.bbox import (  # noqa: F40
 )
 from hand_integral_pose_estimation_tpu_torch.geometry.procrustes import (  # noqa: F401
     SimilarityTransform,
+    align_w_scale,
     compute_similarity_transform,
     procrustes_align,
 )

@@ -1,7 +1,8 @@
 """Procrustes alignment (PA-MPJPE, "protocol #1") as batched linear algebra.
 
-Port of hand_integral_pose_estimation_tpu/geometry/procrustes.py, the
-reference's `compute_similarity_transform` (common/augment.py:18-77).
+Port of hand_integral_pose_estimation_tpu/geometry/procrustes.py: the
+reference's `compute_similarity_transform` (common/augment.py:18-77) and
+the FreiHAND scorer's `align_w_scale` (main/eval.py:142-165).
 """
 
 from __future__ import annotations
@@ -67,3 +68,24 @@ def procrustes_align(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
     """`pred` aligned to `gt` with the optimal scale (the PA-MPJPE path)."""
     return compute_similarity_transform(gt, pred,
                                         compute_optimal_scale=True).Z
+
+
+def align_w_scale(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """`pred` (..., N, 3) aligned to `gt` as the FreiHAND-official scorer
+    aligns it (main/eval.py:142-165, scipy's orthogonal_procrustes): both
+    point sets centred and Frobenius-normalised (+1e-8), R = U Vt and the
+    scale = the sum of singular values from the SVD of gt_n^T pred_n, then
+    pred_n R^T * scale, rescaled and translated back to gt."""
+    t1 = gt.mean(dim=-2, keepdim=True)
+    t2 = pred.mean(dim=-2, keepdim=True)
+    m1 = gt - t1
+    m2 = pred - t2
+    s1 = torch.linalg.norm(m1, dim=(-2, -1), keepdim=True) + 1e-8
+    s2 = torch.linalg.norm(m2, dim=(-2, -1), keepdim=True) + 1e-8
+    m1 = m1 / s1
+    m2 = m2 / s2
+    U, s, Vt = torch.linalg.svd(m1.transpose(-1, -2) @ m2,
+                                full_matrices=False)
+    R = U @ Vt
+    scale = s.sum(dim=-1)[..., None, None]
+    return (m2 @ R.transpose(-1, -2)) * scale * s1 + t1

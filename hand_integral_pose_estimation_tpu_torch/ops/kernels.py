@@ -8,7 +8,10 @@ file name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is reused.
 
 Each :class:`Kernel` counts its successful launches in `launches`, so a run
-can show that its main path went through the kernel.
+can show that its main path went through the kernel. A call made while
+the stream is being captured into a CUDA graph launches nothing and is not
+counted; `graph_launches` counts the kernel's nodes in the captured graph,
+which each replay launches.
 """
 
 from __future__ import annotations
@@ -151,9 +154,13 @@ class Kernel:
     `c_int`. The C function returns `cudaGetLastError()` after its launch;
     a non-zero code raises, so a refused launch is never silent."""
 
-    def __init__(self, symbol: str, argtypes: list):
+    def __init__(self, symbol: str, argtypes: list,
+                 device_kernels: tuple[str, ...]):
         self.symbol = symbol
         self.argtypes = argtypes
+        # the device kernels of which one call launches exactly one (an
+        # entry's other kernels, such as a merge, are not counted)
+        self.device_kernels = device_kernels
         self.launches = 0
         self._fn = None
 
@@ -167,7 +174,8 @@ class Kernel:
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} "
                                f"({library().hipe_error_string(rc).decode()})")
-        self.launches += 1
+        if not torch.cuda.is_current_stream_capturing():
+            self.launches += 1
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -220,38 +228,103 @@ def softmax_integral_fwd_chunks(hm: int, dtype: int, batch: int, rows: int,
 #:  generic path, no workspace), stream)
 SOFTMAX_INTEGRAL_FWD = Kernel(
     "hipe_softmax_integral_fwd",
-    [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ("softmax_integral_partial_kernel", "softmax_integral_fwd_kernel"))
 #: (feats, dtype, weight, bias, coords, m, s, ws, B, H, W, F, J, D,
 #:  chunks per image, stream)
 HEAD_PROJECTION_INTEGRAL_FWD = Kernel(
     "hipe_head_projection_integral_fwd",
-    [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
+    [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ("hp_fwd_mma_kernel", "head_projection_integral_fwd_kernel"))
 
 #: (hm, dtype, m, s, coords, cot, grad, B, H, W, J, D, stream)
 SOFTMAX_INTEGRAL_BWD = Kernel(
     "hipe_softmax_integral_bwd",
-    [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+    [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ("softmax_integral_bwd_vec_kernel", "softmax_integral_bwd_kernel"))
 #: (feats, dtype, weight, bias, m, T, A, B, dfeat, dW, db, ws, ws_db,
 #:  B, H, W, F, J, D, chunks per image, stream)
 HEAD_PROJECTION_INTEGRAL_BWD = Kernel(
     "hipe_head_projection_integral_bwd",
     [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-     _I, _I, _I, _I, _I, _I, _I, _P])
+     _I, _I, _I, _I, _I, _I, _I, _P],
+    ("hp_bwd_dfeat_mma_kernel", "hp_bwd_dfeat_kernel"))
 #: (images, image dtype (0 float32, 1 uint8), maps, map dtype (0 float32,
 #:  1 float64), map strides (3), inverse, colour or NULL, host means and
 #:  stds or NULL, out, B, Hs, Ws, Ho, Wo, C, stream)
 WARP_TWOPASS = Kernel(
     "hipe_warp_twopass", [_P, _I, _P, _I, _L, _L, _L, _I, _P, _P, _P, _I,
-                          _I, _I, _I, _I, _I, _P])
+                          _I, _I, _I, _I, _I, _P], ("warp_kernel",))
 
 #: (feats, rois, out, B, H, W, C, R, pooled, sampling ratio,
 #:  spatial scale, stream)
 ROI_ALIGN_FWD = Kernel(
-    "hipe_roi_align_fwd", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P])
+    "hipe_roi_align_fwd", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ("roi_align_fwd_kernel",))
 #: (boxes, alive, mask, keep, B, N, iou threshold, plus one, stop after,
 #:  stream)
-NMS = Kernel("hipe_nms", [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P])
+NMS = Kernel("hipe_nms", [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+             ("nms_sweep_kernel",))
 
 KERNELS = (SOFTMAX_INTEGRAL_FWD, HEAD_PROJECTION_INTEGRAL_FWD,
            SOFTMAX_INTEGRAL_BWD, HEAD_PROJECTION_INTEGRAL_BWD, WARP_TWOPASS,
            ROI_ALIGN_FWD, NMS)
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of libcuda."""
+    _fields_ = [("func", _P), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_mem", ctypes.c_uint),
+                ("kernel_params", _P), ("extra", _P), ("kern", _P),
+                ("ctx", _P)]
+
+
+@functools.lru_cache(maxsize=None)
+def _libcuda() -> ctypes.CDLL:
+    return ctypes.CDLL("libcuda.so.1")
+
+
+def graph_kernel_names(graph: "torch.cuda.CUDAGraph") -> list[str]:
+    """The (mangled) function names of the kernel nodes of a captured
+    `torch.cuda.CUDAGraph`, read through libcuda (`cuGraphGetNodes`,
+    `cuGraphKernelNodeGetParams`, `cuFuncGetName`): every device kernel a
+    replay launches. The graph must be made with `keep_graph=True`."""
+    cuda = _libcuda()
+
+    def call(name, *args):
+        rc = getattr(cuda, name)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{name}: libcuda error {rc}")
+
+    handle = _P(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", handle, None, ctypes.byref(n))
+    nodes = (_P * max(1, n.value))()
+    call("cuGraphGetNodes", handle, nodes, ctypes.byref(n))
+    names = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", _P(node), ctypes.byref(kind))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = _KernelNodeParams()
+        call("cuGraphKernelNodeGetParams_v2", _P(node), ctypes.byref(params))
+        func = _P(params.func)
+        if not params.func:
+            call("cuKernelGetFunction", ctypes.byref(func), _P(params.kern))
+        name = ctypes.c_char_p()
+        call("cuFuncGetName", ctypes.byref(name), func)
+        names.append(name.value.decode())
+    return names
+
+
+def graph_launches(graph: "torch.cuda.CUDAGraph",
+                   kernels=None) -> dict[str, int]:
+    """Calls of each entry point (by C symbol) that one replay of `graph`
+    launches: the kernel nodes whose function is one of the entry's
+    `device_kernels` (matched as the mangled name's length-prefixed
+    identifier)."""
+    names = graph_kernel_names(graph)
+    return {k.symbol: sum(any(f"{len(d)}{d}" in n for d in k.device_kernels)
+                          for n in names)
+            for k in (KERNELS if kernels is None else kernels)}

@@ -1,5 +1,6 @@
 """Training runtime: optimiser and schedule, the train and eval steps,
-checkpointing, and the Trainer / Tester runners."""
+checkpointing, CUDA-graph replay, and the Trainer / Tester / Evaluator
+runners."""
 
 from hand_integral_pose_estimation_tpu_torch.training.state import (  # noqa: F401
     compare_state_dicts,
@@ -17,6 +18,7 @@ from hand_integral_pose_estimation_tpu_torch.training.checkpoint import (  # noq
     save_checkpoint,
 )
 from hand_integral_pose_estimation_tpu_torch.training.trainer import (  # noqa: F401
+    Evaluator,
     Tester,
     Trainer,
 )

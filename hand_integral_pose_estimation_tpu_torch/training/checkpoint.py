@@ -4,7 +4,9 @@ The reference's artifact contract (common/base.py:57-71): one snapshot per
 epoch, `snapshot_{epoch}.pth.tar`, holding `{"epoch", "network",
 "optimizer"}`, and resume from the highest-numbered one. The learning-rate
 schedule rides in the optimizer's step count, as it rides in the JAX
-package's TrainState.step. Files are written to a temporary name and
+package's TrainState.step; under capturable Adam (on the card) the count is
+a device tensor, and a snapshot resumes in either form of the optimizer
+(`state.load_optimizer_state`). Files are written to a temporary name and
 renamed, so a reader never sees half a snapshot.
 """
 
@@ -16,6 +18,10 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from hand_integral_pose_estimation_tpu_torch.training.state import (
+    load_optimizer_state,
+)
 
 _SNAP_RE = re.compile(r"snapshot_(\d+)\.pth\.tar$")
 
@@ -67,5 +73,5 @@ def load_checkpoint(ckpt_dir: str, model: nn.Module,
                       weights_only=True)
     model.load_state_dict(ckpt["network"])
     if optimizer is not None:
-        optimizer.load_state_dict(ckpt["optimizer"])
+        load_optimizer_state(optimizer, ckpt["optimizer"])
     return int(ckpt["epoch"])

@@ -30,23 +30,31 @@ from hand_integral_pose_estimation_tpu_torch.ops.integral import (
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer,
-                    scheduler: torch.optim.lr_scheduler.LRScheduler,
+                    scheduler,
                     cfg: Config,
                     teacher_apply: Optional[Callable] = None,
                     panet_apply: Optional[Callable] = None,
                     fuse_head: bool = True):
     """`train_step(batch) -> metrics` for a ResPoseNet whose parameters
-    `optimizer` holds.
+    `optimizer` holds; `scheduler` is `state.multistep_schedule`'s.
 
     One step: forward in train mode (BatchNorm on batch statistics, running
-    statistics updated), decode, `losses.combined_loss`, backward,
-    `optimizer.step()`, `scheduler.step()`. Returns the five metrics of the
-    JAX step (loss, loss_supervised, loss_unsupervised, student_mpjpe,
-    teacher_mpjpe) as device tensors. (d) Nothing in the step waits for the
-    device: no `.item()`, no `torch.linalg.inv` (the augmentation uses
-    `inv_ex`), no tensor built on the host (Adam keeps its step count
-    there), so the caller decides where to synchronise. The step's
+    statistics updated), decode, `losses.combined_loss`, gradients set to
+    None, backward, `optimizer.step()`, `scheduler.step()`. Returns the
+    five metrics of the JAX step (loss, loss_supervised,
+    loss_unsupervised, student_mpjpe, teacher_mpjpe) as device tensors.
+    (d) Nothing in the step waits for the device: no `.item()`, no
+    `torch.linalg.inv` (the augmentation uses `inv_ex`), no tensor built
+    on the host, so the caller decides where to synchronise. The step's
     gradients stay in the parameters' `.grad` until the next step.
+
+    On the card the step can be captured in a CUDA graph, one or several
+    in a row (`training.graphs`): Adam is capturable, the scheduler writes
+    the next step's rate from Adam's device step count, and the gradients
+    are set to None before each backward, so each captured backward
+    writes fresh gradients from the graph's memory pool instead of adding
+    to the last step's (the whole-network capture of torch.cuda.graph's
+    documentation).
 
     teacher_apply: optional frozen teacher `(images) -> (B, J, 3)`
     label-space coords, used instead of the batch's cached pseudo-labels.

@@ -7,7 +7,6 @@ the card's machine need not have):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
-import ctypes
 import math
 
 import numpy as np
@@ -468,10 +467,9 @@ def test_warp_kernel_takes_float64_and_strided_maps(dev):
 
 
 def _device_kernels_per_call(fn):
-    """Kernel nodes of one call of `fn` captured in a CUDA graph, counted
-    by the driver (`cuGraphGetNodes`, `cuGraphNodeGetType`): every device
-    kernel the call issues, where a profiler's event buffers may drop
-    some."""
+    """Kernel nodes of one call of `fn` captured in a CUDA graph, read
+    through libcuda (`kernels.graph_kernel_names`): every device kernel
+    the call issues, where a profiler's event buffers may drop some."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -481,20 +479,7 @@ def _device_kernels_per_call(fn):
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    cuda = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    assert cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
-    nodes = (ctypes.c_void_p * max(1, n.value))()
-    assert cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
-    kinds = []
-    for i in range(n.value):
-        kind = ctypes.c_int(-1)
-        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]),
-                                       ctypes.byref(kind)) == 0
-        kinds.append(kind.value)
-    del graph
-    return sum(k == 0 for k in kinds)  # 0: a kernel node
+    return len(kernels.graph_kernel_names(graph))
 
 
 @pytest.mark.parametrize("epilogue", [False, True])
@@ -849,3 +834,382 @@ def test_detector_kernel_wrappers_refuse_what_they_do_not_take(dev):
         nms._alive_cuda(boxes, torch.ones(1, 9, dtype=torch.bool,
                                           device=dev), 0.5, True)
     assert [k.launches for k in kernels.KERNELS] == counts
+
+
+# ------------------------------------------------ CUDA graphs (scan_steps)
+
+
+def _graph_config():
+    """ResNet-18 at 64x64 with a 16x16 x 8 heatmap, bf16 compute (the
+    main path's dtype: the tensor-core fused head) and batch 4."""
+    from hand_integral_pose_estimation_tpu_torch.config import (
+        Config,
+        ModelConfig,
+        TrainConfig,
+    )
+    return Config(model=ModelConfig(resnet_type=18, input_shape=(64, 64),
+                                    output_shape=(16, 16), depth_dim=8),
+                  train=TrainConfig(batch_size=4, lr=1e-3,
+                                    lr_dec_epoch=(1,)))
+
+
+def _graph_dataset(n=12, seed=1):
+    from hand_integral_pose_estimation_tpu_torch.data import (
+        SyntheticFreiHand,
+    )
+    return SyntheticFreiHand(n=n, image_hw=(64, 64), seed=seed)
+
+
+def _training_state(trainer):
+    out = dict(trainer.model.state_dict())
+    for i, p in enumerate(trainer.model.parameters()):
+        for k, v in trainer.optimizer.state[p].items():
+            out[f"adam.{i}.{k}"] = v
+    return out
+
+
+@pytest.fixture
+def deterministic():
+    """cuDNN's deterministic algorithms, so two runs of the same steps can
+    be compared bit for bit."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = before
+
+
+@pytest.mark.parametrize("scan_steps", [1, 2, 4])
+@pytest.mark.parametrize("fuse_head", [True, False])
+def test_train_graph_replays_equal_eager_steps(dev, deterministic,
+                                               fuse_head, scan_steps):
+    """Trainer(scan_steps=k) on the card against the same Trainer run
+    eagerly (its `graphs` set to None), from the same seed: two epochs of 8
+    steps (the first chunk eager as the warm-up, every later chunk a replay
+    of the one captured chunk, the generator reseeded between epochs) end
+    in the same metrics, parameters, BatchNorm statistics and Adam state,
+    bit for bit. The schedule's boundary at step 6 falls inside a replay
+    (k = 4) or at its start (k = 1, 2). The captured chunk holds each of
+    its kernels once per step."""
+    from hand_integral_pose_estimation_tpu_torch.training import Trainer
+
+    kw = dict(cfg=_graph_config(), dataset=_graph_dataset(n=24),
+              model_dir="unused", seed=4, device=dev, fuse_head=fuse_head,
+              scan_steps=scan_steps)
+    eager = Trainer(**kw)
+    eager.graphs = None
+    graphed = Trainer(**kw)
+    assert graphed.steps_per_epoch == 6 and isinstance(
+        graphed.optimizer.param_groups[0]["lr"], torch.Tensor)
+    for epoch in range(2):
+        m_eager = eager.run_epoch(epoch, num_steps=8, log_every=100)
+        m_graph = graphed.run_epoch(epoch, num_steps=8, log_every=100)
+        assert m_graph == m_eager
+    assert list(graphed.graphs.replays.values()) == [16 // scan_steps - 1]
+    a, b = _training_state(graphed), _training_state(eager)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert float(graphed.optimizer.param_groups[0]["lr"]) == pytest.approx(
+        1e-4, rel=1e-6)
+
+    (graph,) = graphed.graphs.graphs.values()
+    nodes = kernels.graph_launches(graph)
+    fwd, bwd = ((kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+                 kernels.HEAD_PROJECTION_INTEGRAL_BWD) if fuse_head else
+                (kernels.SOFTMAX_INTEGRAL_FWD, kernels.SOFTMAX_INTEGRAL_BWD))
+    assert nodes == {k.symbol: scan_steps if k in (
+        fwd, bwd, kernels.WARP_TWOPASS) else 0 for k in kernels.KERNELS}
+    assert graphed.graphs.kernel_launches()[fwd.symbol] == 16 - scan_steps
+
+
+@pytest.mark.parametrize("fuse_head", [True, False])
+def test_tester_replays_equal_eager_coords(dev, fuse_head):
+    """Tester.run on the card replays one eval graph per batch after the
+    first: against the same Tester with its `graphs` set to None, 10 samples at batch 4 (the last batch padded) give the eager
+    sweep's coords and Batch fields bit for bit, and the graph holds one
+    forward kernel."""
+    from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
+    from hand_integral_pose_estimation_tpu_torch.training import Tester
+
+    cfg = _graph_config()
+    model = get_pose_net(cfg.model, torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        model.head.final_layer.weight.normal_(0.0, 0.05)
+    data = _graph_dataset(n=10)
+    eager = Tester(cfg, data, model, device=dev, fuse_head=fuse_head)
+    eager.graphs = None
+    graphed = Tester(cfg, data, model, device=dev, fuse_head=fuse_head)
+    want, want_batch = eager.run(batch_size=4)
+    got, got_batch = graphed.run(batch_size=4)
+    assert list(graphed.graphs.replays.values()) == [2]
+    assert np.array_equal(got, want) and float(np.std(got)) > 1e-3
+    for name, g, w in zip(got_batch._fields, got_batch, want_batch):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert np.array_equal(g, w), name
+    got_again, _ = graphed.run(batch_size=4)
+    assert np.array_equal(got_again, want)
+    (graph,) = graphed.graphs.graphs.values()
+    fwd = (kernels.HEAD_PROJECTION_INTEGRAL_FWD if fuse_head
+           else kernels.SOFTMAX_INTEGRAL_FWD)
+    assert kernels.graph_launches(graph) == {
+        k.symbol: int(k is fwd) for k in kernels.KERNELS}
+
+
+def _kernel_calls(dev):
+    """One call of each pose kernel's wrapper at a small main-path shape:
+    {name: (kernel, fn)}."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    B, H, W, J, D, F = 4, 16, 16, 21, 8, 256
+    hm = (3 * torch.randn(B, H, W, J * D, device=dev, generator=g)).to(
+        torch.bfloat16)
+    feats = torch.randn(B, H, W, F, device=dev, generator=g).to(
+        torch.bfloat16)
+    w = 0.1 * torch.randn(J * D, F, device=dev, generator=g)
+    b = torch.randn(J * D, device=dev, generator=g)
+    cot = torch.randn(B, J, 3, device=dev, generator=g)
+    c1, m1, s1 = integral.softmax_integral_cuda(hm, J, D)
+    c3, m3, s3 = fused_head.head_projection_integral_cuda(feats, w, b, J, D)
+    frames = (255 * torch.rand(B, 96, 96, 3, device=dev, generator=g)).to(
+        torch.uint8)
+    maps = _homographies(B, g, dev)
+    colour = 0.8 + 0.4 * torch.rand(B, 3, device=dev, generator=g)
+    return {
+        "1": (kernels.SOFTMAX_INTEGRAL_FWD,
+              lambda: integral.softmax_integral_cuda(hm, J, D)),
+        "2": (kernels.SOFTMAX_INTEGRAL_BWD,
+              lambda: (integral.softmax_integral_bwd_cuda(
+                  hm, m1, s1, c1, cot, J, D),)),
+        "3": (kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+              lambda: fused_head.head_projection_integral_cuda(
+                  feats, w, b, J, D)),
+        "3-float32": (kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+                      lambda: fused_head.head_projection_integral_cuda(
+                          feats.float(), w, b, J, D)),
+        "4": (kernels.HEAD_PROJECTION_INTEGRAL_BWD,
+              lambda: fused_head.head_projection_integral_bwd_cuda(
+                  feats, w, b, m3, s3, c3, cot, J, D)),
+        "4-float32": (kernels.HEAD_PROJECTION_INTEGRAL_BWD,
+                      lambda: fused_head.head_projection_integral_bwd_cuda(
+                          feats.float(), w, b, m3, s3, c3, cot, J, D)),
+        "5": (kernels.WARP_TWOPASS,
+              lambda: (warp.warp_normalise_batch(
+                  frames, maps, (64, 64), colour, (120.0, 110.0, 100.0),
+                  (60.0, 55.0, 50.0)),)),
+    }
+
+
+@pytest.mark.parametrize("name", ["1", "2", "3", "3-float32", "4",
+                                  "4-float32", "5"])
+def test_kernel_captures_alone(dev, name):
+    """Each pose kernel's wrapper captured alone in a CUDA graph, after one
+    eager call: the capture counts no launch, the graph holds the kernel
+    once, and a replay gives the eager call's bits. (Kernels 3 and 4 set
+    their shared-memory attribute and kernel 1 plans its chunks on every
+    call; both are allowed under capture.)"""
+    kernel, fn = _kernel_calls(dev)[name]
+    want = [t.clone() for t in fn()]
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = fn()
+    assert kernel.launches == launches
+    assert kernels.graph_launches(graph) == {
+        k.symbol: int(k is kernel) for k in kernels.KERNELS}
+    for t in out:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, w in zip(out, want):
+        assert torch.equal(got, w)
+
+
+def test_failed_capture_raises_without_eager_retry(dev):
+    """A step that cannot be captured raises on the call that captures it,
+    and nothing runs it eagerly instead: an error inside the captured
+    function, and (in a child process, since a sync under capture
+    invalidates the capture) a read back to the host."""
+    import subprocess
+    import sys
+
+    from hand_integral_pose_estimation_tpu_torch.training.graphs import (
+        CapturedStep,
+    )
+
+    calls = []
+
+    def fn(d):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        if calls[-1]:
+            raise RuntimeError("refused under capture")
+        return d["x"] * 2
+
+    step = CapturedStep(fn, dev)
+    host = {"x": np.arange(4, dtype=np.float32)}
+    assert torch.equal(step(host).cpu(), torch.arange(4.0) * 2)
+    with pytest.raises(RuntimeError, match="refused under capture"):
+        step(host)
+    assert calls == [False, True] and not step.graphs
+
+    code = (
+        "import numpy as np, torch\n"
+        "from hand_integral_pose_estimation_tpu_torch.training.graphs "
+        "import CapturedStep\n"
+        "calls = []\n"
+        "def fn(d):\n"
+        "    calls.append(torch.cuda.is_current_stream_capturing())\n"
+        "    return d['x'] * float(d['x'].sum())\n"
+        "step = CapturedStep(fn, 'cuda')\n"
+        "host = {'x': np.ones(4, np.float32)}\n"
+        "step(host)\n"
+        "try:\n"
+        "    step(host)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', calls, len(step.graphs))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert "raised [False, True] 0" in out.stdout, out.stdout + out.stderr
+
+
+def test_graph_snapshot_resumes_on_the_host_and_back(dev, tmp_path):
+    """A snapshot of a graph-replaying Trainer (capturable Adam: device step
+    counts, a tensor rate) resumes in a CPU Trainer at the same step, rate,
+    parameters and moments, and that Trainer's next snapshot resumes on
+    the card again, where the device schedule continues at its step."""
+    from hand_integral_pose_estimation_tpu_torch.training import Trainer
+    from hand_integral_pose_estimation_tpu_torch.training.state import (
+        optimizer_steps,
+    )
+
+    cfg = _graph_config()
+    kw = dict(cfg=cfg, dataset=_graph_dataset(), model_dir=str(tmp_path),
+              seed=0)
+    card = Trainer(device=dev, scan_steps=2, **kw)
+    card.fit(end_epoch=1, steps_per_epoch=4)
+    snap = torch.load(tmp_path / "snapshot_0.pth.tar", weights_only=True)
+    assert snap["optimizer"]["param_groups"][0]["capturable"]
+    host = Trainer(device="cpu", continue_train=True, **kw)
+    group = host.optimizer.param_groups[0]
+    assert optimizer_steps(host.optimizer) == 4 and not group["capturable"]
+    assert group["lr"] == pytest.approx(cfg.train.lr * 0.1)  # step 4 >= 3
+    for p, q in zip(host.model.parameters(), card.model.parameters()):
+        assert torch.equal(p, q.cpu())
+        a, b = host.optimizer.state[p], card.optimizer.state[q]
+        assert torch.equal(a["exp_avg"], b["exp_avg"].cpu())
+        assert a["step"].device.type == "cpu"
+    host.fit(end_epoch=2, steps_per_epoch=2)
+    back = Trainer(device=dev, continue_train=True, **kw)
+    lr = back.optimizer.param_groups[0]["lr"]
+    assert back.optimizer.param_groups[0]["capturable"]
+    assert lr.device.type == "cuda" and float(lr) == pytest.approx(
+        cfg.train.lr * 0.1, rel=1e-6)
+    assert optimizer_steps(back.optimizer) == 6
+    for p in back.model.parameters():
+        assert back.optimizer.state[p]["step"].device.type == "cuda"
+    back.run_epoch(2, num_steps=4, log_every=100)
+    assert optimizer_steps(back.optimizer) == 10
+
+
+def _optax_adam(p0, grads, lr_at, weight_decay, b1=0.9, b2=0.999,
+                eps=1e-8):
+    """The JAX package's optax chain (add_decayed_weights -> scale_by_adam
+    -> scale_by_learning_rate with the schedule at the step count before
+    the update) written out in float64 numpy: after each gradient, each
+    parameter's (value, first moment, second moment)."""
+    p = {k: v.copy() for k, v in p0.items()}
+    mu = {k: np.zeros_like(v) for k, v in p0.items()}
+    nu = {k: np.zeros_like(v) for k, v in p0.items()}
+    out = []
+    for count, g in enumerate(grads):
+        for k in p:
+            gk = g[k] + weight_decay * p[k]
+            mu[k] = b1 * mu[k] + (1 - b1) * gk
+            nu[k] = b2 * nu[k] + (1 - b2) * gk * gk
+            mu_hat = mu[k] / (1 - b1 ** (count + 1))
+            nu_hat = nu[k] / (1 - b2 ** (count + 1))
+            p[k] = p[k] - lr_at(count) * mu_hat / (np.sqrt(nu_hat) + eps)
+        out.append({k: (p[k].copy(), mu[k].copy(), nu[k].copy()) for k in p})
+    return out
+
+
+def test_card_adam_and_schedule_match_the_host_and_optax(dev):
+    """The card's optimizer (capturable, fused Adam with the device
+    schedule), stepped eagerly and as one captured step replayed per
+    gradient, over six gradients with decay boundaries at steps 2 and 4
+    (both crossed in replays): every step's rate is the JAX schedule's,
+    and the parameters and both moments after every step equal the CPU
+    form's (held to the JAX package's optax chain by
+    tests/test_torch_train.py::test_adam_and_schedule_match_jax) and the
+    optax chain written out in float64, to 1e-6. (The gradients are kept
+    away from 0, where Adam's first step, about lr * sign(g), would
+    amplify rounding.)"""
+    from hand_integral_pose_estimation_tpu_torch.config import TrainConfig
+    from hand_integral_pose_estimation_tpu_torch.training.state import (
+        make_optimizer,
+        multistep_factor,
+        multistep_schedule,
+        optimizer_steps,
+    )
+
+    tcfg = TrainConfig(lr=1e-2, lr_dec_epoch=(2, 4), lr_dec_factor=0.1,
+                       weight_decay=1e-2)
+    rng = np.random.default_rng(10)
+    p0 = {"a": rng.normal(size=(3, 4)), "b": rng.normal(size=(5,))}
+    grads = [{k: np.sign(v) * (0.5 + np.abs(v)) for k, v in
+              ((k, rng.normal(size=v.shape)) for k, v in p0.items())}
+             for _ in range(6)]
+    factor = multistep_factor(1, tcfg.lr_dec_epoch, tcfg.lr_dec_factor)
+    want = _optax_adam(p0, grads, lambda n: tcfg.lr * factor(n),
+                       tcfg.weight_decay)
+
+    def run(device, captured):
+        params = {k: torch.nn.Parameter(torch.tensor(
+            v, dtype=torch.float32, device=device)) for k, v in p0.items()}
+        opt = make_optimizer(params.values(), tcfg)
+        schedule = multistep_schedule(opt, 1, tcfg.lr_dec_epoch,
+                                      tcfg.lr_dec_factor)
+        assert opt.param_groups[0]["capturable"] == (device != "cpu")
+        for p in params.values():
+            p.grad = torch.zeros_like(p)
+
+        def step():
+            opt.step()
+            schedule.step()
+
+        graph = None
+        trace = []
+        for n, g in enumerate(grads):
+            lr = float(opt.param_groups[0]["lr"])
+            for k, p in params.items():
+                p.grad.copy_(torch.from_numpy(g[k]))
+            if captured and n > 0:
+                if graph is None:
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        step()
+                graph.replay()
+            else:
+                step()
+            trace.append((lr, {k: tuple(
+                t.detach().double().cpu().numpy() for t in (
+                    p, opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"]))
+                for k, p in params.items()}))
+        assert optimizer_steps(opt) == len(grads)
+        return trace
+
+    host = run("cpu", False)
+    for captured in (False, True):
+        card = run(dev, captured)
+        for n, ((lr, got), (lr_host, on_host), ref) in enumerate(
+                zip(card, host, want)):
+            assert lr == pytest.approx(tcfg.lr * factor(n), rel=1e-6)
+            assert lr == lr_host
+            for k in p0:
+                for name, x, y, z in zip(("param", "exp_avg", "exp_avg_sq"),
+                                         got[k], on_host[k], ref[k]):
+                    msg = f"{k} {name} after step {n}, captured {captured}"
+                    np.testing.assert_allclose(x, y, rtol=1e-6, atol=1e-6,
+                                               err_msg=msg + " (host)")
+                    np.testing.assert_allclose(x, z, rtol=1e-6, atol=1e-6,
+                                               err_msg=msg + " (optax)")

@@ -86,6 +86,44 @@ def test_tester_and_metrics_match_jax(fuse_head):
                                rtol=1e-5)
 
 
+def test_evaluator_sweeps_the_challenge_split_as_jax_does():
+    """The Evaluator's sweep over a split that carries detector boxes (the
+    challenge split's crops) against the JAX package's Evaluator with the
+    same weights: R18 at 64x64, 5 samples at batch 2 (the tail padded),
+    coords to 1e-5 and the boxes the crops used exactly, as
+    tests/test_torch_slice.py holds the Tester."""
+    from hand_integral_pose_estimation_tpu.training import (
+        Evaluator as JaxEvaluator,
+    )
+
+    cfg = Config(model=small_config(18))
+    net, variables = randomized_jax_variables(cfg.model, seed=18,
+                                              final_scale=1e-4)
+    state, _ = create_train_state(net, jax.random.PRNGKey(0),
+                                  jnp.zeros((1, 64, 64, 3)), cfg.train)
+    state = dataclasses.replace(state, params=variables["params"],
+                                batch_stats=variables["batch_stats"])
+    boxes = (np.array([32.0, 30.0, 44.0, 44.0], np.float32)
+             + np.random.default_rng(6).uniform(-4, 4, (5, 4))
+             ).astype(np.float32)
+    datasets = []
+    for cls in (JaxSynthetic, SyntheticFreiHand):
+        ds = cls(n=5, image_hw=(64, 64), seed=3, render_joints=True)
+        ds.detector_bbox = boxes
+        datasets.append(ds)
+    want, want_batch = JaxEvaluator(
+        cfg, datasets[0], state, integral_impl="xla",
+        native_prefetch=False).run(batch_size=2)
+    evaluator = training.Evaluator(cfg, datasets[1],
+                                   port_model(cfg.model, variables),
+                                   device="cpu")
+    got, batch = evaluator.run(batch_size=2)
+    assert got.shape == (5, 21, 3) and batch.image is None
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_array_equal(batch.bbox, boxes)
+    np.testing.assert_array_equal(batch.bbox, np.asarray(want_batch.bbox))
+
+
 def _snapshot_model():
     return get_pose_net(Config().model,
                         generator=torch.Generator().manual_seed(5))

@@ -678,8 +678,7 @@ def test_adam_and_schedule_match_jax():
     # resuming the schedule at step 2 gives the rate it had reached
     resumed = torch.optim.Adam(params.values(), lr=tcfg.lr)
     resumed.load_state_dict(opt.state_dict())
-    multistep_schedule(resumed, 1, tcfg.lr_dec_epoch, tcfg.lr_dec_factor,
-                       step=optimizer_steps(resumed))
+    multistep_schedule(resumed, 1, tcfg.lr_dec_epoch, tcfg.lr_dec_factor)
     assert optimizer_steps(resumed) == 3
     assert resumed.param_groups[0]["lr"] == opt.param_groups[0]["lr"]
 
@@ -710,8 +709,11 @@ def test_trainer_checkpoint_round_trip(tmp_path):
     --continue Trainer restores epoch, step, parameters, optimizer moments
     and learning rate, and its next epoch is bit-identical to the
     uninterrupted run's (the unfused arm, with the epoch-end test sweep,
-    which leaves the training state alone)."""
+    which leaves the training state alone). The schedule's boundary is at
+    step 2, where the resumed Trainer starts."""
     cfg = small_config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, lr_dec_epoch=(1,)))
     kw = dict(cfg=cfg, dataset=_dataset(), model_dir=str(tmp_path), seed=0,
               device="cpu", fuse_head=False, test_dataset=_dataset(3, 2))
     first = Trainer(**kw)
@@ -723,7 +725,12 @@ def test_trainer_checkpoint_round_trip(tmp_path):
     resumed = Trainer(continue_train=True, **kw)
     assert resumed.start_epoch == 1
     assert optimizer_steps(resumed.optimizer) == 2
-    assert resumed.scheduler.last_epoch == first.scheduler.last_epoch == 2
+    assert torch.equal(resumed.optimizer.param_groups[0]["lr"],
+                       first.optimizer.param_groups[0]["lr"])
+    assert resumed.lr_at(2) == cfg.train.lr * cfg.train.lr_dec_factor
+    # the rate is float32 on the optimizer, lr_at's a Python float
+    assert float(resumed.optimizer.param_groups[0]["lr"]) == pytest.approx(
+        resumed.lr_at(2), rel=1e-6)
     assert compare_state_dicts(resumed.model.state_dict(),
                                first.model.state_dict()) == 0.0
     for p, q in zip(resumed.model.parameters(), first.model.parameters()):
