@@ -1,9 +1,10 @@
 """Smoke test of the PyTorch / CUDA port on one GPU: the pose-serving path,
-the pose-training path and the two-stage (detector -> pose) serving path.
+the pose-training path, the two-stage (detector -> pose) serving path and
+the semi-supervised path.
 
     python3 chip_smoke.py
 
-Seven phases, each printing what it found; any failure exits non-zero
+Eight phases, each printing what it found; any failure exits non-zero
 before the result line.
 
 1. device: requires CUDA (there is no CPU fallback), prints the card, its
@@ -71,7 +72,26 @@ before the result line.
    stages and the pipeline are timed: NMS at both of `detect`'s shapes,
    its device time split into the mask and sweep launches (profile) with
    the sweep's time per 64-box block, ROIAlign beside the bytes of feature
-   taps it reads.
+   taps it reads;
+8. semi-supervised: (a) PANet at DEFAULT_DICT_SIZES (seeded) trained 200
+   steps at batch 500 on `cli.panet_data --synthetic` clouds (the loss
+   falls and stays finite; ms per step), then its forward and parameter
+   gradients at batch 500 against the same module on the CPU at float64,
+   its cameras rotations; (b) the rotation-variance filter of
+   `distill.generate_filtered_labels` with a frozen R50 teacher (seeded,
+   head scaled as in phase 4) on 8 images x 21 rotations (168 crops, the
+   CLI's batch), factored mode: the crops from kernel 5 bitwise against
+   the plain two-pass chain, the kernel-backed filter (kernels 5 and 3,
+   one launch each) against the plain-backed one, keep sets at a
+   threshold between the middle variances, `CascadeRunner`'s keep set
+   against the single pass's, ms per batch; then a pseudo-label db over
+   the student's split; (c) the student at ModelConfig() and batch 32,
+   fused arm, with the live teacher and the PANet term (lam 0.1), then
+   with the db (and the PANet term): `Trainer.fit` eagerly, then
+   scan_steps=4 replays against the same Trainer run eagerly under
+   cuDNN's deterministic algorithms (bitwise), launch counts (kernel 3
+   twice a step with the teacher, kernels 4 and 5 once), eager against
+   graph timing; the teacher and PANet unchanged.
 
 Each path's launch counts start from 0 just before the path runs and are
 read just after it; the launches in the kernels line are their sum. The
@@ -174,6 +194,24 @@ BOX_TOL_ABS, BOX_TOL_REL = 1e-4, 2.0 ** -22
 DET_BATCH = 4
 DET_SIZE = 600
 PIPE_FRAMES = 8
+# The semi-supervised phase: PANet at DEFAULT_DICT_SIZES trained on
+# cli.panet_data --synthetic clouds, the teacher sweep at the CLI's batch
+# of 8 images x 21 rotations, the student's PANet weight.
+PANET_CLOUDS = 5000
+PANET_BATCH = 500
+PANET_STEPS = 200
+SWEEP_BATCH = 8
+LAM = 0.1
+# PANet on the card takes float32 inputs and weights where the CPU copy
+# runs float64; the cameras are formed in float64 from the float32
+# estimator output on both. Float32 rounding (~6e-8) through seven
+# layers and the closest rotation: 1e-4 of the largest output; gradients
+# sum over 500 samples and pass the rotation's 1 / (s_i + s_j): 1e-3.
+PANET_TOL = 1e-4
+PANET_GRAD_TOL = 1e-3
+# rows whose variance lies this close to the threshold may flip between
+# the kernel-backed and the plain-backed sweep; the run counts them
+KEEP_MARGIN = 1e-3
 # the card's published peaks (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -701,6 +739,10 @@ def detection_phase(dev, g, card, cfg):
     from hand_integral_pose_estimation_tpu_torch.config import DetectorConfig
     from hand_integral_pose_estimation_tpu_torch.data import (
         SyntheticFreiHand,
+        apply_filtered_labels,
+    )
+    from hand_integral_pose_estimation_tpu_torch.data.detector_db import (
+        _record_names,
     )
     from hand_integral_pose_estimation_tpu_torch.detect import (
         build_detector,
@@ -1046,6 +1088,368 @@ def detection_phase(dev, g, card, cfg):
         "roi_align": (worst_roi, t_roi, roi_bound),
         "nms": (float(worst_nms), t_nms, nms_bound),
     }
+
+
+def semi_supervised_phase(dev, g, card, cfg):
+    """Phase 8: PANet on the card against the CPU and trained; the teacher
+    sweep kernel-backed against plain-backed, and its cascade; the student
+    with a live teacher and the PANet term, then with a pseudo-label db,
+    eager and as graph replays. Returns the launches of the phase's main
+    runs (the PANet training, the kernel-backed sweeps, the student's
+    counted and replayed steps)."""
+    from hand_integral_pose_estimation_tpu_torch.cli import panet_data
+    from hand_integral_pose_estimation_tpu_torch.data import (
+        SyntheticFreiHand,
+        apply_filtered_labels,
+    )
+    from hand_integral_pose_estimation_tpu_torch.data.detector_db import (
+        _record_names,
+    )
+    from hand_integral_pose_estimation_tpu_torch.distill import (
+        CascadeRunner,
+        generate_filtered_labels,
+        sweep_patches,
+    )
+    from hand_integral_pose_estimation_tpu_torch.distill.teacher_labels \
+        import camera_project
+    from hand_integral_pose_estimation_tpu_torch.geometry import bbox as bb
+    from hand_integral_pose_estimation_tpu_torch.models import (
+        get_pose_net,
+        panet,
+    )
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
+    from hand_integral_pose_estimation_tpu_torch.ops.fused_head import (
+        head_projection_integral_reference,
+    )
+    from hand_integral_pose_estimation_tpu_torch.training import Trainer
+    from hand_integral_pose_estimation_tpu_torch.training.panet_trainer \
+        import train_panet
+    from hand_integral_pose_estimation_tpu_torch.training.teacher import (
+        frozen_teacher,
+    )
+
+    launches = {k.symbol: 0 for k in kernels.KERNELS}
+    J, D = cfg.model.num_joints, cfg.model.depth_dim
+    IH, IW = cfg.model.input_shape
+    fwd, bwd, warp = (kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+                      kernels.HEAD_PROJECTION_INTEGRAL_BWD,
+                      kernels.WARP_TWOPASS)
+
+    def reset():
+        for k in kernels.KERNELS:
+            k.launches = 0
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # (a) PANet at DEFAULT_DICT_SIZES: clouds from cli.panet_data
+    # --synthetic, trained on the card, then its forward and gradient at
+    # batch 500 against the same module on the CPU at float64
+    with tempfile.TemporaryDirectory() as tmp:
+        train_pts, test_pts = panet_data.main([
+            "--synthetic", "--synthetic-size", str(PANET_CLOUDS),
+            "--out-dir", tmp, "--device", "cuda"])
+    train_pts = train_pts - train_pts.mean(1, keepdims=True)
+    test_pts = test_pts - test_pts.mean(1, keepdims=True)
+    prior = panet.PANet(generator=torch.Generator().manual_seed(SEED)).to(dev)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_panet(prior, train_pts, test_pts, num_steps=PANET_STEPS,
+                      batch_size=PANET_BATCH, eval_every=PANET_STEPS // 4,
+                      seed=SEED)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / PANET_STEPS * 1e3
+    add({k.symbol: k.launches for k in kernels.KERNELS})
+    losses_ = [round(float(v), 6) for v in res.train_losses]
+    print(f"[semi] PANet {panet.DEFAULT_DICT_SIZES} trained {PANET_STEPS} "
+          f"steps at batch {PANET_BATCH} on {len(train_pts)} cli.panet_data "
+          f"--synthetic clouds: mean train loss per {PANET_STEPS // 4} "
+          f"steps {losses_}, val {[round(float(v), 6) for v in res.val_losses]}"
+          f"; {per_step:.3f} ms/step (host clock, eager) on {card}",
+          flush=True)
+    check(bool(np.isfinite(res.train_losses).all())
+          and res.train_losses[-1] < res.train_losses[0],
+          f"PANet training did not lower its loss: {losses_}")
+    cpu = panet.PANet()
+    cpu.load_state_dict({k: v.cpu() for k, v in prior.state_dict().items()})
+    cpu = cpu.double()
+    pts = torch.from_numpy(test_pts[:PANET_BATCH]).double()
+    with torch.no_grad():
+        want = cpu(pts)
+        got = prior(pts.float().to(dev))
+    err_fwd = max(float((x.double().cpu() - w).abs().max())
+                  / float(w.abs().max()) for x, w in zip(got, want))
+    panet.panet_loss(cpu, pts)[0].backward()
+    prior.zero_grad()
+    panet.panet_loss(prior, pts.float().to(dev))[0].backward()
+    err_grad = max(float((pg.grad.double().cpu() - pc.grad).abs().max())
+                   / max(float(pc.grad.abs().max()), 1e-30)
+                   for pc, pg in zip(cpu.parameters(), prior.parameters()))
+    cam = got[2].detach().double()
+    orth = float((cam @ cam.mT - torch.eye(3, device=dev,
+                                           dtype=cam.dtype)).abs().max())
+    det = float((torch.linalg.det(cam) - 1).abs().max())
+    print(f"[semi] PANet on the card (float32) vs the CPU (float64) at batch "
+          f"{PANET_BATCH}: outputs max|d| / max {err_fwd:.3e} (tol "
+          f"{PANET_TOL:g}), parameter gradients {err_grad:.3e} (tol "
+          f"{PANET_GRAD_TOL:g}); cameras |R R^T - I| {orth:.2e}, |det - 1| "
+          f"{det:.2e}", flush=True)
+    check(err_fwd <= PANET_TOL and err_grad <= PANET_GRAD_TOL,
+          "PANet on the card disagrees with the CPU")
+    check(orth <= 1e-5 and det <= 1e-5, "PANet cameras are not rotations")
+    prior.zero_grad(set_to_none=True)
+    prior.requires_grad_(False)
+    recon = panet.panet_reconstruction_fn(prior)
+
+    # (b) the teacher sweep: a frozen R50 teacher (seeded, head scaled as in
+    # phase 4) over 8 images x 21 rotations (168 crops), factored mode
+    train_data = SyntheticFreiHand(n=2 * BATCH, render_joints=True,
+                                   seed=SEED)
+    teacher_net = get_pose_net(
+        cfg.model, generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
+    teacher = frozen_teacher(teacher_net, cfg)
+
+    def sweep_inputs(idx, data=train_data):
+        host = data.host_batch(idx)
+        images, K, joints, labelled = (
+            torch.from_numpy(np.ascontiguousarray(host[k])).to(dev)
+            for k in ("image", "K", "joint_cam", "labelled"))
+        uv, _, _ = camera_project(joints, K)
+        box = bb.bbox_from_keypoints(uv, torch.ones_like(uv[..., 0]),
+                                     pad_factor=cfg.augment.pad_factor)
+        return images, K, box, labelled, joints
+
+    args = sweep_inputs(np.arange(SWEEP_BATCH))
+    thetas = np.linspace(-cfg.train.teacher_rotation_range,
+                         cfg.train.teacher_rotation_range,
+                         cfg.train.teacher_num_rotations)
+    patch_args = (args[0], args[1], args[2], cfg.augment, thetas,
+                  cfg.train.teacher_rotation_range, (IH, IW))
+    with torch.no_grad():
+        scale_projection(teacher_net, sweep_patches(*patch_args)[:BATCH])
+    fast = sweep_patches(*patch_args)
+    plain = sweep_patches(*patch_args, method="twopass")
+    same = torch.equal(fast, plain)
+    print(f"[semi] sweep crops {tuple(fast.shape)} (float32 320^2 bases -> "
+          f"224^2, kernel 5 with its epilogue) bitwise equal to the plain "
+          f"two-pass chain: {same}", flush=True)
+    check(same, "the sweep's crops differ from the plain chain's")
+    del fast, plain
+
+    def plain_teacher(patches):
+        feats = teacher_net(patches, return_features=True)
+        w, b = teacher_net.final_projection()
+        return head_projection_integral_reference(feats, w, b, J, D)[0]
+
+    unl = torch.zeros_like(args[3])
+    with torch.no_grad():
+        want = generate_filtered_labels(plain_teacher, args[0], args[1],
+                                        args[2], unl, args[4],
+                                        method="twopass")
+    var = want.variance.sort().values
+    mid = SWEEP_BATCH // 2
+    threshold = float((var[mid - 1] * var[mid]).sqrt())
+    reset()
+    got = generate_filtered_labels(teacher, args[0], args[1], args[2], unl,
+                                   args[4], variance_threshold=threshold)
+    torch.cuda.synchronize()
+    counts = {k.symbol: k.launches for k in kernels.KERNELS}
+    add(counts)
+    err_sweep = float((got.per_rotation - want.per_rotation).abs().max())
+    near = int((torch.abs(want.variance / threshold - 1) < KEEP_MARGIN).sum())
+    keep_want = want.variance < threshold
+    print(f"[semi] teacher sweep, {SWEEP_BATCH} x "
+          f"{len(thetas)} crops, kernel-backed vs plain-backed: per-rotation "
+          f"camera coords max|d| {err_sweep:.3e} (tol {COORD_TOL:g}); keep "
+          f"set at a threshold {threshold:.3e} between the middle variances "
+          f"{got.keep.int().tolist()} vs {keep_want.int().tolist()} ({near} "
+          f"rows within {KEEP_MARGIN:g} of it); launches {counts}",
+          flush=True)
+    check(err_sweep <= COORD_TOL, "the kernel-backed sweep disagrees")
+    check(counts == {k.symbol: int(k in (fwd, warp))
+                     for k in kernels.KERNELS},
+          f"sweep launches {counts}, expected one of kernels 3 and 5")
+    check(near == 0 and torch.equal(got.keep, keep_want)
+          and 0 < int(keep_want.sum()) < SWEEP_BATCH,
+          "the kernel-backed keep set differs from the plain one")
+    runner = CascadeRunner(teacher, cfg.augment, variance_threshold=threshold,
+                           pass2_batch=SWEEP_BATCH, device=dev)
+    runner.add_batch(args[0], args[1], args[2], unl, args[4],
+                     rows=np.arange(SWEEP_BATCH))
+    merged = runner.finalize(SWEEP_BATCH)
+    print(f"[semi] CascadeRunner (5 rotations in pass 1): keep "
+          f"{merged['keep'].astype(int).tolist()}, stats {runner.stats}",
+          flush=True)
+    check(np.array_equal(merged["keep"], got.keep.cpu().numpy()),
+          "the cascade's keep set differs from the single pass's")
+
+    def sweep():
+        generate_filtered_labels(teacher, *args[:3], unl, args[4])
+
+    sweep()
+    times = [event_ms(sweep, 1) for _ in range(5)]
+    busy, rows = device_profile(sweep, 3)
+    warp_ms = sum(ms for key, ms, _ in rows if "warp_kernel" in key)
+    print(f"[semi] teacher sweep per batch of {SWEEP_BATCH} x {len(thetas)} "
+          f"crops: median {statistics.median(times):.3f} ms (events, min "
+          f"{min(times):.3f}); device busy {busy:.3f} ms, of which kernel 5 "
+          f"{warp_ms:.3f} ms; on {card}", flush=True)
+
+    # the pseudo-label db over the student's split as records (the
+    # synthetic samples' images in memory for the JPEGs), in the CLI's
+    # schema, attached as `--filtered-db` attaches it
+    filtered = train_data.as_records(cfg)
+    out = {k: [] for k in ("joint_cam_normalized", "tprime", "variance",
+                           "keep", "labelled")}
+    reset()
+    for start in range(0, len(filtered), SWEEP_BATCH):
+        a = sweep_inputs(np.arange(start, start + SWEEP_BATCH), filtered)
+        r = generate_filtered_labels(teacher, *a, variance_threshold=threshold)
+        for k in ("joint_cam_normalized", "tprime", "variance", "keep"):
+            out[k].append(getattr(r, k).cpu().numpy())
+        out["labelled"].append(a[3].cpu().numpy())
+    add({k.symbol: k.launches for k in kernels.KERNELS})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "filtered.npz")
+        np.savez(path, name=_record_names(filtered),
+                 **{k: np.concatenate(v) for k, v in out.items()})
+        apply_filtered_labels(filtered, path)
+    print(f"[semi] pseudo-label db over {len(train_data)} samples: "
+          f"{len(filtered)} kept ({filtered.num_labelled} labelled)",
+          flush=True)
+    check(0 < len(filtered) < len(train_data), "the db keeps all or none")
+
+    # (c) the student at batch 32, fused arm: a live teacher and the PANet
+    # term, then the pseudo-label db (with the PANet term); a few eager
+    # steps, then scan_steps=4 replays against the same Trainer eagerly
+    scfg = cfg.replace(train=dataclasses.replace(cfg.train, lam=LAM))
+    frozen_before = {k: v.clone() for k, v in (
+        *teacher_net.state_dict().items(), *prior.state_dict().items())}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    probe = None
+    for arm, data, t_apply in (("live teacher", train_data, teacher),
+                               ("pseudo-label db", filtered, None)):
+        kw = dict(cfg=scfg, dataset=data, seed=SEED, device=dev,
+                  teacher_apply=t_apply, panet_apply=recon)
+        with tempfile.TemporaryDirectory() as model_dir:
+            trainer = Trainer(model_dir=model_dir, **kw)
+            trainer.graphs = None
+            batch = trainer.preprocess(gen, data.host_batch(np.arange(BATCH)))
+            if probe is None:
+                probe = batch.image
+            scale_projection(trainer.model, probe)
+            step_losses = []
+            inner = trainer.train_step
+
+            def recording_step(b):
+                out = inner(b)
+                step_losses.append(out["loss"])
+                return out
+
+            trainer.train_step = recording_step
+            reset()
+            trainer.fit(end_epoch=1, steps_per_epoch=TRAIN_STEPS)
+            torch.cuda.synchronize()
+            trainer.train_step = inner
+            counts = {k.symbol: k.launches for k in kernels.KERNELS}
+            add(counts)
+            n_fwd = 2 if t_apply is not None else 1
+            want_counts = {k.symbol: TRAIN_STEPS * (
+                n_fwd if k is fwd else int(k in (bwd, warp)))
+                for k in kernels.KERNELS}
+            losses_host = [float(v) for v in step_losses]
+            print(f"[semi] student, {arm}, PANet term (lam {LAM}): "
+                  f"Trainer.fit took {TRAIN_STEPS} eager steps at batch "
+                  f"{BATCH}, losses {[round(v, 5) for v in losses_host]}, "
+                  f"launches {counts}", flush=True)
+            check(counts == want_counts, f"{arm}: launches {counts}, "
+                  f"expected {want_counts}")
+            check(all(math.isfinite(v) for v in losses_host),
+                  f"{arm}: losses {losses_host}")
+
+            torch.backends.cudnn.deterministic = True
+            twins = {}
+            for graphs in (False, True):
+                twin = Trainer(model_dir=model_dir, scan_steps=GRAPH_CHUNK,
+                               **kw)
+                if not graphs:
+                    twin.graphs = None
+                scale_projection(twin.model, probe)
+                twins[graphs] = twin
+            reset()
+            twins[True].fit(end_epoch=1, steps_per_epoch=GRAPH_STEPS)
+            torch.cuda.synchronize()
+            counts = path_launches(twins[True].graphs)
+            add(counts)
+            twins[False].run_epoch(0, num_steps=GRAPH_STEPS)
+            torch.backends.cudnn.deterministic = False
+            want_counts = {k.symbol: GRAPH_STEPS * (
+                n_fwd if k is fwd else int(k in (bwd, warp)))
+                for k in kernels.KERNELS}
+            (graph,) = twins[True].graphs.graphs.values()
+            nodes = kernels.graph_launches(graph)
+            state_g = training_state(twins[True])
+            state_e = training_state(twins[False])
+            differ = [k for k in state_e
+                      if not torch.equal(state_g[k], state_e[k])]
+            print(f"[semi] student, {arm}: scan_steps={GRAPH_CHUNK}, "
+                  f"{GRAPH_STEPS} steps, kernel nodes of the captured chunk "
+                  f"{nodes}, launches {counts}; against the eager twin "
+                  f"{len(state_e) - len(differ)} of {len(state_e)} tensors "
+                  f"bitwise equal", flush=True)
+            check(counts == want_counts, f"{arm}: graph launches {counts}, "
+                  f"expected {want_counts}")
+            check(not differ, f"{arm}: replayed steps differ at {differ[:5]}")
+            del twins, twin
+
+            # timing: the eager step, then a graph Trainer back to back,
+            # against phase 5's fused arm
+            host_batch = data.host_batch(np.arange(BATCH))
+
+            def step():
+                trainer.train_step(trainer.preprocess(gen, host_batch))
+
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.run_epoch(1, num_steps=TIME_STEPS)
+            torch.cuda.synchronize()
+            eager_b2b = (time.perf_counter() - t0) / TIME_STEPS * 1e3
+            gtrainer = Trainer(model_dir=model_dir, scan_steps=GRAPH_CHUNK,
+                               **kw)
+            scale_projection(gtrainer.model, probe)
+            gtrainer.run_epoch(0, num_steps=2 * GRAPH_CHUNK)
+            t0 = time.perf_counter()
+            gtrainer.run_epoch(1, num_steps=TIME_STEPS)
+            torch.cuda.synchronize()
+            per_g = (time.perf_counter() - t0) / TIME_STEPS * 1e3
+            print(f"[semi] student, {arm}: Trainer.run_epoch back to back "
+                  f"{eager_b2b:.3f} ms/step eager, {per_g:.3f} ms/step as "
+                  f"scan_steps={GRAPH_CHUNK} replays, on {card}", flush=True)
+            (graph,) = gtrainer.graphs.graphs.values()
+            rng = np.random.RandomState(SEED)
+            hosts = [data.host_batch(data.sample_indices(rng, BATCH))
+                     for _ in range(GRAPH_CHUNK)]
+            chunk = {k: None if hosts[0][k] is None
+                     else np.stack([h[k] for h in hosts]) for k in hosts[0]}
+            compare_graph_timing(
+                f"semi-supervised train step, {arm}, batch {BATCH}", "step",
+                step, graph.replay, lambda: gtrainer.graphs(chunk),
+                eager_b2b, GRAPH_CHUNK, card, n=5)
+            del trainer, gtrainer, graph, batch
+            torch.cuda.empty_cache()
+    after = {**teacher_net.state_dict(), **prior.state_dict()}
+    moved = [k for k, v in frozen_before.items() if not torch.equal(after[k],
+                                                                    v)]
+    print(f"[semi] teacher and PANet weights and statistics unchanged by "
+          f"the student's steps: {not moved}; teacher in eval mode: "
+          f"{not teacher_net.training}", flush=True)
+    check(not moved and not teacher_net.training,
+          f"the frozen teacher or PANet moved: {moved[:5]}")
+    return launches
 
 
 def main() -> None:
@@ -1750,6 +2154,9 @@ def main() -> None:
     # ---- 7. the two-stage (detector -> pose) serving path
     det_launches, det = detection_phase(dev, g, card, cfg)
 
+    # ---- 8. the semi-supervised path
+    semi_launches = semi_supervised_phase(dev, g, card, cfg)
+
     pkg = "hand_integral_pose_estimation_tpu_torch/csrc/"
     ref = "hand_integral_pose_estimation_tpu/ops/"
     meta = {
@@ -1782,7 +2189,7 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": pkg + src,
          "replaces": ref + tpu,
          "launches": (serving_launches[k.symbol] + train_launches[k.symbol]
-                      + det_launches[k.symbol]),
+                      + det_launches[k.symbol] + semi_launches[k.symbol]),
          "max_abs_err": err[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}

@@ -2,19 +2,21 @@
 
 A second package beside the JAX reference `hand_integral_pose_estimation_tpu`,
 written in PyTorch for one NVIDIA Hopper GPU. It ports the pose-serving,
-pose-training and two-stage serving paths: the eval crop and the training
-augmentation (`data/pipeline.py`, `geometry/`), the ResNet + deconv pose
-net (`models/`), the fused projection + soft-argmax decode, the plain
-soft-argmax decode, their backwards, the two-pass warp, NMS and ROIAlign
-(`ops/`, with hand-written CUDA kernels in `csrc/`), the Faster R-CNN hand
-detector (`detect/`) and the detector -> crop -> pose pipeline
-(`inference.py`), the losses, Adam with the step schedule, checkpoints
-and CUDA-graph replay of the train chunks and eval batches (`losses.py`,
-`training/`), the PA-MPJPE / MPJPE evaluation, the challenge dump and the
-offline PCK / AUC scorer (`evaluation/`) and the metrics writer
-(`utils/`), driven by `training.Trainer`, `training.Tester`,
-`training.Evaluator`, `inference.TwoStagePipeline` and `cli/{train,test,
-evaluate,score}.py`.
+pose-training, two-stage serving and semi-supervised paths: the synthetic
+and the file-backed FreiHAND splits with the native JPEG decoder, the eval
+crop and the training augmentation (`data/`, `geometry/`), the ResNet +
+deconv pose net and PANet (`models/`), the fused projection + soft-argmax
+decode, the plain soft-argmax decode, their backwards, the two-pass warp,
+NMS and ROIAlign (`ops/`, with hand-written CUDA kernels in `csrc/`), the
+Faster R-CNN hand detector (`detect/`) and the detector -> crop -> pose
+pipeline (`inference.py`), the losses, Adam with the step schedule,
+checkpoints, CUDA-graph replay of the train chunks and eval batches, the
+frozen teacher and the PANet trainer (`losses.py`, `training/`), the
+rotation-variance teacher labels and their cascade (`distill/`), the
+PA-MPJPE / MPJPE evaluation, the challenge dump and the offline PCK / AUC
+scorer (`evaluation/`) and the metrics writer (`utils/`), driven by
+`training.Trainer`, `training.Tester`, `training.Evaluator`,
+`inference.TwoStagePipeline` and `cli/`.
 
 Public layouts follow the JAX package so the two compare like with like:
 images NHWC (B, H, W, 3), features (B, H, W, F), heatmap channel

@@ -3,8 +3,8 @@
 Sweeps the label-free evaluation split and writes pred.json
 ([xyz_list, verts_list]) for the challenge server, plus
 evaluation_predictions.npy. Port of
-hand_integral_pose_estimation_tpu/cli/evaluate.py for the synthetic split
-on one device:
+hand_integral_pose_estimation_tpu/cli/evaluate.py on one device, on the
+synthetic split or the evaluation split of a FreiHAND tree (`--data-dir`):
 
     python -m hand_integral_pose_estimation_tpu_torch.cli.evaluate \
         --synthetic --use-detector --device cuda
@@ -19,12 +19,14 @@ runs `inference.TwoStagePipeline` (detect -> crop -> pose). A matching
 `--bbox-db` cache skips the detector and the pose net crops with the
 cached boxes, as the reference's pickle cache does (FreiHand.py:286-293);
 after a detector sweep the boxes are written there. Without the detector
-the synthetic split crops with the boxes of its projected joints.
+the synthetic split crops with the boxes of its projected joints; the
+evaluation split has no joints, so there the detector always runs (or its
+cached boxes crop).
 
 Detector weights are random from `--seed` unless `--detector-ckpt` names a
 reference faster_rcnn_*.pth; the pose net's come from the latest
 snapshot under `--model-dir` (or `--evaluate-epoch`) when there is one.
-The file-backed split, `--mesh` and `--int8` come with later ports.
+`--mesh` and `--int8` come with later ports.
 """
 
 from __future__ import annotations
@@ -39,9 +41,10 @@ def build_argparser():
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--data-dir", default=None,
+                   help="FreiHAND root (evaluation_K.json etc.)")
     p.add_argument("--synthetic", action="store_true",
-                   help="evaluate on SyntheticFreiHand (required: the "
-                        "file-backed split is not ported yet)")
+                   help="evaluate on SyntheticFreiHand instead of --data-dir")
     p.add_argument("--synthetic-size", type=int, default=64)
     p.add_argument("--model-dir", default="output/model_dump")
     p.add_argument("--result-dir", default="output/result/evaluation")
@@ -131,9 +134,6 @@ def resolve_detector_cfg(args, base):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit("only --synthetic is supported: the file-backed "
-                         "FreiHAND split is not ported yet")
     if args.mesh is not None:
         raise SystemExit("--mesh is not ported: multi-GPU sweeps come with "
                          "ROADMAP Queue 1 step 13")
@@ -147,9 +147,9 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from hand_integral_pose_estimation_tpu_torch.cli.train import load_split
     from hand_integral_pose_estimation_tpu_torch.config import Config
     from hand_integral_pose_estimation_tpu_torch.data import (
-        SyntheticFreiHand,
         detector_db,
         padded_batches,
     )
@@ -170,8 +170,9 @@ def main(argv=None):
             cfg.model, resnet_type=args.pose_resnet, input_shape=(hw, hw),
             output_shape=(hw // 4, hw // 4),
             depth_dim=args.pose_depth or hw // 4))
-    dataset = SyntheticFreiHand(n=args.synthetic_size)
-    use_detector = args.use_detector
+    dataset = load_split(args, cfg, "evaluation")
+    # the evaluation split has no joints to crop around
+    use_detector = args.use_detector or not args.synthetic
 
     model = get_pose_net(cfg.model,
                          generator=torch.Generator().manual_seed(args.seed))

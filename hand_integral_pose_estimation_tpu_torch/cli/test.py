@@ -2,8 +2,10 @@
 
 Sweeps the test split with a pose net, collects integral coords and runs
 the protocol #1 / #2 pipeline (PA-MPJPE / MPJPE) with its artifact dumps.
-Port of hand_integral_pose_estimation_tpu/cli/test.py for the synthetic
-split; the file-backed FreiHAND split comes with a later port.
+Port of hand_integral_pose_estimation_tpu/cli/test.py, on the synthetic
+split or the testing split of a FreiHAND tree (`--data-dir`, with
+`--training-size` for a partial download: the testing split starts after
+the training split).
 
     python -m hand_integral_pose_estimation_tpu_torch.cli.test --synthetic \
         --torch-snapshot snapshot_24.pth --device cuda
@@ -23,10 +25,13 @@ import argparse
 def build_argparser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--data-dir", default=None,
+                   help="FreiHAND root (training_K.json etc.)")
     p.add_argument("--synthetic", action="store_true",
-                   help="evaluate on SyntheticFreiHand (required: the "
-                        "file-backed split is not ported yet)")
+                   help="evaluate on SyntheticFreiHand instead of --data-dir")
     p.add_argument("--synthetic-size", type=int, default=64)
+    p.add_argument("--training-size", type=int, default=None,
+                   help="override cfg.train.training_size")
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--result-dir", default="output/result")
     p.add_argument("--torch-snapshot", default=None,
@@ -48,16 +53,13 @@ def build_argparser():
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit("only --synthetic is supported: the file-backed "
-                         "FreiHAND split is not ported yet")
 
     import torch
 
     from hand_integral_pose_estimation_tpu_torch.cli.train import (
+        load_split,
         sized_config,
     )
-    from hand_integral_pose_estimation_tpu_torch.data import SyntheticFreiHand
     from hand_integral_pose_estimation_tpu_torch.evaluation import (
         evaluate_test_split,
     )
@@ -71,7 +73,9 @@ def main(argv=None):
     )
 
     cfg = sized_config(args.pose_resnet, args.pose_input)
-    dataset = SyntheticFreiHand(n=args.synthetic_size)
+    if args.training_size:
+        cfg = cfg.with_training_size(args.training_size)
+    dataset = load_split(args, cfg, "testing")
     model = get_pose_net(cfg.model,
                          generator=torch.Generator().manual_seed(args.seed))
     if args.torch_snapshot:

@@ -6,12 +6,22 @@
         --epochs 1 --steps-per-epoch 2 --pose-resnet 18 --pose-input 64 \
         --batch-size 4 --device cpu
 
-Port of hand_integral_pose_estimation_tpu/cli/train.py for the synthetic
-split on one device. Snapshots go to `--model-dir` as
-`snapshot_{epoch}.pth.tar`; `cli.test --model-dir` evaluates them. The
-file-backed FreiHAND split, the detector boxes, the filtered pseudo-label
-db, the live teacher, PANet, the ImageNet init, the device mesh and the YUV
-transport come with later ports.
+    python -m hand_integral_pose_estimation_tpu_torch.cli.train \
+        --data-dir /path/to/FreiHAND --teacher-ckpt output/teacher \
+        --panet-ckpt output/panet/model_best.pth --lam 0.1 --device cuda
+
+Port of hand_integral_pose_estimation_tpu/cli/train.py on one device, on
+the synthetic split or a FreiHAND download (`--data-dir`, with
+`--training-size` for a partial one). Snapshots go to `--model-dir` as
+`snapshot_{epoch}.pth.tar`; `cli.test --model-dir` evaluates them.
+
+The semi-supervised recipe (main/train.py:83-99): `--filtered-db` attaches
+the pseudo-labels of `cli.generate_teacher_labels` to a file-backed split
+and keeps only the accepted records; `--teacher-ckpt` runs a frozen
+teacher on every batch instead; given both, the cached pseudo-labels win,
+as in the reference. `--panet-ckpt` adds the PANet prior term, weighted by
+`--lam`. The detector boxes, the ImageNet init, the device mesh and the
+YUV transport come with later ports.
 """
 
 from __future__ import annotations
@@ -22,10 +32,14 @@ import argparse
 def build_argparser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--data-dir", default=None,
+                   help="FreiHAND root (training_K.json etc.)")
     p.add_argument("--synthetic", action="store_true",
-                   help="train on SyntheticFreiHand (required: the "
-                        "file-backed split is not ported yet)")
+                   help="train on SyntheticFreiHand instead of --data-dir")
     p.add_argument("--synthetic-size", type=int, default=256)
+    p.add_argument("--training-size", type=int, default=None,
+                   help="override cfg.train.training_size (partial "
+                        "downloads, mini fixtures)")
     p.add_argument("--model-dir", default="output/model_dump")
     p.add_argument("--epochs", type=int, default=None,
                    help="end epoch (default: cfg.train.end_epoch)")
@@ -35,12 +49,26 @@ def build_argparser():
                    help="resume from the latest snapshot (base.py:62-71)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--test-sweep", action="store_true",
-                   help="epoch-end average-loss sweep over a synthetic test "
+                   help="epoch-end average-loss sweep over the testing "
                         "split (main/train.py:140-163)")
     p.add_argument("--pose-resnet", type=int, default=None)
     p.add_argument("--pose-input", type=int, default=None,
                    help="square input size; the heatmap is input/4 wide "
                         "and input/4 deep")
+    p.add_argument("--filtered-db", default=None,
+                   help="npz pseudo-label db from cli.generate_teacher_labels"
+                        " (FreiHand.load_filtered_data, FreiHand.py:343-371);"
+                        " needs --data-dir")
+    p.add_argument("--teacher-ckpt", default=None,
+                   help="model dir of cli.train snapshots, or a reference "
+                        "snapshot_*.pth, for the frozen live teacher "
+                        "(load_regressor_teacher, base.py:117-128)")
+    p.add_argument("--teacher-epoch", type=int, default=None)
+    p.add_argument("--panet-ckpt", default=None,
+                   help="PANet weights (.pth) for the NRSfM prior term "
+                        "(load_nrsfm_tester, base.py:111)")
+    p.add_argument("--lam", type=float, default=None,
+                   help="PANet loss weight (cfg._lambda, config.py:50)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--unfused-head", action="store_true",
                    help="decode the materialised heatmap (kernels 1 and 2) "
@@ -70,26 +98,81 @@ def sized_config(pose_resnet=None, pose_input=None, batch_size=None):
     return cfg
 
 
+def load_split(args, cfg, split: str, synthetic_seed: int = 0,
+               synthetic_size=None):
+    """The dataset the CLI flags name: SyntheticFreiHand with
+    `--synthetic`, else the `split` of the FreiHAND tree at `--data-dir`."""
+    from hand_integral_pose_estimation_tpu_torch.data import (
+        FreiHandDataset,
+        SyntheticFreiHand,
+    )
+
+    if args.synthetic:
+        return SyntheticFreiHand(n=synthetic_size or args.synthetic_size,
+                                 seed=synthetic_seed)
+    if not args.data_dir:
+        raise SystemExit("give --data-dir (a FreiHAND tree) or --synthetic")
+    return FreiHandDataset(args.data_dir, split, cfg)
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit("only --synthetic is supported: the file-backed "
-                         "FreiHAND split is not ported yet")
 
+    import dataclasses
     import logging
 
-    from hand_integral_pose_estimation_tpu_torch.data import SyntheticFreiHand
     from hand_integral_pose_estimation_tpu_torch.training import Trainer
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     cfg = sized_config(args.pose_resnet, args.pose_input, args.batch_size)
-    dataset = SyntheticFreiHand(n=args.synthetic_size)
-    test_dataset = (SyntheticFreiHand(n=32, seed=1)
+    if args.lam is not None:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, lam=args.lam))
+    if args.training_size:
+        cfg = cfg.with_training_size(args.training_size)
+    dataset = load_split(args, cfg, "training")
+    test_dataset = (load_split(args, cfg, "testing", synthetic_seed=1,
+                               synthetic_size=32)
                     if args.test_sweep else None)
+
+    if args.filtered_db:
+        if not hasattr(dataset, "records"):
+            raise SystemExit("--filtered-db needs a record-backed dataset "
+                             "(--data-dir), not --synthetic")
+        from hand_integral_pose_estimation_tpu_torch.data import (
+            apply_filtered_labels,
+        )
+        apply_filtered_labels(dataset, args.filtered_db)
+        print(f"filtered db: {len(dataset)} kept samples "
+              f"({dataset.num_labelled} labelled)")
+
+    teacher_apply = None
+    if args.teacher_ckpt and args.filtered_db:
+        print("--filtered-db provides cached pseudo-labels; ignoring "
+              "--teacher-ckpt for the teacher loss term")
+    elif args.teacher_ckpt:
+        from hand_integral_pose_estimation_tpu_torch.training.teacher import (
+            make_frozen_teacher,
+        )
+        teacher_apply = make_frozen_teacher(cfg, args.teacher_ckpt,
+                                            args.teacher_epoch, args.device)
+        print(f"frozen teacher loaded from {args.teacher_ckpt}")
+
+    panet_apply = None
+    if args.panet_ckpt:
+        from hand_integral_pose_estimation_tpu_torch.models.panet import (
+            load_panet,
+            panet_reconstruction_fn,
+        )
+        panet = load_panet(args.panet_ckpt).to(args.device)
+        panet_apply = panet_reconstruction_fn(panet.requires_grad_(False))
+        print(f"PANet prior loaded from {args.panet_ckpt} "
+              f"(lambda = {cfg.train.lam})")
+
     trainer = Trainer(cfg=cfg, dataset=dataset, model_dir=args.model_dir,
                       continue_train=args.continue_train, seed=args.seed,
                       test_dataset=test_dataset, device=args.device,
-                      fuse_head=not args.unfused_head)
+                      fuse_head=not args.unfused_head,
+                      teacher_apply=teacher_apply, panet_apply=panet_apply)
     trainer.fit(end_epoch=args.epochs, steps_per_epoch=args.steps_per_epoch)
     return trainer
 

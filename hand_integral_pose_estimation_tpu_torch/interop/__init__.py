@@ -2,6 +2,7 @@
 
 from hand_integral_pose_estimation_tpu_torch.interop.jax_params import (  # noqa: F401
     detector_state_dict_from_jax,
+    panet_state_dict_from_jax,
     pose_state_dict_from_jax,
 )
 from hand_integral_pose_estimation_tpu_torch.interop.snapshot import (  # noqa: F401

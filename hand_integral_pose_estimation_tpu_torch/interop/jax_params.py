@@ -1,8 +1,10 @@
-"""JAX variables -> this package's `state_dict`s: the pose net and the
-Faster R-CNN detector.
+"""JAX variables -> this package's `state_dict`s: the pose net, the
+Faster R-CNN detector and PANet.
 
 The inverses of `convert_pose_snapshot` and `convert_faster_rcnn_state_dict`
-in hand_integral_pose_estimation_tpu/interop/torch_weights.py. They read the
+in hand_integral_pose_estimation_tpu/interop/torch_weights.py and of
+`convert_torch_state_dict` in hand_integral_pose_estimation_tpu/models/
+panet.py. They read the
 JAX package's `{"params": ..., "batch_stats": ...}` trees as nested dicts
 of arrays (numpy, or anything `np.asarray` accepts) and never import jax.
 
@@ -106,6 +108,27 @@ def pose_state_dict_from_jax(variables: Mapping[str, Any]
         i += 1
     sd["head.final_layer.weight"] = _conv(hp["final"]["kernel"])
     sd["head.final_layer.bias"] = _t(hp["final"]["bias"])
+    return sd
+
+
+def panet_state_dict_from_jax(params: Mapping[str, Any]
+                              ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX `PANet` params (`dict{i}`, `bias_enc{i}`, `bias_dec{i}`,
+    `camera_w`, `code_w`) -> `PANet.state_dict()` (float32 CPU tensors):
+    the mapping of the JAX package's `convert_torch_state_dict`
+    (models/panet.py:184-212) run backwards."""
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+    i = 0
+    while f"dict{i}" in params:
+        d = np.asarray(params[f"dict{i}"])
+        pre = f"sparse_coding_layers.{i}"
+        sd[f"{pre}.dictionary"] = _t(d if i == 0 else d[:, :, None, None])
+        sd[f"{pre}.bias_encode_with_cam"] = _t(params[f"bias_enc{i}"])
+        sd[f"{pre}.bias_decode"] = _t(params[f"bias_dec{i}"])
+        i += 1
+    sd["camera_estimator.linear_comb_layer.weight"] = _t(
+        np.asarray(params["camera_w"])[None, :, None, None])
+    sd["code_estimator.fc_layer.weight"] = _t(params["code_w"])
     return sd
 
 

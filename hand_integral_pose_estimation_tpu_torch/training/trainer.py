@@ -19,7 +19,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -93,7 +93,15 @@ class Trainer:
     `test_dataset`, when given, gets the epoch-end average-loss sweep
     (main/train.py:140-163). `metrics_dir`, when given, receives
     `events.jsonl` (and TensorBoard events when tensorboardX imports):
-    train/* and train/lr after each chunk, test/loss after each sweep."""
+    train/* and train/lr after each chunk, test/loss after each sweep.
+
+    The semi-supervised terms: `teacher_apply`, a frozen teacher
+    (`training.teacher`) whose predictions on each augmented batch replace
+    the batch's cached pseudo-labels, and `panet_apply`, the PANet
+    reconstruction (`models.panet.panet_reconstruction_fn` of a PANet whose
+    parameters take no gradient) for the cfg.train.lam term. Both run
+    inside the step, so on the card they are part of each captured
+    chunk."""
 
     cfg: Config
     dataset: object
@@ -107,6 +115,8 @@ class Trainer:
     test_dataset: Optional[object] = None
     device: str | torch.device = "cuda"
     fuse_head: bool = True
+    teacher_apply: Optional[Callable] = None
+    panet_apply: Optional[Callable] = None
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -141,9 +151,10 @@ class Trainer:
             tcfg.lr_dec_factor)
         self._lr_factor = multistep_factor(
             self.steps_per_epoch, tcfg.lr_dec_epoch, tcfg.lr_dec_factor)
-        self.train_step = make_train_step(self.model, self.optimizer,
-                                          self.scheduler, self.cfg,
-                                          fuse_head=self.fuse_head)
+        self.train_step = make_train_step(
+            self.model, self.optimizer, self.scheduler, self.cfg,
+            teacher_apply=self.teacher_apply, panet_apply=self.panet_apply,
+            fuse_head=self.fuse_head)
         # one generator for the run, seeded per epoch: a graph replays the
         # draws of the generator object it was captured with
         self.generator = torch.Generator(device=self.device)

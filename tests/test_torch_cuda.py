@@ -7,7 +7,11 @@ the card's machine need not have):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import dataclasses
 import math
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -1213,3 +1217,208 @@ def test_card_adam_and_schedule_match_the_host_and_optax(dev):
                                                err_msg=msg + " (host)")
                     np.testing.assert_allclose(x, z, rtol=1e-6, atol=1e-6,
                                                err_msg=msg + " (optax)")
+
+
+# ------------------------------------------------- the semi-supervised path
+
+
+def test_panet_on_the_card_matches_the_cpu_at_float64(dev):
+    """The full-width PANet (DEFAULT_DICT_SIZES) at batch 500 on the card
+    (float32) against the same module on the CPU at float64: the
+    reconstruction to 1e-4 of its largest entry, every parameter
+    gradient of panet_loss to 1e-3 of its largest entry; the cameras
+    orthonormal with det +1 (1e-5). make_orthonormal captures in a CUDA
+    graph and its replay equals the eager call bit for bit;
+    torch.linalg.svd does not capture (it reads cuSOLVER's status on the
+    host): shown in a child process, since a failed capture leaves the
+    context unusable for later tests."""
+    from hand_integral_pose_estimation_tpu_torch.models import panet
+
+    g = torch.Generator().manual_seed(0)
+    cpu = panet.PANet(generator=g).double()
+    with torch.no_grad():
+        for layer in cpu.sparse_coding_layers:
+            layer.bias_encode_with_cam.uniform_(0.0, 0.05, generator=g)
+    card = panet.PANet().to(dev)
+    card.load_state_dict(cpu.state_dict())
+    pts = torch.randn(500, 21, 3, generator=g, dtype=torch.float64) * 0.05
+    pts = pts - pts.mean(1, keepdim=True)
+    want = cpu(pts)
+    got = card(pts.float().to(dev))
+    for w, x in zip(want, got):
+        torch.testing.assert_close(x.detach().double().cpu(), w.detach(),
+                                   rtol=0,
+                                   atol=1e-4 * float(w.detach().abs().max()))
+    cam = got[2].double()
+    torch.testing.assert_close(cam @ cam.mT, torch.eye(
+        3, dtype=cam.dtype, device=dev).expand_as(cam), rtol=0, atol=1e-5)
+    torch.testing.assert_close(torch.linalg.det(cam), torch.ones(
+        500, dtype=cam.dtype, device=dev), rtol=0, atol=1e-5)
+    panet.panet_loss(cpu, pts)[0].backward()
+    panet.panet_loss(card, pts.float().to(dev))[0].backward()
+    for (name, pc), pg in zip(cpu.named_parameters(), card.parameters()):
+        torch.testing.assert_close(pg.grad.double().cpu(), pc.grad, rtol=0,
+                                   atol=1e-3 * float(pc.grad.abs().max()),
+                                   msg=name)
+
+    M = torch.randn(500, 3, 3, device=dev)
+    eager = panet.make_orthonormal(M)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        panet.make_orthonormal(M)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = panet.make_orthonormal(M)
+    graph.replay()
+    assert torch.equal(out, eager)
+    proc = subprocess.run([sys.executable, "-c", SVD_CAPTURE],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.dirname(
+                              os.path.abspath(__file__))))
+    assert proc.returncode != 0, proc.stdout
+    assert "capture" in proc.stderr, proc.stderr[-2000:]
+
+
+# the closest rotation through torch.linalg.svd (U V^T, U's last column
+# times sign(det(U V^T))), as the JAX package forms it
+SVD_CAPTURE = """
+import torch
+def closest_rotation(M):
+    U, _, Vh = torch.linalg.svd(M, full_matrices=False)
+    sign = torch.sign(torch.linalg.det(U @ Vh))
+    one = torch.ones_like(sign)
+    return (U * torch.stack([one, one, sign], dim=-1)[..., None, :]) @ Vh
+M = torch.randn(500, 3, 3, device="cuda")
+closest_rotation(M)
+torch.cuda.synchronize()
+with torch.cuda.graph(torch.cuda.CUDAGraph()):
+    closest_rotation(M)
+"""
+
+
+def _sweep_inputs(dev, B=4, hw=224, seed=0):
+    from hand_integral_pose_estimation_tpu_torch.data import (
+        SyntheticFreiHand,
+    )
+    from hand_integral_pose_estimation_tpu_torch.distill.teacher_labels \
+        import camera_project
+    from hand_integral_pose_estimation_tpu_torch.geometry import bbox as bb
+
+    host = SyntheticFreiHand(n=B, image_hw=(hw, hw), seed=seed,
+                             render_joints=True).host_batch(np.arange(B))
+    images, K, joints, labelled = (torch.from_numpy(host[k]).to(dev) for k in
+                                   ("image", "K", "joint_cam", "labelled"))
+    uv, _, _ = camera_project(joints, K)
+    box = bb.bbox_from_keypoints(uv, torch.ones_like(uv[..., 0]))
+    return images, K, box, labelled, joints
+
+
+@pytest.mark.parametrize("mode", ["factored", "composed"])
+def test_teacher_sweep_kernels_match_plain(dev, mode):
+    """The teacher-label sweep of 4 images x 21 rotations with a frozen R18
+    teacher at 64²: kernel 5's rotated crops equal the plain two-pass
+    chain's bit for bit (float32 320² bases or uint8 frames); the
+    kernel-backed filter (kernels 5 and 3, one launch of each per sweep)
+    against the plain-backed one (method "twopass", the fused head's plain
+    version): per-rotation predictions to 1e-4, keep sets equal at a
+    threshold between the two middle variances."""
+    from hand_integral_pose_estimation_tpu_torch.config import AugmentConfig
+    from hand_integral_pose_estimation_tpu_torch.distill import (
+        generate_filtered_labels,
+        sweep_patches,
+    )
+    from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
+    from hand_integral_pose_estimation_tpu_torch.training.teacher import (
+        frozen_teacher,
+    )
+
+    cfg = _graph_config()
+    images, K, box, labelled, joints = _sweep_inputs(dev)
+    thetas = np.linspace(-0.52, 0.52, 21)
+    args = (images, K, box, AugmentConfig(), thetas, 0.52, (64, 64), mode)
+    fast = sweep_patches(*args)
+    plain = sweep_patches(*args, method="twopass")
+    assert fast.shape == (84, 64, 64, 3)
+    assert torch.equal(fast, plain)
+
+    net = get_pose_net(cfg.model, torch.Generator().manual_seed(3)).to(dev)
+    with torch.no_grad():
+        net.head.final_layer.weight.normal_(0.0, 0.02)
+    teacher = frozen_teacher(net, cfg)
+
+    def plain_teacher(patches):
+        feats = net(patches, return_features=True)
+        w, b = net.final_projection()
+        return fused_head.head_projection_integral_reference(
+            feats, w, b, cfg.model.num_joints, cfg.model.depth_dim)[0]
+
+    kw = dict(patch_hw=(64, 64), rotation_mode=mode)
+    unl = torch.zeros_like(labelled)
+    before = (kernels.WARP_TWOPASS.launches,
+              kernels.HEAD_PROJECTION_INTEGRAL_FWD.launches)
+    got = generate_filtered_labels(teacher, images, K, box, unl, joints,
+                                   **kw)
+    assert (kernels.WARP_TWOPASS.launches - before[0],
+            kernels.HEAD_PROJECTION_INTEGRAL_FWD.launches - before[1]) == (1,
+                                                                           1)
+    with torch.no_grad():
+        want = generate_filtered_labels(plain_teacher, images, K, box, unl,
+                                        joints, method="twopass", **kw)
+    torch.testing.assert_close(got.per_rotation, want.per_rotation,
+                               rtol=0, atol=1e-4)
+    var = want.variance.sort().values
+    threshold = float((var[1] * var[2]).sqrt())
+    assert torch.equal(got.variance < threshold, want.variance < threshold)
+
+
+def test_semi_supervised_graph_replays_equal_eager_steps(dev, deterministic):
+    """Trainer(scan_steps=2) with a live frozen teacher and the PANet term
+    (lam 0.1) on the card against the same Trainer run eagerly: 8 steps end
+    in the same metrics, parameters and Adam state bit for bit; the
+    teacher's and the PANet's weights and statistics do not move. Each
+    captured step holds kernel 3 twice (student and teacher), kernel 4 and
+    kernel 5 once."""
+    from hand_integral_pose_estimation_tpu_torch.models import (
+        get_pose_net,
+        panet,
+    )
+    from hand_integral_pose_estimation_tpu_torch.training import Trainer
+    from hand_integral_pose_estimation_tpu_torch.training.teacher import (
+        frozen_teacher,
+    )
+
+    cfg = _graph_config()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, lam=0.1))
+    net = get_pose_net(cfg.model, torch.Generator().manual_seed(7)).to(dev)
+    teacher = frozen_teacher(net, cfg)
+    prior = panet.PANet(generator=torch.Generator().manual_seed(8))
+    with torch.no_grad():
+        for layer in prior.sparse_coding_layers:
+            layer.bias_encode_with_cam.uniform_(0.0, 0.05)
+    prior = prior.to(dev).requires_grad_(False)
+    frozen = {k: v.clone() for k, v in (*net.state_dict().items(),
+                                         *prior.state_dict().items())}
+    kw = dict(cfg=cfg, dataset=_graph_dataset(n=24), model_dir="unused",
+              seed=4, device=dev, scan_steps=2, teacher_apply=teacher,
+              panet_apply=panet.panet_reconstruction_fn(prior))
+    eager = Trainer(**kw)
+    eager.graphs = None
+    graphed = Trainer(**kw)
+    m_eager = eager.run_epoch(0, num_steps=8, log_every=100)
+    m_graph = graphed.run_epoch(0, num_steps=8, log_every=100)
+    assert m_graph == m_eager and math.isfinite(m_graph["loss"])
+    a, b = _training_state(graphed), _training_state(eager)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    after = {**net.state_dict(), **prior.state_dict()}
+    for k, v in frozen.items():
+        assert torch.equal(after[k], v), k
+    assert not net.training
+    (graph,) = graphed.graphs.graphs.values()
+    per_step = {kernels.HEAD_PROJECTION_INTEGRAL_FWD: 2,
+                kernels.HEAD_PROJECTION_INTEGRAL_BWD: 1,
+                kernels.WARP_TWOPASS: 1}
+    assert kernels.graph_launches(graph) == {
+        k.symbol: 2 * per_step.get(k, 0) for k in kernels.KERNELS}

@@ -248,6 +248,61 @@ NO_JAX_SCRIPT = textwrap.dedent("""
                        "--bbox-db", sys.argv[1] + "/bbox.npz", "--result-dir",
                        sys.argv[1] + "/eval", "--model-dir", sys.argv[1] + "/m",
                        "--device", "cpu", *sizing])
+    # the semi-supervised slice: the file-backed split on the fixture,
+    # PANet and its trainer, the frozen teacher, the teacher-label sweep
+    # and its cascade, and a student step with both terms
+    import os
+    from hand_integral_pose_estimation_tpu_torch.data import (
+        FreiHandDataset, apply_filtered_labels)
+    from hand_integral_pose_estimation_tpu_torch.distill import (
+        CascadeRunner, generate_filtered_labels)
+    from hand_integral_pose_estimation_tpu_torch.models import panet
+    from hand_integral_pose_estimation_tpu_torch.training import (
+        panet_trainer, teacher)
+    from hand_integral_pose_estimation_tpu_torch.cli import (
+        generate_teacher_labels, panet_data, panet_test, train_panet)
+    fixture = os.path.join(sys.argv[2], "fixtures", "freihand_mini")
+    ds = FreiHandDataset(fixture, "training", cfg.with_training_size(2))
+    assert ds.host_batch(np.arange(2))["image"].shape == (2, 224, 224, 3)
+    prior = panet.PANet(21, (16, 8, 4), generator=torch.Generator())
+    res = panet_trainer.train_panet(prior, np.random.RandomState(0).randn(
+        16, 21, 3) * 0.05, np.zeros((2, 21, 3)), num_steps=2, batch_size=4)
+    assert np.isfinite(res.train_losses).all()
+    frozen = teacher.frozen_teacher(model, cfg)
+    host = SyntheticFreiHand(n=2, image_hw=(64, 64)).host_batch(np.arange(2))
+    box = torch.tensor([[32.0, 32.0, 40.0, 40.0]] * 2)
+    args = (torch.from_numpy(host["image"]), torch.from_numpy(host["K"]),
+            box, torch.from_numpy(host["labelled"]),
+            torch.from_numpy(host["joint_cam"]))
+    out = generate_filtered_labels(frozen, *args, num_rotations=3,
+                                   patch_hw=(64, 64))
+    runner = CascadeRunner(frozen, num_rotations=3, pass1_rotations=2,
+                           pass2_batch=2, patch_hw=(64, 64), device="cpu")
+    runner.add_batch(*args, rows=[0, 1])
+    assert (runner.finalize(2)["keep"] == out.keep.numpy()).all()
+    trainer = training.Trainer(
+        cfg.replace(train=TrainConfig(batch_size=2, lam=0.1)),
+        SyntheticFreiHand(n=4, image_hw=(64, 64)), device="cpu",
+        teacher_apply=frozen,
+        panet_apply=panet.panet_reconstruction_fn(
+            prior.requires_grad_(False)))
+    assert np.isfinite(trainer.run_epoch(0, num_steps=1)["loss"])
+    d = sys.argv[1]
+    panet_data.main(["--synthetic", "--synthetic-size", "20", "--out-dir",
+                     d + "/pd", "--device", "cpu"])
+    train_panet.main(["--train-npy", d + "/pd/hand_train.npy", "--test-npy",
+                      d + "/pd/hand_test.npy", "--steps", "2",
+                      "--batch-size", "4", "--out", d + "/panet",
+                      "--device", "cpu"])
+    panet_test.main(["--ckpt", d + "/panet/model_best.pth", "--pts-npy",
+                     d + "/pd/hand_test.npy", "--device", "cpu"])
+    generate_teacher_labels.main([
+        "--data-dir", fixture, "--training-size", "2", "--batch-size", "8",
+        "--cascade", "--out", d + "/db.npz", "--model-dir", d + "/m",
+        "--device", "cpu", *sizing])
+    assert len(apply_filtered_labels(FreiHandDataset(
+        fixture, "training", cfg.with_training_size(2)),
+        d + "/db.npz")) == int(np.load(d + "/db.npz")["keep"].sum())
     assert rotation.sample_rotation_matrix(torch.Generator(), 2).shape == (
         2, 3, 3)
     assert callable(losses.combined_loss) and callable(
@@ -262,13 +317,20 @@ def test_port_runs_without_jax(tmp_path):
     """Every module of the port imports, and the CPU slices run (serving:
     both head arms, evaluation, the test CLI; training: the Trainer on both
     arms, the train CLI's snapshot read back by the test CLI; two-stage
-    serving: the detector pipeline and the challenge CLI), with
+    serving: the detector pipeline and the challenge CLI; semi-supervised:
+    the file-backed split and its JPEG decode, PANet and its trainer, the
+    frozen teacher, the teacher-label sweep and its cascade, a student step
+    with both terms, and the four new CLIs), with
     jax/flax/optax/orbax and the JAX package blocked by a sys.meta_path
     finder in a fresh interpreter."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    # small shapes: one intra-op thread, so that the suite's parallel
+    # workers do not oversubscribe the cores
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run(
-        [sys.executable, "-c", NO_JAX_SCRIPT, str(tmp_path / "result")],
+        [sys.executable, "-c", NO_JAX_SCRIPT, str(tmp_path / "result"),
+         os.path.join(REPO, "tests")],
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
         timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
