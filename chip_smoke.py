@@ -1,10 +1,10 @@
 """Smoke test of the PyTorch / CUDA port on one GPU: the pose-serving path,
-the pose-training path, the two-stage (detector -> pose) serving path and
-the semi-supervised path.
+the pose-training path, the two-stage (detector -> pose) serving path, the
+semi-supervised path and detector training.
 
     python3 chip_smoke.py
 
-Eight phases, each printing what it found; any failure exits non-zero
+Nine phases, each printing what it found; any failure exits non-zero
 before the result line.
 
 1. device: requires CUDA (there is no CPU fallback), prints the card, its
@@ -91,7 +91,24 @@ before the result line.
    scan_steps=4 replays against the same Trainer run eagerly under
    cuDNN's deterministic algorithms (bitwise), launch counts (kernel 3
    twice a step with the teacher, kernels 4 and 5 once), eager against
-   graph timing; the teacher and PANet unchanged.
+   graph timing; the teacher and PANet unchanged;
+9. detector training: (a) the ROIAlign backward kernel against the plain
+   VJP at the training shape (4 x 38x38x1024, 4 x 128 RoIs in the sampled
+   layout: foreground first with the gt box, zero padding slots) and at
+   ragged ones (RoIs partly off the map, under one cell, R = 1, C = 6),
+   two launches bitwise equal, timed beside its bound; (b) kernel 7 at the
+   training proposal shape, 4 x 12 000 -> 2 000 at IoU 0.7, keep sets
+   bitwise equal with and without early exit; (c) the train step of the
+   detector of phase 7 (R101 caffe C4, 600^2, float32, frozen BN) at batch
+   4 on synthetic scenes, heads scaled: one step kernel-backed against
+   plain-backed from one state and one set of draws under cuDNN's
+   deterministic algorithms (sampled RoIs equal, losses, every parameter's
+   gradient), the kernel-backed step twice bitwise equal, then ten SGD
+   steps with their launches per step (kernel 7, kernel 6 and its backward
+   once each), timed back to back and profiled; (d) `cli.train_detector
+   --synthetic` for three steps, its .pth restored by `build_detector` with
+   the same `detect`; (e) `cli.semi_supervised_study`,
+   `cli.filter_cascade_study` and `cli.analyze_correlation` at a few steps.
 
 Each path's launch counts start from 0 just before the path runs and are
 read just after it; the launches in the kernels line are their sum. The
@@ -102,8 +119,8 @@ SXM data sheet: 67 TFLOP/s for float32 on CUDA cores, and for the fused
 head's 1x1 projections (bf16 features times float32 weights or gradients)
 989/3 TFLOP/s, the bf16 tensor-core rate over the three bf16 products
 that carry a float32 operand split into bf16 parts to float32 accuracy. No single PyTorch
-call computes any of the seven functions (there is no torchvision here for
-NMS or ROIAlign), so `library_ms` is null. The line before the last is the
+call computes any of the eight functions (there is no torchvision here for
+NMS or ROIAlign and its backward), so `library_ms` is null. The line before the last is the
 card's name and power limit; the last line is the JSON result.
 """
 
@@ -212,6 +229,35 @@ PANET_GRAD_TOL = 1e-3
 # rows whose variance lies this close to the threshold may flip between
 # the kernel-backed and the plain-backed sweep; the run counts them
 KEEP_MARGIN = 1e-3
+# The ROIAlign backward kernel and its plain VJP (autograd of the separable
+# einsums) weight the same float32 cotangents with the same float32 tap
+# weights and sum them in another order: 1e-5 of the largest gradient.
+ROI_BWD_TOL = 1e-5
+# Kernel-backed vs plain-backed detector train step from one state and one
+# set of draws: the sampled RoIs are equal (proposals from bitwise-equal
+# NMS); the pooled features differ by ROIAlign's summation order (~1e-7
+# relative), which the float32 tail carries on: the losses to 1e-5
+# relative. The tail's ReLU masks flip where an activation is within that
+# noise of zero, and a weight gradient summed over 4 x 128 x 49 positions
+# moves by such flips: each parameter's gradient to 1e-3 of its largest
+# entry (the pose train step's float32 leaf bound), the whole gradient to
+# 1e-4 relative in norm. The backward kernel alone, isolated by running
+# the step with kernel 6 forward and the plain VJP backward (the same
+# forward, so the tail's gradients are bitwise equal): every parameter's
+# gradient to 1e-4 of its largest entry.
+DET_LOSS_REL = 1e-5
+DET_GRAD_LEAF = 1e-3
+DET_GRAD_TOTAL = 1e-4
+DET_GRAD_BWD = 1e-4
+DET_TRAIN_STEPS = 10
+# The ten SGD steps' rate. The detector's weights are random: its frozen
+# BatchNorm keeps unit statistics, so the untrained R101's activations grow
+# by orders of magnitude through its 33 blocks (the phase prints their
+# mean size), and a small step moves the scaled heads' logits by hundreds:
+# the loss rose from 3 to ~1e4 within ten steps at 1e-3 and at 1e-5 in two
+# trial runs. The steps are there for the kernels' launches and the step's
+# time, which do not depend on the rate.
+DET_LR = 1e-7
 # the card's published peaks (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -688,6 +734,21 @@ def plain_detector_ops():
         yield
     finally:
         nms_mod._alive_cuda, ra_mod.roi_align_cuda = saved
+
+
+@contextlib.contextmanager
+def plain_roi_align_backward():
+    """Run kernel 6's backward through the plain VJP instead of its
+    backward kernel (the forward kernel stays)."""
+    from hand_integral_pose_estimation_tpu_torch.ops import (
+        roi_align as ra_mod,
+    )
+    saved = ra_mod.roi_align_bwd_cuda
+    ra_mod.roi_align_bwd_cuda = ra_mod.roi_align_bwd_plain
+    try:
+        yield
+    finally:
+        ra_mod.roi_align_bwd_cuda = saved
 
 
 def scale_detector_heads(model, blob) -> None:
@@ -1452,6 +1513,323 @@ def semi_supervised_phase(dev, g, card, cfg):
     return launches
 
 
+def training_rois(B, R, H, W, g, dev):
+    """(B, R, 4) RoIs in the training proposal targets' layout: a quarter
+    foreground near the image's gt box (the gt box itself first), the rest
+    background anywhere, the last eighth zero padding slots; among them a
+    RoI under one feature cell and one partly off the map."""
+    gt = torch.tensor([4.0 * W, 4.0 * H, 12.0 * W, 12.0 * H], device=dev)
+    n_fg, n_pad = max(R // 4, 1), R // 8
+    n_bg = R - n_fg - n_pad
+    fg = gt + (torch.rand(B, n_fg, 4, device=dev, generator=g) - 0.5) * 40
+    fg[:, 0] = gt
+    lo = torch.rand(B, n_bg, 2, device=dev, generator=g) * torch.tensor(
+        [16.0 * W, 16.0 * H], device=dev) - 40
+    bg = torch.cat([lo, lo + torch.rand(B, n_bg, 2, device=dev, generator=g)
+                    * 300 + 2], -1)
+    rois = torch.cat([fg, bg, torch.zeros(B, n_pad, 4, device=dev)], 1)
+    if n_bg >= 2:
+        rois[:, n_fg] = torch.tensor([100.0, 100.0, 108.0, 104.0],
+                                     device=dev)
+        rois[:, n_fg + 1] = torch.tensor(
+            [-60.0, 20.0, 40.0, 16.0 * H + 30.0], device=dev)
+    return rois
+
+
+def detector_training_phase(dev, g, card):
+    """Phase 9. Returns the launches of the phase's main runs (the ten SGD
+    steps and `cli.train_detector`) by kernel symbol, and for
+    "roi_align_bwd" (max_abs_err, (ms, plain_ms), (bound_ms, bound_by))."""
+    from hand_integral_pose_estimation_tpu_torch.cli import (
+        analyze_correlation,
+        filter_cascade_study,
+        semi_supervised_study,
+        train_detector,
+    )
+    from hand_integral_pose_estimation_tpu_torch.config import DetectorConfig
+    from hand_integral_pose_estimation_tpu_torch.data import SyntheticFreiHand
+    from hand_integral_pose_estimation_tpu_torch.detect import (
+        build_detector,
+        detect,
+        make_synthetic_box_dataset,
+        prepare_blob,
+    )
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
+    from hand_integral_pose_estimation_tpu_torch.ops import nms as nms_mod
+    from hand_integral_pose_estimation_tpu_torch.ops.roi_align import (
+        roi_align_bwd_cuda,
+        roi_align_bwd_plain,
+    )
+    from hand_integral_pose_estimation_tpu_torch.training.detector_trainer \
+        import make_detector_optimizer, make_detector_train_step
+
+    def reset():
+        for k in kernels.KERNELS:
+            k.launches = 0
+
+    def counts():
+        return {k.symbol: k.launches for k in kernels.KERNELS}
+
+    # ---- a. the ROIAlign backward kernel against the plain VJP
+    worst = 0.0
+    path = None
+    for (B, H, W, C, R) in ((DET_BATCH, 38, 38, 1024, 128),
+                            (2, 21, 19, 256, 13), (1, 9, 11, 64, 1),
+                            (3, 9, 11, 6, 9)):
+        rois = training_rois(B, R, H, W, g, dev)
+        cot = torch.randn(B, R, 7, 7, C, device=dev, generator=g)
+        got = roi_align_bwd_cuda(cot, rois, (H, W))
+        again = roi_align_bwd_cuda(cot, rois, (H, W))
+        torch.cuda.synchronize()
+        want = roi_align_bwd_plain(cot, rois, (H, W))
+        e = float((got - want).abs().max())
+        tol = ROI_BWD_TOL * float(want.abs().max())
+        same = bool(torch.equal(got, again))
+        ok = e <= tol and same and float(want.abs().max()) > 0
+        print(f"[detector training] roi_align_bwd {(B, H, W, C)} x {R} "
+              f"RoIs: max|d| {e:.3e} (tol {tol:.3e}), two launches "
+              f"bitwise equal {same} {'ok' if ok else 'FAILED'}", flush=True)
+        check(ok, "the ROIAlign backward kernel disagrees with the plain "
+              "VJP or differs between launches")
+        worst = max(worst, e)
+        if path is None:
+            path = (cot, rois, (H, W))
+        del got, again, want
+    cot, rois, hw = path
+    t_bwd = time_pair(lambda: roi_align_bwd_cuda(cot, rois, hw),
+                      lambda: roi_align_bwd_plain(cot, rois, hw))
+    grad_elems = cot.shape[0] * hw[0] * hw[1] * cot.shape[-1]
+    bwd_bound = bound(cot.numel() * 4 + rois.numel() * 4 + grad_elems * 4,
+                      cot.numel() * 40)
+    print(f"[timing] roi_align_bwd at {tuple(cot.shape)} -> "
+          f"{(cot.shape[0], *hw, cot.shape[-1])}: kernel {t_bwd[0]:.4f} ms, "
+          f"plain VJP {t_bwd[1]:.4f} ms, bound {bwd_bound[0]:.4f} ms "
+          f"({bwd_bound[1]}) on {card}", flush=True)
+
+    # ---- b. kernel 7 at the training proposal shape
+    b, sc = clustered_boxes(g, DET_BATCH, 12000, dev)
+    for ee in (False, True):
+        got = nms_mod.nms(b, sc, 0.7, 2000, 0.0, impl="cuda", early_exit=ee)
+        torch.cuda.synchronize()
+        want = nms_mod.nms(b, sc, 0.7, 2000, 0.0, impl="plain",
+                           early_exit=ee)
+        bad = (int((got[2] != want[2]).sum())
+               + int((got[0] != want[0]).any(-1).sum())
+               + int((got[1] != want[1]).sum()))
+        print(f"[detector training] nms {(DET_BATCH, 12000)} -> 2000 at IoU "
+              f"0.7, early_exit={ee}: {int(got[2].sum())} kept, {bad} "
+              f"mismatching slots (tol 0) {'ok' if bad == 0 else 'FAILED'}",
+              flush=True)
+        check(bad == 0, "NMS kernel disagrees with its plain version at the "
+              "training shape")
+    order = torch.sort(sc, dim=1, descending=True, stable=True).indices
+    b_sorted = torch.gather(b, 1, order[..., None].expand_as(b))
+    alive0 = torch.gather(sc, 1, order) > 0.0
+    t_nms = time_pair(
+        lambda: nms_mod._alive_cuda(b_sorted, alive0, 0.7, True),
+        lambda: nms_mod._alive_plain(b_sorted, alive0, 0.7, True))
+    t_call = time_pair(
+        lambda: nms_mod.nms(b, sc, 0.7, 2000, 0.0, impl="cuda"),
+        lambda: nms_mod.nms(b, sc, 0.7, 2000, 0.0, impl="plain"))
+    keep = nms_mod._alive_plain(b_sorted, alive0, 0.7, True)
+    pos = torch.arange(b.shape[1], device=dev)
+    nms_b = bound(b.numel() * 4 + alive0.numel() * 2,
+                  17 * float(((b.shape[1] - 1 - pos) * keep).sum()))
+    print(f"[timing] nms kernel (mask + sweep) at the training shape "
+          f"{tuple(b.shape)} IoU 0.7, {int(keep.sum())} kept: "
+          f"{t_nms[0]:.4f} ms, plain {t_nms[1]:.4f} ms, bound "
+          f"{nms_b[0]:.4f} ms ({nms_b[1]}); whole nms() -> 2000 with sort "
+          f"and compaction {t_call[0]:.4f} ms, plain {t_call[1]:.4f} ms on "
+          f"{card}", flush=True)
+
+    # ---- c. the detector's train step at full width
+    det_cfg = dataclasses.replace(DetectorConfig(), resnet_style="caffe")
+    model = build_detector(det_cfg, generator=torch.Generator().manual_seed(
+        SEED)).to(dev)
+    scenes = make_synthetic_box_dataset(
+        DET_BATCH, hw=(DET_SIZE, DET_SIZE), min_size=int(DET_SIZE * 0.25),
+        max_size=int(DET_SIZE * 0.62), seed=SEED + 1)
+    images = torch.from_numpy(scenes.images).to(dev)
+    blob, scale = prepare_blob(images, det_cfg)
+    scale_detector_heads(model, blob)
+    gt = torch.from_numpy(np.stack(scenes.gt_boxes) * np.float32(scale)).to(
+        dev)
+    gc = torch.ones(DET_BATCH, 1, dtype=torch.long, device=dev)
+    gv = torch.ones(DET_BATCH, 1, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        feats = model._rpn(blob)[0]
+        feat_hw = feats.shape[1:3]
+        print(f"[detector training] base features (B, {tuple(feat_hw)}, C) "
+              f"mean |x| {float(feats.abs().mean()):.4g} (random weights, "
+              f"unit frozen BatchNorm)", flush=True)
+        del feats
+    pri = model.draw_priorities(torch.Generator(device=dev).manual_seed(SEED),
+                                DET_BATCH, feat_hw, 1, dev)
+
+    def one_pass(ops):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        with ops:
+            out = model(blob, gt, gc, gv, priorities=pri)
+            sum(out.losses.values()).backward()
+        torch.cuda.synchronize()
+        return (out.rois,
+                {k: float(v.detach()) for k, v in out.losses.items()},
+                {n: p.grad.clone() for n, p in model.named_parameters()})
+
+    def leaf_errors(got, want):
+        return {n: float((got[n] - want[n]).abs().max())
+                / max(float(want[n].abs().max()), 1e-30) for n in want}
+
+    def total_error(got, want):
+        d = sum(float((got[n] - want[n]).double().square().sum())
+                for n in want)
+        w = sum(float(want[n].double().square().sum()) for n in want)
+        return math.sqrt(d / w)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    reset()
+    rois_k, loss_k, grad_k = one_pass(contextlib.nullcontext())
+    once = counts()
+    rois_k2, loss_k2, grad_k2 = one_pass(contextlib.nullcontext())
+    reset()
+    rois_p, loss_p, grad_p = one_pass(plain_detector_ops())
+    plain_launches = sum(counts().values())
+    _, _, grad_b = one_pass(plain_roi_align_backward())
+    torch.backends.cudnn.deterministic = deterministic
+    loss_err = max(abs(loss_k[k] - loss_p[k]) / max(abs(loss_p[k]), 1e-30)
+                   for k in loss_p)
+    leaf_err = leaf_errors(grad_k, grad_p)
+    worst_leaf = max(leaf_err, key=leaf_err.get)
+    total = total_error(grad_k, grad_p)
+    bwd_err = leaf_errors(grad_k, grad_b)
+    worst_bwd = max(bwd_err, key=bwd_err.get)
+    tail_same = all(torch.equal(grad_k[n], grad_b[n]) for n in grad_k
+                    if not n.startswith("RCNN_base."))
+    same_rois = bool(torch.equal(rois_k, rois_p))
+    bitwise = (torch.equal(rois_k, rois_k2) and loss_k == loss_k2
+               and all(torch.equal(grad_k[n], grad_k2[n]) for n in grad_k))
+    print(f"[detector training] one step, R{det_cfg.resnet_type} "
+          f"{det_cfg.resnet_style} at {DET_SIZE}^2 x {DET_BATCH}, "
+          f"{det_cfg.rpn_pre_nms_top_n_train} -> "
+          f"{det_cfg.rpn_post_nms_top_n_train} proposals, "
+          f"{det_cfg.roi_batch_size} sampled RoIs an image: losses {loss_k}; "
+          f"launches {once}; kernel-backed vs plain-backed ({plain_launches} "
+          f"kernel launches in the plain run): sampled RoIs equal "
+          f"{same_rois}, losses max rel d {loss_err:.3e} (tol "
+          f"{DET_LOSS_REL:g}), gradients max |d| / leaf max "
+          f"{leaf_err[worst_leaf]:.3e} at {worst_leaf} (tol "
+          f"{DET_GRAD_LEAF:g}), whole gradient {total:.3e} (tol "
+          f"{DET_GRAD_TOTAL:g}); the backward kernel alone (kernel 6 forward "
+          f"both ways, its backward kernel vs the plain VJP): max |d| / leaf "
+          f"max {bwd_err[worst_bwd]:.3e} at {worst_bwd} (tol "
+          f"{DET_GRAD_BWD:g}), the tail's and heads' gradients bitwise "
+          f"equal {tail_same}; kernel-backed twice bitwise equal {bitwise}",
+          flush=True)
+    check(once == {k.symbol: {kernels.NMS: 1, kernels.ROI_ALIGN_FWD: 1,
+                              kernels.ROI_ALIGN_BWD: 1}.get(k, 0)
+                   for k in kernels.KERNELS},
+          f"one train step launched {once}")
+    check(plain_launches == 0, "the plain-backed step launched a kernel")
+    check(same_rois and loss_err <= DET_LOSS_REL
+          and leaf_err[worst_leaf] <= DET_GRAD_LEAF
+          and total <= DET_GRAD_TOTAL,
+          "the kernel-backed train step disagrees with the plain-backed one")
+    check(tail_same and bwd_err[worst_bwd] <= DET_GRAD_BWD,
+          "the ROIAlign backward kernel's gradients disagree with the plain "
+          "VJP's in the train step")
+    check(bitwise, "two kernel-backed train steps differ")
+    del grad_k, grad_k2, grad_p, grad_b
+
+    optimizer, scheduler = make_detector_optimizer(model.parameters(),
+                                                   lr=DET_LR)
+    step = make_detector_train_step(model, optimizer, scheduler)
+    sampling = torch.Generator(device=dev).manual_seed(SEED + 2)
+    reset()
+    per_step, losses = [], []
+    for _ in range(DET_TRAIN_STEPS):
+        before = counts()
+        metrics = step(blob, gt, gc, gv, generator=sampling)
+        per_step.append({k: v - before[k] for k, v in counts().items()
+                         if v - before[k]})
+        losses.append(metrics["loss"])
+    losses = torch.stack(losses).tolist()
+    steps_launches = counts()
+    print(f"[detector training] {DET_TRAIN_STEPS} SGD steps at lr "
+          f"{DET_LR:g}: losses "
+          f"{[round(v, 4) for v in losses]}; launches per step {per_step}",
+          flush=True)
+    check(all(math.isfinite(v) for v in losses), "non-finite detector loss")
+    check(all(p == {kernels.NMS.symbol: 1, kernels.ROI_ALIGN_FWD.symbol: 1,
+                    kernels.ROI_ALIGN_BWD.symbol: 1} for p in per_step),
+          f"detector train steps launched {per_step}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(blob, gt, gc, gv, generator=sampling)
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"[timing] detector train step back to back: {per:.3f} ms per "
+          f"step over 5 steps (host clock) at batch {DET_BATCH} x "
+          f"{DET_SIZE}^2, {DET_BATCH / per * 1e3:.1f} img/s on {card}",
+          flush=True)
+    print_profile(f"detector train step at batch {DET_BATCH}",
+                  lambda: step(blob, gt, gc, gv, generator=sampling), 3, card)
+    del model, optimizer, step
+
+    # ---- d. cli.train_detector on the card
+    with tempfile.TemporaryDirectory() as d:
+        flags = ["--synthetic", "--n", "16", "--steps", "3", "--batch", "2",
+                 "--eval-every", "3", "--device", "cuda"]
+        reset()
+        result = train_detector.main(flags + ["--model-dir", d])
+        torch.cuda.synchronize()
+        cli_launches = counts()
+        cfg = train_detector.detector_cfg_from_args(
+            train_detector.build_argparser().parse_args(flags))
+        restored = build_detector(cfg, os.path.join(
+            d, "faster_rcnn_final.pth")).to(dev)
+        frames = torch.from_numpy(SyntheticFreiHand(n=DET_BATCH,
+                                                    seed=SEED).images).to(dev)
+        a, b2 = detect(result["model"], frames, cfg), detect(restored, frames,
+                                                             cfg)
+        same = all(torch.equal(x, y) for x, y in zip(a, b2))
+    print(f"[detector training] cli.train_detector --synthetic (R"
+          f"{cfg.resnet_type} {cfg.norm} norm at {cfg.test_scale}^2, 3 "
+          f"steps): history {result['history']}; launches {cli_launches}; "
+          f"build_detector restored its .pth, detect equal {same}",
+          flush=True)
+    check(same and cli_launches[kernels.ROI_ALIGN_BWD.symbol] == 3,
+          "cli.train_detector's snapshot or launches")
+
+    # ---- e. the study CLIs on the card
+    t0 = time.perf_counter()
+    semi = semi_supervised_study.main(
+        ["--n", "48", "--labelled", "8", "--test-n", "32", "--teacher-steps",
+         "4", "--student-steps", "4", "--batch-size", "16", "--device",
+         "cuda"])
+    check(set(semi) == {"teacher", "baseline", "distilled"} and all(
+        math.isfinite(r["mpjpe"]) for r in semi.values()),
+        "semi_supervised_study")
+    cascade = filter_cascade_study.main(
+        ["--n", "32", "--pool", "32", "--teacher-steps", "4", "--batch-size",
+         "8", "--device", "cuda"])
+    check(cascade["keep_sets_equal"], "filter_cascade_study")
+    with tempfile.TemporaryDirectory() as d:
+        arr = analyze_correlation.main(
+            ["--synthetic", "--max-samples", "64", "--batch-size", "16",
+             "--model-dir", os.path.join(d, "none"), "--out",
+             os.path.join(d, "corr.csv"), "--device", "cuda"])
+    check(arr.shape == (64, 3) and np.isfinite(arr).all(),
+          "analyze_correlation")
+    print(f"[detector training] the three study CLIs ran on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    launches = {k: steps_launches[k] + cli_launches[k] for k in cli_launches}
+    return launches, {"roi_align_bwd": (worst, t_bwd, bwd_bound)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -2157,6 +2535,9 @@ def main() -> None:
     # ---- 8. the semi-supervised path
     semi_launches = semi_supervised_phase(dev, g, card, cfg)
 
+    # ---- 9. detector training and the study CLIs
+    dtrain_launches, dtrain = detector_training_phase(dev, g, card)
+
     pkg = "hand_integral_pose_estimation_tpu_torch/csrc/"
     ref = "hand_integral_pose_estimation_tpu/ops/"
     meta = {
@@ -2176,8 +2557,12 @@ def main() -> None:
         "roi_align": (kernels.ROI_ALIGN_FWD, "roi_align.cu",
                       "roi_align.py:93"),
         "nms": (kernels.NMS, "nms.cu", "nms.py:231"),
+        # no Pallas kernel: the JAX package trains through the XLA ROIAlign
+        # (roi_align.py:57) and takes this gradient from XLA's autodiff
+        "roi_align_bwd": (kernels.ROI_ALIGN_BWD, "roi_align_bwd.cu",
+                          "roi_align.py:57"),
     }
-    for name, (e, t, b) in det.items():
+    for name, (e, t, b) in {**det, **dtrain}.items():
         err[name] = e
         times[name] = t
         bounds[name] = b
@@ -2189,7 +2574,8 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": pkg + src,
          "replaces": ref + tpu,
          "launches": (serving_launches[k.symbol] + train_launches[k.symbol]
-                      + det_launches[k.symbol] + semi_launches[k.symbol]),
+                      + det_launches[k.symbol] + semi_launches[k.symbol]
+                      + dtrain_launches[k.symbol]),
          "max_abs_err": err[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}

@@ -20,8 +20,14 @@ the pseudo-labels of `cli.generate_teacher_labels` to a file-backed split
 and keeps only the accepted records; `--teacher-ckpt` runs a frozen
 teacher on every batch instead; given both, the cached pseudo-labels win,
 as in the reference. `--panet-ckpt` adds the PANet prior term, weighted by
-`--lam`. The detector boxes, the ImageNet init, the device mesh and the
-YUV transport come with later ports.
+`--lam`.
+
+`--use-hand-detector` crops the training patches from detector boxes
+instead of the boxes of the projected gt joints (the use_hand_detector
+mode, FreiHand.py:468-470): they come from the `--bbox-db` cache, swept by
+the detector of `--detector-ckpt` (random weights from `--seed` without
+one) and saved there when it is missing or stale. The ImageNet init, the
+device mesh and the YUV transport come with later ports.
 """
 
 from __future__ import annotations
@@ -69,6 +75,28 @@ def build_argparser():
                         "(load_nrsfm_tester, base.py:111)")
     p.add_argument("--lam", type=float, default=None,
                    help="PANet loss weight (cfg._lambda, config.py:50)")
+    p.add_argument("--use-hand-detector", action="store_true",
+                   help="crop training patches from detector boxes instead "
+                        "of GT-projected ones (use_hand_detector mode, "
+                        "FreiHand.py:468-470); boxes come from --bbox-db, "
+                        "swept with --detector-ckpt when missing")
+    p.add_argument("--bbox-db", default=None,
+                   help="npz cache of per-image detector crop boxes (the "
+                        "reference's keypoint_bbox_db pickle, "
+                        "FreiHand.py:382-409)")
+    p.add_argument("--detector-ckpt", default=None,
+                   help="a reference faster_rcnn_*.pth or a "
+                        "cli.train_detector snapshot")
+    p.add_argument("--detector-style", choices=("torchvision", "caffe"),
+                   default=None,
+                   help="ResNet block variant; default: caffe when "
+                        "--detector-ckpt is a .pth (the reference's weights "
+                        "need it), else torchvision")
+    p.add_argument("--detector-norm", choices=("batch", "group"),
+                   default="batch",
+                   help="must match the checkpoint: 'batch' (reference "
+                        "parity) or 'group' (cli.train_detector's default)")
+    p.add_argument("--detector-resnet", type=int, default=None)
     p.add_argument("--device", default="cuda")
     p.add_argument("--unfused-head", action="store_true",
                    help="decode the materialised heatmap (kernels 1 and 2) "
@@ -133,6 +161,34 @@ def main(argv=None):
     test_dataset = (load_split(args, cfg, "testing", synthetic_seed=1,
                                synthetic_size=32)
                     if args.test_sweep else None)
+
+    if args.use_hand_detector:
+        import os
+
+        import torch
+
+        from hand_integral_pose_estimation_tpu_torch.data import detector_db
+        from hand_integral_pose_estimation_tpu_torch.detect.load import (
+            build_detector,
+            default_resnet_style,
+        )
+
+        det_style = args.detector_style or default_resnet_style(
+            args.detector_ckpt, fallback=cfg.detector.resnet_style)
+        cfg = cfg.replace(detector=dataclasses.replace(
+            cfg.detector, norm=args.detector_norm,
+            freeze_bn=args.detector_norm == "batch",
+            resnet_type=args.detector_resnet or cfg.detector.resnet_type,
+            resnet_style=det_style))
+        detector = None
+        if not (args.bbox_db and os.path.exists(args.bbox_db)):
+            detector = build_detector(
+                cfg.detector, args.detector_ckpt,
+                generator=torch.Generator().manual_seed(args.seed)
+            ).to(args.device)
+        detector_db.ensure_detector_bboxes(
+            dataset, detector, cache_path=args.bbox_db, det_cfg=cfg.detector,
+            pad_factor=cfg.augment.pad_factor)
 
     if args.filtered_db:
         if not hasattr(dataset, "records"):

@@ -1,11 +1,13 @@
-"""Detector-produced crop-box db for the label-free split.
+"""Detector-produced crop-box db for the label-free split and the
+use_hand_detector training mode.
 
 Port of hand_integral_pose_estimation_tpu/data/detector_db.py. The
 reference computes a detector crop box per image when it loads the
 evaluation split (`load_evaluation_data`, FreiHand.py:286-341, through
-`find_bb_hand_detector`, augment.py:317-342) and caches them
-(FreiHand.py:382-409). Here one batched sweep of `detect_hand_crop_bbox`
-fills an npz cache keyed by image name.
+`find_bb_hand_detector`, augment.py:317-342) and caches per-image detector
+boxes in the training db when `use_hand_detector` is on
+(FreiHand.py:382-409, 468-470). Here one batched sweep of
+`detect_hand_crop_bbox` fills an npz cache keyed by image name.
 """
 
 from __future__ import annotations
@@ -89,3 +91,30 @@ def attach_detector_bboxes(dataset, bboxes: np.ndarray,
     else:
         dataset.detector_bbox = bboxes
     return dataset
+
+
+def ensure_detector_bboxes(dataset, detector,
+                           cache_path: Optional[str] = None,
+                           det_cfg: Optional[DetectorConfig] = None,
+                           pad_factor: float = 1.75,
+                           batch_size: int = 16):
+    """Attach detector crop boxes, reusing `cache_path` when it matches the
+    dataset and sweeping the detector (then saving the cache) otherwise:
+    the load-or-rebuild behaviour of the reference's pickle caches
+    (FreiHand.py:286-293, 382-388). A missing or stale cache without a
+    detector raises."""
+    if cache_path and os.path.exists(cache_path):
+        names, bboxes = load_bbox_db(cache_path)
+        try:
+            return attach_detector_bboxes(dataset, bboxes, names)
+        except ValueError:
+            pass   # made for another record set: regenerate below
+    if detector is None:
+        raise ValueError(
+            f"bbox cache {cache_path!r} is missing or stale and no detector "
+            f"was provided to regenerate it")
+    bboxes = generate_detector_bboxes(dataset, detector, det_cfg, pad_factor,
+                                      batch_size)
+    if cache_path:
+        save_bbox_db(cache_path, dataset, bboxes)
+    return attach_detector_bboxes(dataset, bboxes)

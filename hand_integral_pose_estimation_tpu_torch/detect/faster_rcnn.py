@@ -1,4 +1,4 @@
-"""Faster R-CNN hand detector (ResNet-C4), inference.
+"""Faster R-CNN hand detector (ResNet-C4): inference and training.
 
 Port of hand_integral_pose_estimation_tpu/detect/faster_rcnn.py (the
 reference's lib/model_rcnn/faster_rcnn/faster_rcnn.py:40-104 with
@@ -19,8 +19,17 @@ the heads under autocast over float32 parameters; the proposal decode, NMS,
 ROIAlign's input and the score softmax are always float32
 (faster_rcnn.py:141-144 of the JAX package). `cfg.freeze_bn` keeps every
 BatchNorm on its running statistics, even under `.train()`
-(resnet.py:261-284 of the reference). Detector training (anchor and
-proposal targets, the losses) comes with a later port.
+(resnet.py:261-284 of the reference).
+
+Training (`forward` with gt boxes) adds the anchor and proposal targets
+(detect/rpn.py, detect/targets.py) and the four losses, at the train-time
+proposal sizes. The proposal layer runs on detached RPN outputs, under
+no_grad (kernel 7 on the card): the RoIs are constants to the head and to
+the targets, the reference's approximate joint training (it passes
+`rpn_cls_prob.data, rpn_bbox_pred.data`). The JAX package differentiates
+through the proposal boxes instead, which its documentation does not
+state; the port follows the reference. ROIAlign then back-propagates into
+the features only (kernel 6 and its backward kernel on the card).
 """
 
 from __future__ import annotations
@@ -32,7 +41,16 @@ from torch import nn
 
 from hand_integral_pose_estimation_tpu_torch.config import DetectorConfig
 from hand_integral_pose_estimation_tpu_torch.detect import box_ops
-from hand_integral_pose_estimation_tpu_torch.detect.rpn import proposal_layer
+from hand_integral_pose_estimation_tpu_torch.detect.rpn import (
+    anchor_target_layer,
+    draw_priorities,
+    proposal_layer,
+    rpn_losses,
+)
+from hand_integral_pose_estimation_tpu_torch.detect.targets import (
+    detection_head_losses,
+    proposal_target_layer,
+)
 from hand_integral_pose_estimation_tpu_torch.models.resnet import (
     ResNetBackbone,
     ResNetStage4,
@@ -49,6 +67,16 @@ class DetectionOutputs(NamedTuple):
     cls_scores: torch.Tensor   # (B, R, num_classes) softmax probabilities
     bbox_deltas: torch.Tensor  # (B, R, 4 * num_classes)
     losses: Optional[dict]
+
+
+class SamplingPriorities(NamedTuple):
+    """The uniform draws of one training forward's subsampling: the anchor
+    targets' (B, H*W*A) foreground and background priorities, then the
+    proposal targets' (B, R + G) ones."""
+    anchor_fg: torch.Tensor
+    anchor_bg: torch.Tensor
+    roi_fg: torch.Tensor
+    roi_bg: torch.Tensor
 
 
 class RPN(nn.Module):
@@ -112,7 +140,8 @@ class FasterRCNN(nn.Module):
 
     def _autocast(self, device: torch.device):
         return torch.autocast(device.type, dtype=self.compute_dtype,
-                              enabled=self.compute_dtype != torch.float32)
+                              enabled=self.compute_dtype in (torch.float16,
+                                                             torch.bfloat16))
 
     def anchors(self, feat_hw, device: torch.device) -> torch.Tensor:
         """(H*W*A, 4) float32 anchors of a feature grid, made once per grid
@@ -126,6 +155,18 @@ class FasterRCNN(nn.Module):
                                               c.anchor_scales), device)
         return self._anchors[key]
 
+    def _rpn(self, images: torch.Tensor):
+        """The base and the RPN convs: (feats (B, H/16, W/16, C) in the
+        compute dtype, class logits (B, h, w, 2A), deltas (B, h, w, 4A),
+        anchors)."""
+        with self._autocast(images.device):
+            f = self.RCNN_base(images.permute(0, 3, 1, 2))
+            cls, reg = self.RCNN_rpn(f)
+        feats = f.permute(0, 2, 3, 1)
+        anchors = self.anchors(feats.shape[1:3], images.device)
+        return (feats, cls.permute(0, 2, 3, 1), reg.permute(0, 2, 3, 1),
+                anchors)
+
     def upstream(self, images: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(B, H, W, 3) BGR blob, pixel means subtracted -> (feats
@@ -133,37 +174,98 @@ class FasterRCNN(nn.Module):
         (B, R)): the base, the RPN and the test-time proposal layer."""
         c = self.cfg
         B, H, W, _ = images.shape
-        with self._autocast(images.device):
-            f = self.RCNN_base(images.permute(0, 3, 1, 2))
-            cls, reg = self.RCNN_rpn(f)
-        feats = f.permute(0, 2, 3, 1)
-        anchors = self.anchors(feats.shape[1:3], images.device)
+        feats, cls, reg, anchors = self._rpn(images)
         props = proposal_layer(
-            cls.permute(0, 2, 3, 1), reg.permute(0, 2, 3, 1), anchors, (H, W),
-            c.rpn_pre_nms_top_n_test, c.rpn_post_nms_top_n_test,
-            c.rpn_nms_thresh, c.rpn_min_size)
+            cls, reg, anchors, (H, W), c.rpn_pre_nms_top_n_test,
+            c.rpn_post_nms_top_n_test, c.rpn_nms_thresh, c.rpn_min_size)
         return feats, props.rois, props.valid
 
-    def downstream(self, feats: torch.Tensor, rois: torch.Tensor,
-                   roi_valid: torch.Tensor) -> DetectionOutputs:
-        """`upstream`'s outputs -> DetectionOutputs (losses None): ROIAlign
-        on float32 features, layer4, the spatial mean and the heads."""
+    def _head(self, feats: torch.Tensor, rois: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """ROIAlign on float32 features -> layer4 -> spatial mean -> (class
+        logits (B, R, K), box deltas (B, R, 4K)), in the compute dtype."""
         c = self.cfg
         B, R = rois.shape[0], rois.shape[1]
         P = c.pooling_size
         pooled = roi_align_batched(feats.float().contiguous(), rois, P,
                                    c.spatial_scale, c.sampling_ratio)
-        x = pooled.reshape(B * R, P, P, -1).permute(0, 3, 1, 2)
+        x = pooled.reshape(B * R, P, P, -1).permute(0, 3, 1, 2).to(
+            self.RCNN_cls_score.weight.dtype)
         with self._autocast(feats.device):
             h = self.RCNN_top(x).mean(dim=(2, 3))
             cls_logits = self.RCNN_cls_score(h)
             bbox_pred = self.RCNN_bbox_pred(h)
-        probs = torch.softmax(cls_logits.float().reshape(B, R, -1), dim=-1)
-        return DetectionOutputs(rois=rois, roi_valid=roi_valid,
-                                cls_scores=probs,
-                                bbox_deltas=bbox_pred.float().reshape(B, R, -1),
-                                losses=None)
+        return cls_logits.reshape(B, R, -1), bbox_pred.reshape(B, R, -1)
 
-    def forward(self, images: torch.Tensor) -> DetectionOutputs:
-        """Inference: (B, H, W, 3) blob -> DetectionOutputs."""
-        return self.downstream(*self.upstream(images))
+    def downstream(self, feats: torch.Tensor, rois: torch.Tensor,
+                   roi_valid: torch.Tensor) -> DetectionOutputs:
+        """`upstream`'s outputs -> DetectionOutputs (losses None): ROIAlign
+        on float32 features, layer4, the spatial mean and the heads."""
+        cls_logits, bbox_pred = self._head(feats, rois)
+        return DetectionOutputs(
+            rois=rois, roi_valid=roi_valid,
+            cls_scores=torch.softmax(cls_logits.float(), dim=-1),
+            bbox_deltas=bbox_pred.float(), losses=None)
+
+    def draw_priorities(self, generator: Optional[torch.Generator], batch: int,
+                        feat_hw, num_gt: int,
+                        device) -> SamplingPriorities:
+        """A training forward's subsampling draws from `generator`: the
+        anchor targets' two, then the proposal targets' two."""
+        c = self.cfg
+        n_anchors = feat_hw[0] * feat_hw[1] * self.num_anchors
+        n_cand = c.rpn_post_nms_top_n_train + num_gt
+        return SamplingPriorities(
+            *draw_priorities(generator, (batch, n_anchors), device),
+            *draw_priorities(generator, (batch, n_cand), device))
+
+    def forward(self, images: torch.Tensor,
+                gt_boxes: Optional[torch.Tensor] = None,
+                gt_classes: Optional[torch.Tensor] = None,
+                gt_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                priorities: Optional[SamplingPriorities] = None
+                ) -> DetectionOutputs:
+        """(B, H, W, 3) blob -> DetectionOutputs. Without gt boxes,
+        inference. With them (gt_boxes (B, G, 4) zero-padded, gt_classes
+        (B, G), gt_valid (B, G)), training: the train-time proposals, the
+        anchor and proposal targets, the head on the sampled RoIs, and
+        `losses` {rpn_cls, rpn_reg, det_cls, det_reg}, each the mean over
+        the images. The subsampling's priorities come from `generator`
+        unless given."""
+        if gt_boxes is None:
+            return self.downstream(*self.upstream(images))
+        c = self.cfg
+        B, H, W, _ = images.shape
+        feats, cls, reg, anchors = self._rpn(images)
+        if priorities is None:
+            priorities = self.draw_priorities(
+                generator, B, feats.shape[1:3], gt_boxes.shape[1],
+                images.device)
+        with torch.no_grad():
+            props = proposal_layer(
+                cls.detach(), reg.detach(), anchors, (H, W),
+                c.rpn_pre_nms_top_n_train, c.rpn_post_nms_top_n_train,
+                c.rpn_nms_thresh, c.rpn_min_size)
+            atargets = anchor_target_layer(
+                anchors, gt_boxes, gt_valid, (H, W), c,
+                (priorities.anchor_fg, priorities.anchor_bg))
+            ptargets = proposal_target_layer(
+                props.rois, props.valid, gt_boxes, gt_classes, gt_valid, c,
+                (priorities.roi_fg, priorities.roi_bg))
+        rpn_cls, rpn_reg = rpn_losses(cls, reg, atargets, 3.0)
+
+        cls_logits, bbox_pred = self._head(feats, ptargets.rois)
+        R = ptargets.rois.shape[1]
+        # class-specific regression: each RoI's target-class deltas
+        # (faster_rcnn.py:88-94)
+        sel = torch.gather(
+            bbox_pred.reshape(B, R, -1, 4), 2,
+            ptargets.labels[:, :, None, None].expand(B, R, 1, 4))[:, :, 0]
+        det_cls, det_reg = detection_head_losses(cls_logits, sel, ptargets)
+        losses = {"rpn_cls": rpn_cls.mean(), "rpn_reg": rpn_reg.mean(),
+                  "det_cls": det_cls.mean(), "det_reg": det_reg.mean()}
+        return DetectionOutputs(
+            rois=ptargets.rois, roi_valid=ptargets.valid,
+            cls_scores=torch.softmax(cls_logits.float(), dim=-1),
+            bbox_deltas=bbox_pred.float(), losses=losses)

@@ -261,6 +261,11 @@ WARP_TWOPASS = Kernel(
 ROI_ALIGN_FWD = Kernel(
     "hipe_roi_align_fwd", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ("roi_align_fwd_kernel",))
+#: (g, rois, grad, B, H, W, C, R, pooled, sampling ratio, spatial scale,
+#:  stream)
+ROI_ALIGN_BWD = Kernel(
+    "hipe_roi_align_bwd", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ("roi_align_bwd_kernel",))
 #: (boxes, alive, mask, keep, B, N, iou threshold, plus one, stop after,
 #:  stream)
 NMS = Kernel("hipe_nms", [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
@@ -268,7 +273,7 @@ NMS = Kernel("hipe_nms", [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
 
 KERNELS = (SOFTMAX_INTEGRAL_FWD, HEAD_PROJECTION_INTEGRAL_FWD,
            SOFTMAX_INTEGRAL_BWD, HEAD_PROJECTION_INTEGRAL_BWD, WARP_TWOPASS,
-           ROI_ALIGN_FWD, NMS)
+           ROI_ALIGN_FWD, NMS, ROI_ALIGN_BWD)
 
 
 class _KernelNodeParams(ctypes.Structure):

@@ -8,15 +8,18 @@ contract): pooled x pooled bins over a stride-16 map, each the average
 `roi_align` is the plain version, the JAX package's separable per-RoI
 weights (roi_align.py:25-90): a (S, H) row and a (S, W) column weight
 matrix per RoI, S = pooled * sampling_ratio, contracted with the map, then
-averaged per bin. Autograd differentiates it. `roi_align_batched` takes the
-image batch; on a CUDA tensor it launches kernel 6 (`csrc/roi_align.cu`),
-which reads the taps directly in the same separable form (at each tap
-column, the tap rows of seven pooled rows at once) instead of building the
-TPU kernel's dense combined weights (`_ra_kernel`, roi_align.py:93).
-Forward only: the detector's training comes in a later port and
-differentiates the plain version, as the JAX package trains through its
-XLA path; until then `roi_align_cuda` raises for inputs that require grad
-under grad mode, so the kernel never returns a silently detached result.
+averaged per bin. Autograd differentiates it in the features and the RoIs.
+`roi_align_batched` takes the image batch; on a CUDA tensor it launches
+kernel 6 (`csrc/roi_align.cu`), which reads the taps directly in the same
+separable form (at each tap column, the tap rows of seven pooled rows at
+once) instead of building the TPU kernel's dense combined weights
+(`_ra_kernel`, roi_align.py:93). On the card it is a
+`torch.autograd.Function` whose backward is the kernel
+`csrc/roi_align_bwd.cu`: the plain version's VJP with respect to the
+features, gathered per output in a fixed order (the same bits every run).
+It gives the RoIs no gradient: detector training detaches its proposals,
+as the reference's approximate joint training does, and RoIs that require
+grad under grad mode raise (`impl="plain"` differentiates them).
 """
 
 from __future__ import annotations
@@ -82,26 +85,128 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor,
                     sampling_ratio).mean(dim=(3, 5))[0]
 
 
+def _check_geometry(what: str, dev_tensor: torch.Tensor, rois: torch.Tensor,
+                    B: int, H: int, W: int, C: int, pooled: int,
+                    sampling_ratio: int, max_pooled: int) -> int:
+    """The kernels' common argument checks; returns R."""
+    if dev_tensor.device.type != "cuda" or rois.device != dev_tensor.device:
+        raise ValueError(f"{what} needs CUDA tensors and RoIs on one "
+                         f"device, got {dev_tensor.device} and {rois.device}")
+    if rois.dim() != 3 or rois.shape[0] != B or rois.shape[2] != 4:
+        raise ValueError(f"rois shape {tuple(rois.shape)} is not ({B}, R, 4)")
+    R = rois.shape[1]
+    if (min(B, H, W, C, R, pooled) < 1 or pooled > max_pooled
+            or not 1 <= sampling_ratio <= 8):
+        raise ValueError(f"{what}: empty ROIAlign ({B}, {H}, {W}, {C}) x "
+                         f"{tuple(rois.shape)}, pooled {pooled} outside "
+                         f"1..{max_pooled} or sampling_ratio "
+                         f"{sampling_ratio} outside 1..8")
+    if B * R * pooled ** 2 >= 2**31 or B * H * W >= 2**31:
+        raise ValueError(f"{what}: {B * R} RoIs or a ({B}, {H}, {W}) map are "
+                         f"too many for the kernel's grid")
+    return R
+
+
+def _roi_align_fwd(features: torch.Tensor, boxes: torch.Tensor, pooled: int,
+                   spatial_scale: float, sampling_ratio: int) -> torch.Tensor:
+    """Launch kernel 6 on checked, contiguous float32 inputs."""
+    B, H, W, C = features.shape
+    R = boxes.shape[1]
+    with torch.cuda.device(features.device):
+        out = torch.empty(B, R, pooled, pooled, C, dtype=torch.float32,
+                          device=features.device)
+        kernels.ROI_ALIGN_FWD(
+            features.data_ptr(), boxes.data_ptr(), out.data_ptr(), B, H, W, C,
+            R, pooled, sampling_ratio, float(spatial_scale),
+            torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+#: the largest pooled size of the backward kernel (one bit per pooled row)
+MAX_POOLED_BWD = 32
+
+
+def roi_align_bwd_cuda(g: torch.Tensor, rois: torch.Tensor, feature_hw,
+                       spatial_scale: float = 1.0 / 16.0,
+                       sampling_ratio: int = 2) -> torch.Tensor:
+    """Launch the ROIAlign backward kernel (`csrc/roi_align_bwd.cu`): the
+    gradient of the features for the cotangent `g` of the pooled output.
+
+    g: CUDA (B, R, P, P, C), taken as contiguous float32; rois (B, R, 4) on
+    the same device, any float dtype (taken as float32); feature_hw the
+    map's (H, W). Returns (B, H, W, C) float32. P is at most 32."""
+    B, R, P, P2, C = g.shape
+    H, W = int(feature_hw[0]), int(feature_hw[1])
+    if P != P2:
+        raise ValueError(f"cotangent shape {tuple(g.shape)} is not "
+                         f"(B, R, P, P, C)")
+    _check_geometry("roi_align_bwd_cuda", g, rois, B, H, W, C, P,
+                    sampling_ratio, MAX_POOLED_BWD)
+    if rois.shape[1] != R:
+        raise ValueError(f"{rois.shape[1]} RoIs for a cotangent of {R}")
+    grad_out = g.to(torch.float32).contiguous()
+    boxes = rois.detach().to(torch.float32).contiguous()
+    with torch.cuda.device(g.device):
+        grad = torch.empty(B, H, W, C, dtype=torch.float32, device=g.device)
+        kernels.ROI_ALIGN_BWD(
+            grad_out.data_ptr(), boxes.data_ptr(), grad.data_ptr(), B, H, W,
+            C, R, P, sampling_ratio, float(spatial_scale),
+            torch.cuda.current_stream().cuda_stream)
+    return grad
+
+
+def roi_align_bwd_plain(g: torch.Tensor, rois: torch.Tensor, feature_hw,
+                        spatial_scale: float = 1.0 / 16.0,
+                        sampling_ratio: int = 2) -> torch.Tensor:
+    """The backward kernel's plain version: autograd's VJP of the plain
+    ROIAlign with respect to the features (it is linear in them, so the
+    point it is taken at does not matter)."""
+    B, R, P, _, C = g.shape
+    H, W = int(feature_hw[0]), int(feature_hw[1])
+    with torch.enable_grad():
+        f = torch.zeros(B, H, W, C, dtype=g.dtype, device=g.device,
+                        requires_grad=True)
+        out = _sampled(f, rois.detach().to(g.dtype), P, spatial_scale,
+                       sampling_ratio).mean(dim=(3, 5))
+        (grad,) = torch.autograd.grad(out, f, g)
+    return grad
+
+
+class _RoIAlignCuda(torch.autograd.Function):
+    """Kernel 6 forward, the backward kernel for the features' gradient;
+    the RoIs are constants."""
+
+    @staticmethod
+    def forward(ctx, features, boxes, pooled, spatial_scale, sampling_ratio):
+        ctx.save_for_backward(boxes)
+        ctx.geometry = (features.shape[1:3], spatial_scale, sampling_ratio)
+        return _roi_align_fwd(features, boxes, pooled, spatial_scale,
+                              sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, g):
+        (boxes,) = ctx.saved_tensors
+        hw, spatial_scale, sampling_ratio = ctx.geometry
+        grad = roi_align_bwd_cuda(g, boxes, hw, spatial_scale, sampling_ratio)
+        return grad, None, None, None, None
+
+
 def roi_align_cuda(features: torch.Tensor, rois: torch.Tensor,
                    pooled_size: int = 7, spatial_scale: float = 1.0 / 16.0,
                    sampling_ratio: int = 2) -> torch.Tensor:
-    """Launch the ROIAlign kernel (`csrc/roi_align.cu`).
+    """Launch the ROIAlign kernel (`csrc/roi_align.cu`), differentiable in
+    the features through the backward kernel (`csrc/roi_align_bwd.cu`).
 
     features: contiguous CUDA (B, H, W, C) float32; rois (B, R, 4) on the
     same device, any float dtype (taken as float32). Returns
-    (B, R, pooled, pooled, C) float32. The kernel has no backward: under
-    grad mode, features or RoIs that require grad raise (`impl="plain"`
-    is the differentiable path)."""
-    if torch.is_grad_enabled() and (features.requires_grad
-                                    or rois.requires_grad):
-        raise RuntimeError("roi_align_cuda has no backward and would return "
-                           "a result detached from inputs that require "
-                           "grad: use roi_align_batched(..., impl=\"plain\") "
-                           "to differentiate, or run under torch.no_grad()")
-    if features.device.type != "cuda" or rois.device != features.device:
-        raise ValueError(f"roi_align_cuda needs CUDA features and RoIs on "
-                         f"one device, got {features.device} and "
-                         f"{rois.device}")
+    (B, R, pooled, pooled, C) float32. The RoIs get no gradient: under grad
+    mode, RoIs that require grad raise (`impl="plain"` differentiates
+    them)."""
+    if torch.is_grad_enabled() and rois.requires_grad:
+        raise RuntimeError("roi_align_cuda gives the RoIs no gradient and "
+                           "would detach them silently: detach the RoIs, or "
+                           "use roi_align_batched(..., impl=\"plain\") to "
+                           "differentiate them")
     if features.dtype != torch.float32:
         raise TypeError(f"roi_align_cuda takes float32 features, got "
                         f"{features.dtype}")
@@ -109,24 +214,13 @@ def roi_align_cuda(features: torch.Tensor, rois: torch.Tensor,
         raise ValueError(f"features must be a contiguous (B, H, W, C) "
                          f"tensor, got {tuple(features.shape)}")
     B, H, W, C = features.shape
-    if rois.dim() != 3 or rois.shape[0] != B or rois.shape[2] != 4:
-        raise ValueError(f"rois shape {tuple(rois.shape)} is not ({B}, R, 4)")
-    R = rois.shape[1]
-    if min(B, H, W, C, R, pooled_size) < 1 or not 1 <= sampling_ratio <= 8:
-        raise ValueError(f"empty ROIAlign {tuple(features.shape)} x "
-                         f"{tuple(rois.shape)} or sampling_ratio "
-                         f"{sampling_ratio} outside 1..8")
-    if B * R * pooled_size ** 2 >= 2**31:
-        raise ValueError(f"{B * R} RoIs are too many for the kernel's grid")
-    boxes = rois.to(torch.float32).contiguous()
-    with torch.cuda.device(features.device):
-        out = torch.empty(B, R, pooled_size, pooled_size, C,
-                          dtype=torch.float32, device=features.device)
-        kernels.ROI_ALIGN_FWD(
-            features.data_ptr(), boxes.data_ptr(), out.data_ptr(), B, H, W, C,
-            R, pooled_size, sampling_ratio, float(spatial_scale),
-            torch.cuda.current_stream().cuda_stream)
-    return out
+    max_pooled = (MAX_POOLED_BWD if torch.is_grad_enabled()
+                  and features.requires_grad else 2**15)
+    _check_geometry("roi_align_cuda", features, rois, B, H, W, C, pooled_size,
+                    sampling_ratio, max_pooled)
+    boxes = rois.detach().to(torch.float32).contiguous()
+    return _RoIAlignCuda.apply(features, boxes, pooled_size, spatial_scale,
+                               sampling_ratio)
 
 
 def roi_align_batched(features: torch.Tensor, rois: torch.Tensor,
@@ -136,10 +230,11 @@ def roi_align_batched(features: torch.Tensor, rois: torch.Tensor,
                       impl: str = "auto") -> torch.Tensor:
     """(B, H, W, C) x (B, R, 4) -> (B, R, P, P, C).
 
-    impl: "cuda" (kernel 6, CUDA tensors, forward only: it raises for
-    inputs that require grad under grad mode), "plain" (the separable
-    weights, differentiable) or "auto" (the kernel for a CUDA tensor, the
-    plain version for a CPU tensor)."""
+    impl: "cuda" (kernel 6 and its backward kernel, CUDA tensors,
+    differentiable in the features only: RoIs that require grad raise under
+    grad mode), "plain" (the separable weights, differentiable in both) or
+    "auto" (the kernels for a CUDA tensor, the plain version for a CPU
+    tensor)."""
     if impl == "auto":
         impl = "cuda" if features.device.type == "cuda" else "plain"
     if impl == "cuda":

@@ -269,16 +269,18 @@ def test_softmax_integral_autograd_round_trip(dev, dtype):
 
 
 def test_forward_only_kernels_refuse_inputs_that_require_grad(dev):
-    """ROIAlign and the warp have no backward kernel: under grad mode,
-    inputs that require grad raise instead of a detached result; under
-    no_grad, or for inputs that need none, they run."""
+    """The warp has no backward kernel, and ROIAlign's gives the RoIs no
+    gradient: under grad mode, frames, maps or RoIs that require grad raise
+    instead of a detached result; under no_grad, or for inputs that need
+    none, they run. Features that require grad take ROIAlign's backward
+    kernel."""
     feats = torch.randn(1, 8, 8, 16, device=dev)
     rois = torch.tensor([[[0.0, 0.0, 60.0, 60.0]]], device=dev)
     images = torch.rand(2, 16, 16, 3, device=dev)
     H = torch.eye(3, device=dev).expand(2, 3, 3).contiguous()
     counts = [k.launches for k in kernels.KERNELS]
-    for f, r in ((feats.clone().requires_grad_(), rois),
-                 (feats, rois.clone().requires_grad_())):
+    for f in (feats, feats.clone().requires_grad_()):
+        r = rois.clone().requires_grad_()
         with pytest.raises(RuntimeError, match="impl=\"plain\""):
             roi_align.roi_align_cuda(f, r)
         with pytest.raises(RuntimeError, match="impl=\"plain\""):
@@ -293,7 +295,7 @@ def test_forward_only_kernels_refuse_inputs_that_require_grad(dev):
 
     with torch.no_grad():
         pooled = roi_align.roi_align_cuda(feats.clone().requires_grad_(),
-                                          rois)
+                                          rois.clone().requires_grad_())
         out = warp.warp_perspective_cuda(images.clone().requires_grad_(), H,
                                          (16, 16))
     pooled_needs_none = roi_align.roi_align_cuda(feats, rois)
@@ -304,6 +306,17 @@ def test_forward_only_kernels_refuse_inputs_that_require_grad(dev):
     grad_plain = roi_align.roi_align_batched(
         feats.clone().requires_grad_(), rois, impl="plain")
     assert grad_plain.requires_grad
+    f = feats.clone().requires_grad_()
+    before = kernels.ROI_ALIGN_BWD.launches
+    pooled = roi_align.roi_align_batched(f, rois)
+    assert pooled.requires_grad
+    pooled.sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.ROI_ALIGN_BWD.launches == before + 1
+    fp = feats.clone().requires_grad_()
+    roi_align.roi_align_batched(fp, rois, impl="plain").sum().backward()
+    torch.testing.assert_close(f.grad, fp.grad, rtol=0,
+                               atol=ROI_TOL * float(fp.grad.abs().max()))
 
 
 @pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
@@ -537,7 +550,7 @@ def test_autograd_functions_take_the_kernels_both_ways(dev):
                         "hipe_softmax_integral_bwd": 1,
                         "hipe_head_projection_integral_bwd": 1,
                         "hipe_warp_twopass": 0, "hipe_roi_align_fwd": 0,
-                        "hipe_nms": 0}
+                        "hipe_nms": 0, "hipe_roi_align_bwd": 0}
 
     want_hm, = torch.autograd.grad(
         integral.softmax_integral_reference(hm, J, D)[0], hm, cot)
@@ -648,7 +661,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     torch.cuda.synchronize()
     assert [k.launches for k in kernels.KERNELS] == [
         c + (k not in (kernels.WARP_TWOPASS, kernels.ROI_ALIGN_FWD,
-                       kernels.NMS))
+                       kernels.NMS, kernels.ROI_ALIGN_BWD))
         for k, c in zip(kernels.KERNELS, counts)]
     assert hm.grad.shape == hm.shape and w.grad.shape == w.shape
 
@@ -816,6 +829,93 @@ def test_roi_align_kernel_matches_plain(dev, case):
     assert float(got.abs().sum()) > 0
     if edge:   # the RoIs outside the map pool zeros
         assert not bool(got[:, 4:6].any())
+
+
+def _training_rois(B, R, H, W, g, dev):
+    """(B, R, 4) RoIs in the training proposal targets' layout: a quarter
+    foreground near the image's gt box (the gt box itself among them), the
+    rest background anywhere, the last eighth zero padding slots; among
+    them RoIs partly off the map and one under a single feature cell."""
+    gt = torch.tensor([4.0 * W, 4.0 * H, 12.0 * W, 12.0 * H], device=dev)
+    n_fg, n_pad = max(R // 4, 1), R // 8
+    n_bg = R - n_fg - n_pad
+    fg = gt + (torch.rand(B, n_fg, 4, device=dev, generator=g) - 0.5) * 40
+    fg[:, 0] = gt
+    lo = torch.rand(B, n_bg, 2, device=dev,
+                    generator=g) * torch.tensor([16.0 * W, 16.0 * H],
+                                                device=dev) - 40
+    bg = torch.cat([lo, lo + torch.rand(B, n_bg, 2, device=dev,
+                                        generator=g) * 300 + 2], -1)
+    rois = torch.cat([fg, bg, torch.zeros(B, n_pad, 4, device=dev)], 1)
+    if n_bg >= 2:
+        rois[:, n_fg] = torch.tensor([100.0, 100.0, 108.0, 104.0],
+                                     device=dev)
+        rois[:, n_fg + 1] = torch.tensor(
+            [-60.0, 20.0, 40.0, 16.0 * H + 30.0], device=dev)
+    return rois
+
+
+# (B, H, W, C, R, pooled, sampling ratio): the detector's training shape
+# (4 images x 128 sampled RoIs), ragged maps with an odd RoI count, R = 1,
+# C not a multiple of 4 (the scalar path), sampling ratios 1 and 4,
+# pooled 14 and the largest pooled size, 32
+ROI_BWD_CASES = [(4, 38, 38, 1024, 128, 7, 2), (2, 21, 19, 256, 13, 7, 2),
+                 (1, 9, 11, 64, 1, 7, 2), (3, 9, 11, 6, 9, 7, 2),
+                 (2, 38, 38, 256, 40, 7, 1), (2, 38, 38, 256, 40, 7, 4),
+                 (2, 38, 38, 128, 30, 14, 2), (1, 17, 23, 8, 5, 32, 2)]
+
+
+@pytest.mark.parametrize("case", ROI_BWD_CASES)
+def test_roi_align_bwd_kernel_matches_plain(dev, case):
+    """The backward kernel against autograd's VJP of the plain version:
+    the same float32 weights summed in another order, 1e-5 of the largest
+    gradient entry; two launches give the same bits."""
+    B, H, W, C, R, P, sr = case
+    g = torch.Generator(device=dev).manual_seed(11)
+    rois = _training_rois(B, R, H, W, g, dev)
+    cot = torch.randn(B, R, P, P, C, device=dev, generator=g)
+    before = kernels.ROI_ALIGN_BWD.launches
+    got = roi_align.roi_align_bwd_cuda(cot, rois, (H, W), 1 / 16.0, sr)
+    again = roi_align.roi_align_bwd_cuda(cot, rois, (H, W), 1 / 16.0, sr)
+    torch.cuda.synchronize()
+    assert kernels.ROI_ALIGN_BWD.launches == before + 2
+    want = roi_align.roi_align_bwd_plain(cot, rois, (H, W), 1 / 16.0, sr)
+    assert got.shape == (B, H, W, C) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=ROI_TOL * float(want.abs().max()))
+    assert float(want.abs().max()) > 0
+
+
+def test_roi_align_bwd_through_autograd_and_refusals(dev):
+    """A loss through roi_align_batched on the card takes the backward
+    kernel once and gives the plain path's feature gradient; the kernel
+    refuses a pooled size above 32 and mismatched RoIs."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    feats = torch.randn(2, 12, 10, 32, device=dev, generator=g)
+    rois = _training_rois(2, 16, 12, 10, g, dev)
+    w = torch.randn(2, 16, 7, 7, 32, device=dev, generator=g)
+    f = feats.clone().requires_grad_()
+    counts = {k.symbol: k.launches for k in kernels.KERNELS}
+    (roi_align.roi_align_batched(f, rois) * w).sum().backward()
+    torch.cuda.synchronize()
+    launched = {k.symbol: k.launches - counts[k.symbol]
+                for k in kernels.KERNELS}
+    assert launched["hipe_roi_align_fwd"] == 1
+    assert launched["hipe_roi_align_bwd"] == 1
+    fp = feats.clone().requires_grad_()
+    (roi_align.roi_align_batched(fp, rois, impl="plain") * w).sum().backward()
+    torch.testing.assert_close(f.grad, fp.grad, rtol=0,
+                               atol=ROI_TOL * float(fp.grad.abs().max()))
+    before = kernels.ROI_ALIGN_BWD.launches
+    with pytest.raises(ValueError):
+        roi_align.roi_align_bwd_cuda(
+            torch.zeros(2, 16, 33, 33, 32, device=dev), rois, (12, 10))
+    with pytest.raises(ValueError):
+        roi_align.roi_align_bwd_cuda(w, rois[:, :3], (12, 10))
+    with pytest.raises(ValueError):
+        roi_align.roi_align_bwd_cuda(w, rois.cpu(), (12, 10))
+    assert kernels.ROI_ALIGN_BWD.launches == before
 
 
 def test_detector_kernel_wrappers_refuse_what_they_do_not_take(dev):

@@ -303,6 +303,38 @@ NO_JAX_SCRIPT = textwrap.dedent("""
     assert len(apply_filtered_labels(FreiHandDataset(
         fixture, "training", cfg.with_training_size(2)),
         d + "/db.npz")) == int(np.load(d + "/db.npz")["keep"].sum())
+    # detector training: the CLI's steps and its snapshot restored, the
+    # convergence study; then the three study CLIs
+    from hand_integral_pose_estimation_tpu_torch.cli import (
+        analyze_correlation, detector_convergence, filter_cascade_study,
+        semi_supervised_study, train_detector)
+    det_flags = ["--synthetic", "--n", "8", "--steps", "1", "--batch", "2",
+                 "--eval-every", "1", "--resnet", "18", "--scale", "64",
+                 "--max-size", "64", "--rpn-pre-nms", "64", "--rpn-post-nms",
+                 "16", "--roi-batch", "8", "--device", "cpu"]
+    trained = train_detector.main(det_flags + ["--model-dir", d + "/det"])
+    restored = build_detector(
+        train_detector.detector_cfg_from_args(
+            train_detector.build_argparser().parse_args(det_flags)),
+        d + "/det/faster_rcnn_final.pth")
+    assert all(torch.equal(v, restored.state_dict()[k])
+               for k, v in trained["model"].state_dict().items())
+    study = detector_convergence.run_study(
+        train_n=4, val_n=2, hw=(64, 64), steps=1, batch=2, eval_every=1,
+        device="cpu")
+    assert 0.0 <= study["final_ap"] <= 1.0
+    tiny = ["--batch-size", "2", "--pose-resnet", "18", "--pose-input", "32",
+            "--device", "cpu"]
+    semi_supervised_study.main(["--n", "6", "--labelled", "2", "--test-n",
+                                "2", "--teacher-steps", "1",
+                                "--student-steps", "1", *tiny])
+    assert filter_cascade_study.main(["--n", "4", "--pool", "4",
+                                      "--teacher-steps", "1",
+                                      *tiny])["keep_sets_equal"]
+    analyze_correlation.main(["--synthetic", "--max-samples", "4",
+                              "--model-dir", d + "/m", "--out",
+                              d + "/corr.csv", "--batch-size", "2",
+                              "--device", "cpu", *sizing])
     assert rotation.sample_rotation_matrix(torch.Generator(), 2).shape == (
         2, 3, 3)
     assert callable(losses.combined_loss) and callable(
@@ -320,7 +352,9 @@ def test_port_runs_without_jax(tmp_path):
     serving: the detector pipeline and the challenge CLI; semi-supervised:
     the file-backed split and its JPEG decode, PANet and its trainer, the
     frozen teacher, the teacher-label sweep and its cascade, a student step
-    with both terms, and the four new CLIs), with
+    with both terms, and the four new CLIs; detector training: the
+    train_detector CLI, its snapshot restored, the convergence study; the
+    three study CLIs), with
     jax/flax/optax/orbax and the JAX package blocked by a sys.meta_path
     finder in a fresh interpreter."""
     env = dict(os.environ)
