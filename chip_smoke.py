@@ -1,10 +1,11 @@
 """Smoke test of the PyTorch / CUDA port on one GPU: the pose-serving path,
 the pose-training path, the two-stage (detector -> pose) serving path, the
-semi-supervised path and detector training.
+semi-supervised path, detector training, the input path's device half and
+int8 serving.
 
     python3 chip_smoke.py
 
-Nine phases, each printing what it found; any failure exits non-zero
+Ten phases, each printing what it found; any failure exits non-zero
 before the result line.
 
 1. device: requires CUDA (there is no CPU fallback), prints the card, its
@@ -108,7 +109,28 @@ before the result line.
    once each), timed back to back and profiled; (d) `cli.train_detector
    --synthetic` for three steps, its .pth restored by `build_detector` with
    the same `detect`; (e) `cli.semi_supervised_study`,
-   `cli.filter_cascade_study` and `cli.analyze_correlation` at a few steps.
+   `cli.filter_cascade_study` and `cli.analyze_correlation` at a few steps;
+10. the input path and int8 serving: (a) `yuv420_to_rgb` on the card
+   bitwise against the CPU at 32 x 224^2 and ragged even sizes, timed
+   beside its byte bound, and the pinned host-to-device copy of one batch
+   of packed planes against one RGB batch; the JPEG half needs the
+   libjpeg headers to build, so `Trainer.fit` (fused arm, scan_steps=4
+   replays) runs over
+   the synthetic split with its frames replaced by seeded 4:2:0 planes and
+   the decode inside the captured chunk, against the same steps fed the
+   planes decoded outside (cuDNN deterministic): training state bitwise
+   equal; (b) int8 layers (`quantize`: im2col views and `torch._int_mm`)
+   at the stem, a 3x3 stride-2 conv, 1x1 convs (N 64 and the RPN's 18),
+   the 4x4 stride-2 deconv and a Linear with N = 2: with unit scales the
+   int32 sums bitwise a float64 product of the same int8 values, with
+   calibrated scales the epilogue bitwise; (c) `TwoStagePipeline(
+   int8_calib=...)` at phase 7's width (every conv and Linear quantized but
+   `head.final_layer`), launches per batch, the bundles saved, reloaded
+   (bitwise) and refused when swapped, `cli.evaluate --int8 --int8-db`
+   twice (pred.json bitwise equal), int8 against float per batch; (d)
+   `quantized_teacher_apply` over the 8 x 21 sweep (keep set and variances
+   against the float teacher, ms per batch) and `cli.generate_teacher_labels
+   --teacher-dtype int8`.
 
 Each path's launch counts start from 0 just before the path runs and are
 read just after it; the launches in the kernels line are their sum. The
@@ -1830,6 +1852,443 @@ def detector_training_phase(dev, g, card):
     return launches, {"roi_align_bwd": (worst, t_bwd, bwd_bound)}
 
 
+def input_int8_phase(dev, g, card, cfg):
+    """Phase 10: the input path's device half and int8 serving. Returns the
+    launches of the phase's main runs (the training from packed planes, the
+    int8 pipeline and its CLI, the int8 teacher sweep and its CLI) by
+    kernel symbol."""
+    from hand_integral_pose_estimation_tpu_torch.cli import evaluate as cli
+    from hand_integral_pose_estimation_tpu_torch.cli import (
+        generate_teacher_labels as gen_cli,
+    )
+    from hand_integral_pose_estimation_tpu_torch.config import DetectorConfig
+    from hand_integral_pose_estimation_tpu_torch.data import SyntheticFreiHand
+    from hand_integral_pose_estimation_tpu_torch.data.freihand import (
+        FRAME_HW,
+    )
+    from hand_integral_pose_estimation_tpu_torch.detect import (
+        build_detector,
+        make_synthetic_box_dataset,
+        prepare_blob,
+    )
+    from hand_integral_pose_estimation_tpu_torch.distill import (
+        generate_filtered_labels,
+        quantized_teacher_apply,
+        sweep_patches,
+    )
+    from hand_integral_pose_estimation_tpu_torch.distill.teacher_labels \
+        import camera_project
+    from hand_integral_pose_estimation_tpu_torch.geometry import bbox as bb
+    from hand_integral_pose_estimation_tpu_torch.inference import (
+        TwoStagePipeline,
+    )
+    from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
+    from hand_integral_pose_estimation_tpu_torch.ops.yuv import (
+        planar_sizes,
+        yuv420_to_rgb,
+    )
+    from hand_integral_pose_estimation_tpu_torch.quantize import (
+        Quantized,
+        load_quantized,
+        quantize_model,
+        quantized_apply,
+        save_quantized,
+    )
+    from hand_integral_pose_estimation_tpu_torch.training import Trainer
+    from hand_integral_pose_estimation_tpu_torch.training.teacher import (
+        frozen_teacher,
+    )
+
+    launches = {k.symbol: 0 for k in kernels.KERNELS}
+    IH, IW = cfg.model.input_shape
+
+    def reset():
+        for k in kernels.KERNELS:
+            k.launches = 0
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # ---- a. the YUV 4:2:0 decode on the card, bitwise the CPU's, at the
+    # frames' size (FreiHAND's 224^2) and ragged even sizes
+    FH, FW = FRAME_HW
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    for B, H, W in ((BATCH, FH, FW), (3, 200, 200), (3, 226, 150),
+                    (3, 120, 88), (3, 2, 2)):
+        packed = torch.randint(0, 256, (B, sum(planar_sizes(H, W))),
+                               generator=cpu_gen, dtype=torch.uint8)
+        got = yuv420_to_rgb(packed.to(dev), H, W)
+        same = torch.equal(got.cpu(), yuv420_to_rgb(packed, H, W))
+        print(f"[yuv] yuv420_to_rgb {(B, H, W)} on the card bitwise equal to "
+              f"the CPU's: {same}", flush=True)
+        check(same, f"yuv420_to_rgb {(B, H, W)} differs on the card")
+    planes = torch.randint(0, 256, (BATCH, sum(planar_sizes(FH, FW))),
+                           generator=cpu_gen, dtype=torch.uint8)
+    planes_d = planes.to(dev)
+    t_yuv = statistics.median(event_ms(lambda: yuv420_to_rgb(
+        planes_d, FH, FW), 10) for _ in range(5))
+    px = BATCH * FH * FW
+    yuv_bound = bound(1.5 * px + 3 * px, 0)
+    _, rows = device_profile(lambda: yuv420_to_rgb(planes_d, FH, FW), 3)
+    print(f"[yuv] yuv420_to_rgb at {BATCH} x {FH}x{FW}: {t_yuv:.4f} ms "
+          f"(events, median of 5 x 10 calls), bound {yuv_bound[0]:.4f} ms "
+          f"({yuv_bound[1]}: {1.5 * px / 1e6:.3f} MB read, {3 * px / 1e6:.3f} "
+          f"MB written), {sum(r[2] for r in rows):g} kernels per call, on "
+          f"{card}", flush=True)
+    h2d = {}
+    for name, shape in (("4:2:0 planes", tuple(planes.shape)),
+                        ("RGB", (BATCH, FH, FW, 3))):
+        src = torch.zeros(shape, dtype=torch.uint8, pin_memory=True)
+        dst = torch.empty(shape, dtype=torch.uint8, device=dev)
+        h2d[name] = statistics.median(event_ms(lambda: dst.copy_(
+            src, non_blocking=True), 10) for _ in range(5))
+        print(f"[yuv] pinned host-to-device copy of one {name} batch "
+              f"{shape} ({src.numel() / 1e6:.3f} MB): {h2d[name]:.4f} ms, "
+              f"{src.numel() / h2d[name] / 1e6:.2f} GB/s, on {card}",
+              flush=True)
+
+    # the fused train step replayed with packed planes (the decode inside
+    # the graph) against the same steps fed those planes decoded outside.
+    # The prefetcher needs native/libhipe_io.so, built against libjpeg, so
+    # the script does without it: the Trainer runs over the synthetic
+    # split with its frames replaced by seeded planes, told that its host
+    # batches carry planes.
+    n = 2 * BATCH
+    plane_rows = torch.randint(0, 256, (n, sum(planar_sizes(FH, FW))),
+                               generator=cpu_gen, dtype=torch.uint8)
+    yuv_data = SyntheticFreiHand(n=n, render_joints=True, seed=SEED)
+    rgb_data = SyntheticFreiHand(n=n, render_joints=True, seed=SEED)
+    yuv_data.images = plane_rows.numpy()
+    rgb_data.images = yuv420_to_rgb(plane_rows, FH, FW).numpy()
+    torch.backends.cudnn.deterministic = True
+    twins = {}
+    with tempfile.TemporaryDirectory() as model_dir:
+        for name, data in (("planes", yuv_data), ("rgb", rgb_data)):
+            twin = Trainer(cfg, data, model_dir=model_dir, seed=SEED,
+                           device=dev, scan_steps=GRAPH_CHUNK)
+            twin.yuv_transport = name == "planes"
+            reset()
+            twin.fit(end_epoch=1, steps_per_epoch=GRAPH_STEPS)
+            torch.cuda.synchronize()
+            counts = path_launches(twin.graphs)
+            if name == "planes":
+                add(counts)
+                plane_counts = counts
+            twins[name] = twin
+    torch.backends.cudnn.deterministic = False
+    state_p, state_r = (training_state(twins[k]) for k in ("planes", "rgb"))
+    differ = [k for k in state_r if not torch.equal(state_p[k], state_r[k])]
+    want_counts = {k.symbol: (GRAPH_STEPS if k in (
+        kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+        kernels.HEAD_PROJECTION_INTEGRAL_BWD, kernels.WARP_TWOPASS) else 0)
+        for k in kernels.KERNELS}
+    replay_ms = {}
+    for name, twin in twins.items():
+        (graph,) = twin.graphs.graphs.values()
+        replay_ms[name] = statistics.median(
+            event_ms(graph.replay, 1) for _ in range(5)) / GRAPH_CHUNK
+    print(f"[yuv] fused train step, Trainer.fit with scan_steps="
+          f"{GRAPH_CHUNK} ({GRAPH_STEPS} steps) from packed planes decoded "
+          f"inside the captured chunk, against the same steps fed those "
+          f"planes decoded outside (cudnn deterministic): "
+          f"{len(state_r) - len(differ)} of {len(state_r)} tensors bitwise "
+          f"equal; launches {plane_counts}; replay per step "
+          f"{replay_ms['planes']:.3f} ms with the decode, "
+          f"{replay_ms['rgb']:.3f} ms without, the decode alone "
+          f"{t_yuv:.4f} ms per step of {BATCH}, on {card}", flush=True)
+    check(not differ, f"training from planes differs at {differ[:5]}")
+    check(plane_counts == want_counts, f"planes launches {plane_counts}")
+    del twins, twin, graph, planes_d
+    torch.cuda.empty_cache()
+
+    # ---- b. int8 layers on the card against a float64 product of the
+    # same int8 values: unit scales (the output is the int32 sums, exact in
+    # float32 below 2^24), then calibrated scales with the epilogue
+    layers = (
+        ("stem 7x7 s2, K 147", torch.nn.Conv2d(3, 64, 7, 2, 3, bias=False),
+         (DET_BATCH, 3, IH, IW)),
+        ("3x3 s2", torch.nn.Conv2d(128, 128, 3, 2, 1, bias=False),
+         (DET_BATCH, 128, 56, 56)),
+        ("1x1", torch.nn.Conv2d(256, 64, 1, bias=False),
+         (DET_BATCH, 256, 56, 56)),
+        ("RPN class 1x1, N 18", torch.nn.Conv2d(512, 18, 1),
+         (DET_BATCH, 512, 38, 38)),
+        ("deconv 4x4 s2", torch.nn.ConvTranspose2d(256, 256, 4, 2, 1,
+                                                   bias=False),
+         (DET_BATCH, 256, 28, 28)),
+        ("Linear, N 2", torch.nn.Linear(2048, 2), (DET_BATCH * 300, 2048)),
+    )
+    for name, mod, shape in layers:
+        mod = mod.to(dev).to(memory_format=torch.channels_last) \
+            if len(shape) == 4 else mod.to(dev)
+        kq = torch.randint(-127, 128, mod.weight.shape, device=dev,
+                           generator=g).to(torch.int8)
+        nout = mod.weight.shape[1 if isinstance(
+            mod, torch.nn.ConvTranspose2d) else 0]
+        unit = Quantized({"": kq}, {"": torch.ones(nout, device=dev)},
+                         {"": 1.0}, {})
+        xi = torch.randint(-127, 128, shape, device=dev, generator=g).float()
+        if xi.ndim == 4:
+            xi = xi.contiguous(memory_format=torch.channels_last)
+        with torch.no_grad():
+            sums = quantized_apply(mod, unit, xi).double()
+        x64, w64 = xi.double(), kq.double()
+        if isinstance(mod, torch.nn.Linear):
+            want = x64 @ w64.T
+        elif isinstance(mod, torch.nn.ConvTranspose2d):
+            want = torch.nn.functional.conv_transpose2d(x64, w64, None, 2, 1)
+        else:
+            want = torch.nn.functional.conv2d(x64, w64, None, mod.stride,
+                                              mod.padding)
+        exact = float(want.abs().max()) < 2 ** 24
+        same = exact and torch.equal(sums, want)
+        x = torch.randn(shape, device=dev, generator=g)
+        if x.ndim == 4:
+            x = x.contiguous(memory_format=torch.channels_last)
+        q = quantize_model(mod, [x])
+        with torch.no_grad():
+            got = quantized_apply(mod, q, x)
+            xq = torch.round(x * (1.0 / q.ascales[""])).clamp(-127, 127)
+            w64 = q.kernels[""].double()
+            view = (1, -1) if x.ndim == 2 else (1, -1, 1, 1)
+            if isinstance(mod, torch.nn.Linear):
+                y = xq.double() @ w64.T
+            elif isinstance(mod, torch.nn.ConvTranspose2d):
+                y = torch.nn.functional.conv_transpose2d(xq.double(), w64,
+                                                         None, 2, 1)
+            else:
+                y = torch.nn.functional.conv2d(xq.double(), w64, None,
+                                               mod.stride, mod.padding)
+            oracle = y.float() * (q.kscales[""] * q.ascales[""]).view(view)
+            if "" in q.biases:
+                oracle = oracle + q.biases[""].view(view)
+            same_epi = torch.equal(got, oracle)
+            t_int8 = statistics.median(event_ms(lambda: quantized_apply(
+                mod, q, x), 3) for _ in range(3))
+            t_f32 = statistics.median(event_ms(lambda: mod(x), 3)
+                                      for _ in range(3))
+        print(f"[int8] {name} {tuple(shape)} -> {tuple(sums.shape)}: int32 "
+              f"sums bitwise the float64 product of the same int8 values "
+              f"(largest {float(want.abs().max()):.0f} < 2^24: {exact}): "
+              f"{same}; with the epilogue bitwise: {same_epi}; {t_int8:.4f} "
+              f"ms int8 (quantize, gather, _int_mm, epilogue) against "
+              f"{t_f32:.4f} ms float32, on {card}", flush=True)
+        check(same and same_epi, f"the int8 {name} disagrees with float64")
+
+    # ---- c. the int8 two-stage pipeline at phase 7's width
+    det_cfg = dataclasses.replace(DetectorConfig(), resnet_style="caffe")
+    model = build_detector(det_cfg, generator=torch.Generator().manual_seed(
+        SEED)).to(dev)
+    scenes = make_synthetic_box_dataset(
+        DET_BATCH, hw=(DET_SIZE, DET_SIZE), min_size=int(DET_SIZE * 0.25),
+        max_size=int(DET_SIZE * 0.62), seed=SEED)
+    scale_detector_heads(model, prepare_blob(torch.from_numpy(
+        scenes.images).to(dev), det_cfg)[0])
+    pose = get_pose_net(cfg.model,
+                        generator=torch.Generator().manual_seed(SEED)).to(dev)
+    pcfg = cfg.replace(detector=det_cfg)
+    frames = SyntheticFreiHand(n=PIPE_FRAMES, render_joints=True, seed=SEED)
+    hosts = [frames.host_batch(np.arange(b, b + DET_BATCH))
+             for b in range(0, PIPE_FRAMES, DET_BATCH)]
+    calib = (hosts[0]["image"], hosts[0]["K"], hosts[0]["ref_bone_len"])
+    t0 = time.perf_counter()
+    pipe8 = TwoStagePipeline(pcfg, pose, model, device=dev,
+                             int8_calib=calib)
+    t_calib = time.perf_counter() - t0
+    fp = TwoStagePipeline(pcfg, pose, model, device=dev)
+    q_pose, q_det = pipe8.quantized
+    want_pose = {n for n, m in pose.named_modules() if isinstance(
+        m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))} - {
+        "head.final_layer"}
+    want_det = {n for n, m in model.named_modules()
+                if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))}
+    print(f"[int8] TwoStagePipeline(int8_calib=first batch) calibrated in "
+          f"{t_calib:.1f} s: {len(q_pose.paths)} pose modules (of "
+          f"{len(want_pose)} convs but head.final_layer) and "
+          f"{len(q_det.paths)} detector modules (of {len(want_det)} convs "
+          f"and Linears) quantized, skipped {q_pose.skipped + q_det.skipped}",
+          flush=True)
+    check(set(q_pose.paths) == want_pose and set(q_det.paths) == want_det,
+          "the int8 pipeline left a conv or Linear in float")
+    reset()
+    outs8 = [pipe8(h["image"], h["K"], h["ref_bone_len"]) for h in hosts]
+    torch.cuda.synchronize()
+    counts = {k.symbol: k.launches for k in kernels.KERNELS}
+    add(counts)
+    nb = len(hosts)
+    want_counts = {k.symbol: {kernels.ROI_ALIGN_FWD: nb, kernels.NMS: 2 * nb,
+                              kernels.HEAD_PROJECTION_INTEGRAL_FWD: nb}.get(
+        k, 0) for k in kernels.KERNELS}
+    outs = [fp(h["image"], h["K"], h["ref_bone_len"]) for h in hosts]
+    coords8 = torch.cat([o.coords_label for o in outs8])
+    coords = torch.cat([o.coords_label for o in outs])
+    joints8 = torch.cat([o.joints_cam for o in outs8])
+    d_box = float((torch.cat([o.crop_bbox for o in outs8])
+                   - torch.cat([o.crop_bbox for o in outs])).abs().max())
+    print(f"[int8] int8 pipeline over {PIPE_FRAMES} frames in {nb} batches "
+          f"of {DET_BATCH}: joints finite "
+          f"{bool(torch.isfinite(joints8).all())}; against float: max|d coords| "
+          f"{float((coords8 - coords).abs().max()):.4e}, mean "
+          f"{float((coords8 - coords).abs().mean()):.4e}, max|d crop box| "
+          f"{d_box:.3f} px (random weights: no accuracy gate); launches "
+          f"{counts}", flush=True)
+    check(counts == want_counts, f"int8 pipeline launches {counts}, "
+          f"expected {want_counts}")
+    check(bool(torch.isfinite(joints8).all()) and bool(torch.isfinite(
+        coords8).all()), "the int8 pipeline's joints are not finite")
+    with tempfile.TemporaryDirectory() as d:
+        files = (os.path.join(d, "q.pose.npz"), os.path.join(d, "q.det.npz"))
+        save_quantized(files[0], q_pose)
+        save_quantized(files[1], q_det)
+        loaded = (load_quantized(files[0], type(pose)),
+                  load_quantized(files[1], type(model)))
+        again = TwoStagePipeline(pcfg, pose, model, device=dev,
+                                 int8_calib=loaded)(*calib)
+        same = all(torch.equal(a, b) for a, b in zip(again, outs8[0]))
+        try:
+            TwoStagePipeline(pcfg, pose, model, device=dev,
+                             int8_calib=loaded[::-1])
+            refused = False
+        except ValueError:
+            refused = True
+        print(f"[int8] bundles saved and reloaded: outputs bitwise equal "
+              f"{same}; the swapped pair refused {refused}", flush=True)
+        check(same and refused, "reloaded int8 bundles")
+        preds = []
+        for run in range(2):
+            reset()
+            cli.main(["--synthetic", "--synthetic-size", str(PIPE_FRAMES),
+                      "--batch-size", str(DET_BATCH), "--use-detector",
+                      "--int8", "--int8-db", os.path.join(d, "cli"),
+                      "--model-dir", os.path.join(d, "none"), "--result-dir",
+                      os.path.join(d, f"r{run}"), "--device", "cuda"])
+            torch.cuda.synchronize()
+            add({k.symbol: k.launches for k in kernels.KERNELS})
+            with open(os.path.join(d, f"r{run}", "pred.json")) as f:
+                preds.append(f.read())
+        print(f"[int8] cli.evaluate --synthetic --use-detector --int8 "
+              f"--int8-db twice (writing, then reading the bundles): "
+              f"pred.json bitwise equal {preds[0] == preds[1]}", flush=True)
+        check(preds[0] == preds[1], "cli.evaluate --int8-db's second run "
+              "differs from its first")
+
+    def per_batch(p, h, n=10):
+        for _ in range(2):
+            p(h["image"], h["K"], h["ref_bone_len"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            p(h["image"], h["K"], h["ref_bone_len"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    h = hosts[0]
+    t_fp, t_8, t_8b, t_fpb = (per_batch(fp, h), per_batch(pipe8, h),
+                              per_batch(pipe8, h), per_batch(fp, h))
+    busy_fp, rows_fp = device_profile(lambda: fp(h["image"], h["K"],
+                                                 h["ref_bone_len"]), 3)
+    busy_8, rows_8 = device_profile(lambda: pipe8(h["image"], h["K"],
+                                                  h["ref_bone_len"]), 3)
+    print(f"[int8] TwoStagePipeline at batch {DET_BATCH} back to back "
+          f"(host clock, turns fp, int8, int8, fp): int8 {t_8:.3f} / "
+          f"{t_8b:.3f} ms/batch, float {t_fp:.3f} / {t_fpb:.3f}; device busy "
+          f"int8 {busy_8:.3f} ms over {sum(r[2] for r in rows_8):g} kernels "
+          f"per batch, float {busy_fp:.3f} ms over "
+          f"{sum(r[2] for r in rows_fp):g}; on {card}", flush=True)
+    print_profile(f"int8 TwoStagePipeline at batch {DET_BATCH}",
+                  lambda: pipe8(h["image"], h["K"], h["ref_bone_len"]), 3,
+                  card, top=10)
+    del pipe8, fp, model, outs, outs8, again
+    torch.cuda.empty_cache()
+
+    # ---- d. the int8 teacher over 8 images x 21 rotations
+    teacher_net = get_pose_net(
+        cfg.model, generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
+    sweep_data = SyntheticFreiHand(n=SWEEP_BATCH, render_joints=True,
+                                   seed=SEED)
+    host = sweep_data.host_batch(np.arange(SWEEP_BATCH))
+    images, K, joints = (torch.from_numpy(host[k]).to(dev)
+                         for k in ("image", "K", "joint_cam"))
+    uv, _, _ = camera_project(joints, K)
+    box = bb.bbox_from_keypoints(uv, torch.ones_like(uv[..., 0]),
+                                 pad_factor=cfg.augment.pad_factor)
+    unl = torch.zeros(SWEEP_BATCH, dtype=torch.bool, device=dev)
+    teacher = frozen_teacher(teacher_net, cfg)
+    t = cfg.train
+    sweep_kw = dict(num_rotations=t.teacher_num_rotations,
+                    rotation_range=t.teacher_rotation_range,
+                    patch_hw=(IH, IW))
+    # the head scaled on the sweep's own crops, as in phase 8
+    thetas = np.linspace(-t.teacher_rotation_range, t.teacher_rotation_range,
+                         t.teacher_num_rotations)
+    with torch.no_grad():
+        scale_projection(teacher_net, sweep_patches(
+            images, K, box, cfg.augment, thetas, t.teacher_rotation_range,
+            (IH, IW))[:BATCH])
+    teacher8, q8 = quantized_teacher_apply(
+        teacher_net, images, K, box, cfg.augment, cfg.model.num_joints,
+        cfg.model.depth_dim, **sweep_kw)
+    with torch.no_grad():
+        want = generate_filtered_labels(teacher, images, K, box, unl, joints,
+                                        **sweep_kw)
+        reset()
+        got = generate_filtered_labels(teacher8, images, K, box, unl, joints,
+                                       **sweep_kw)
+        torch.cuda.synchronize()
+    counts = {k.symbol: k.launches for k in kernels.KERNELS}
+    add(counts)
+    var = want.variance.sort().values
+    mid = SWEEP_BATCH // 2
+    thr = float((var[mid - 1] * var[mid]).sqrt())
+    print(f"[int8] int8 teacher ({len(q8.paths)} modules, head.final_layer "
+          f"in float) over {SWEEP_BATCH} x {t.teacher_num_rotations} crops: "
+          f"variances {[f'{v:.3e}' for v in got.variance.tolist()]} against "
+          f"float {[f'{v:.3e}' for v in want.variance.tolist()]}; keep at a "
+          f"threshold {thr:.3e} between the float middle variances "
+          f"{(got.variance < thr).int().tolist()} against "
+          f"{(want.variance < thr).int().tolist()}; launches {counts}",
+          flush=True)
+    check(bool(torch.isfinite(got.per_rotation).all()),
+          "the int8 teacher's predictions are not finite")
+    check(counts == {k.symbol: int(k in (kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+                                         kernels.WARP_TWOPASS))
+                     for k in kernels.KERNELS},
+          f"int8 sweep launches {counts}")
+
+    def sweep(apply):
+        with torch.no_grad():
+            generate_filtered_labels(apply, images, K, box, unl, joints,
+                                     **sweep_kw)
+
+    ms = {}
+    for name, apply in (("float", teacher), ("int8", teacher8),
+                        ("int8 again", teacher8), ("float again", teacher)):
+        sweep(apply)
+        ms[name] = statistics.median(event_ms(lambda: sweep(apply), 1)
+                                     for _ in range(5))
+    print(f"[int8] teacher sweep per batch of {SWEEP_BATCH} x "
+          f"{t.teacher_num_rotations} crops (events, median of 5, turns): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f"; on {card}", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        reset()
+        db = gen_cli.main(["--synthetic", "--synthetic-size", "16",
+                           "--teacher-dtype", "int8", "--model-dir",
+                           os.path.join(d, "none"), "--out",
+                           os.path.join(d, "db.npz"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        add({k.symbol: k.launches for k in kernels.KERNELS})
+    print(f"[int8] cli.generate_teacher_labels --synthetic --teacher-dtype "
+          f"int8: {int(db['keep'].sum())} of {len(db['keep'])} kept, "
+          f"variances finite {bool(np.isfinite(db['variance']).all())}",
+          flush=True)
+    check(len(db["keep"]) == 16 and np.isfinite(db["variance"]).all(),
+          "cli.generate_teacher_labels --teacher-dtype int8")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -2538,6 +2997,9 @@ def main() -> None:
     # ---- 9. detector training and the study CLIs
     dtrain_launches, dtrain = detector_training_phase(dev, g, card)
 
+    # ---- 10. the input path's device half and int8 serving
+    int8_launches = input_int8_phase(dev, g, card, cfg)
+
     pkg = "hand_integral_pose_estimation_tpu_torch/csrc/"
     ref = "hand_integral_pose_estimation_tpu/ops/"
     meta = {
@@ -2575,7 +3037,8 @@ def main() -> None:
          "replaces": ref + tpu,
          "launches": (serving_launches[k.symbol] + train_launches[k.symbol]
                       + det_launches[k.symbol] + semi_launches[k.symbol]
-                      + dtrain_launches[k.symbol]),
+                      + dtrain_launches[k.symbol]
+                      + int8_launches[k.symbol]),
          "max_abs_err": err[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}

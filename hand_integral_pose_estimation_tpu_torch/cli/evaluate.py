@@ -26,7 +26,12 @@ cached boxes crop).
 Detector weights are random from `--seed` unless `--detector-ckpt` names a
 reference faster_rcnn_*.pth; the pose net's come from the latest
 snapshot under `--model-dir` (or `--evaluate-epoch`) when there is one.
-`--mesh` and `--int8` come with later ports.
+
+`--int8` runs both nets of the two-stage sweep with int8 post-training
+quantization (`quantize/ptq.py`), calibrated on the first batch; with
+`--int8-db PREFIX` the bundles are written to PREFIX.pose.npz and
+PREFIX.det.npz, and read from there when both exist. `--mesh` comes with
+the port of `parallel/`.
 """
 
 from __future__ import annotations
@@ -88,11 +93,17 @@ def build_argparser():
                         "checkpoint")
     p.add_argument("--device", default="cuda")
     p.add_argument("--mesh", default=None,
-                   help="not ported: multi-GPU sweeps come with ROADMAP "
-                        "Queue 1 step 13")
+                   help="not ported: multi-GPU sweeps come with the port of "
+                        "parallel/")
     p.add_argument("--int8", action="store_true",
-                   help="not ported: int8 serving comes with ROADMAP Queue 1 "
-                        "step 12")
+                   help="int8 post-training quantization of both nets of the "
+                        "two-stage sweep (per-channel weights, input scales "
+                        "calibrated on the first batch, s8 x s8 -> s32 "
+                        "products); needs the detector path")
+    p.add_argument("--int8-db", default=None,
+                   help="path prefix of the int8 bundles (PREFIX.pose.npz, "
+                        "PREFIX.det.npz): read when both exist, written "
+                        "after calibration otherwise")
     add_override_flags(p)
     return p
 
@@ -136,10 +147,7 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     if args.mesh is not None:
         raise SystemExit("--mesh is not ported: multi-GPU sweeps come with "
-                         "ROADMAP Queue 1 step 13")
-    if args.int8:
-        raise SystemExit("--int8 is not ported: int8 serving comes with "
-                         "ROADMAP Queue 1 step 12")
+                         "the port of parallel/")
 
     import dataclasses
     import os
@@ -190,6 +198,14 @@ def main(argv=None):
         print(f"attached {len(bboxes)} cached crop boxes from {args.bbox_db}")
         use_detector = False
 
+    if args.int8 and not use_detector:
+        raise SystemExit("--int8 runs through the two-stage detector "
+                         "pipeline; pass --use-detector (and no matching "
+                         "--bbox-db cache)")
+    if args.int8 and args.split_detector:
+        raise SystemExit("--split-detector does not compose with --int8 "
+                         "(as in the JAX package)")
+
     if use_detector:
         from hand_integral_pose_estimation_tpu_torch.detect.load import (
             build_detector,
@@ -197,13 +213,39 @@ def main(argv=None):
         from hand_integral_pose_estimation_tpu_torch.inference import (
             TwoStagePipeline,
         )
+        from hand_integral_pose_estimation_tpu_torch.quantize import (
+            load_quantized,
+            save_quantized,
+        )
 
         detector = build_detector(
             cfg.detector, args.detector_ckpt,
             generator=torch.Generator().manual_seed(args.seed))
-        pipe = TwoStagePipeline(cfg, model, detector, device=args.device,
-                                split_detector=args.split_detector)
         n = len(dataset)
+        int8_calib, loaded = None, False
+        files = ((args.int8_db + ".pose.npz", args.int8_db + ".det.npz")
+                 if args.int8 and args.int8_db else None)
+        if files and all(os.path.exists(f) for f in files):
+            int8_calib = (load_quantized(files[0], type(model)),
+                          load_quantized(files[1], type(detector)))
+            loaded = True
+            print(f"int8: loaded the bundles {args.int8_db}.*")
+        elif args.int8:
+            # calibrate the input scales on the first padded batch
+            host = dataset.host_batch(next(padded_batches(n,
+                                                          args.batch_size)))
+            int8_calib = (host["image"], host["K"], host["ref_bone_len"])
+        pipe = TwoStagePipeline(cfg, model, detector, device=args.device,
+                                split_detector=args.split_detector,
+                                int8_calib=int8_calib)
+        if args.int8:
+            q_pose, q_det = pipe.quantized
+            print(f"int8: quantized {len(q_pose.paths)} pose + "
+                  f"{len(q_det.paths)} detector modules")
+            if files and not loaded:
+                save_quantized(files[0], q_pose)
+                save_quantized(files[1], q_det)
+                print(f"int8: wrote the bundles {args.int8_db}.*")
         coords_all, bbox_all, K_all, ref_all = [], [], [], []
         for idx in padded_batches(n, args.batch_size):
             host = dataset.host_batch(idx)

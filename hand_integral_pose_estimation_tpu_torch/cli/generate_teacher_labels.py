@@ -15,7 +15,10 @@ batched forward per batch; records whose prediction variance is below the
 threshold are kept. Writes the pseudo-label db (npz: joint_cam_normalized,
 tprime, variance, keep, labelled and the record names), which `cli.train
 --filtered-db` reads. `--cascade` gives the same keep set with the exact
-early-reject cascade. The int8 teacher and `--mesh` come with later ports.
+early-reject cascade. `--teacher-dtype` sets the teacher's compute dtype;
+`int8` runs its convs as int8 products, calibrated on the first batch's
+own sweep patches (`distill.quantized_teacher_apply`). `--mesh` comes
+with the port of `parallel/`.
 """
 
 from __future__ import annotations
@@ -44,6 +47,13 @@ def build_argparser():
                    help="factored: one shared crop per record, then the "
                         "rotated crops from it; composed: one warp of the "
                         "full frame per rotation")
+    p.add_argument("--teacher-dtype",
+                   choices=("float32", "bfloat16", "int8"), default=None,
+                   help="teacher compute dtype (default: the config's, "
+                        "bfloat16); the decode and the filter accumulate in "
+                        "float32 either way. 'int8' runs the teacher's convs "
+                        "as s8 x s8 -> s32 products calibrated on the first "
+                        "batch's sweep patches")
     p.add_argument("--cascade", action="store_true",
                    help="two-pass exact early-reject filter "
                         "(distill/cascade.py): the same keep set")
@@ -61,6 +71,8 @@ def build_argparser():
 def main(argv=None):
     args = build_argparser().parse_args(argv)
 
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -75,6 +87,7 @@ def main(argv=None):
     from hand_integral_pose_estimation_tpu_torch.distill import (
         CascadeRunner,
         generate_filtered_labels,
+        quantized_teacher_apply,
     )
     from hand_integral_pose_estimation_tpu_torch.geometry import bbox as bb
     from hand_integral_pose_estimation_tpu_torch.distill.teacher_labels \
@@ -82,23 +95,24 @@ def main(argv=None):
     from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
     from hand_integral_pose_estimation_tpu_torch.training.teacher import (
         frozen_teacher,
-        make_frozen_teacher,
+        load_teacher_model,
     )
 
     cfg = sized_config(args.pose_resnet, args.pose_input)
     if args.training_size:
         cfg = cfg.with_training_size(args.training_size)
+    if args.teacher_dtype in ("float32", "bfloat16"):
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, compute_dtype=args.teacher_dtype))
     dataset = load_split(args, cfg, "training")
     device = torch.device(args.device)
     try:
-        teacher_apply = make_frozen_teacher(cfg, args.model_dir,
-                                            device=device)
+        teacher = load_teacher_model(cfg, args.model_dir, device=device)
         print(f"teacher from {args.model_dir}")
     except FileNotFoundError:
         print(f"no teacher snapshot: a fresh model (seed {args.seed})")
-        teacher_apply = frozen_teacher(get_pose_net(
-            cfg.model, torch.Generator().manual_seed(args.seed)).to(device),
-            cfg)
+        teacher = get_pose_net(
+            cfg.model, torch.Generator().manual_seed(args.seed)).to(device)
 
     def device_batch(host):
         """Host batch -> (images, K, joint_cam, labelled, bbox) on the
@@ -120,6 +134,18 @@ def main(argv=None):
                  variance_threshold=args.variance_threshold,
                  patch_hw=cfg.model.input_shape,
                  rotation_mode=args.rotation_mode)
+    if args.teacher_dtype == "int8":
+        images, K, _, _, box = device_batch(dataset.host_batch(
+            next(padded_batches(len(dataset), args.batch_size))))
+        teacher_apply, q8 = quantized_teacher_apply(
+            teacher, images, K, box, cfg.augment, cfg.model.num_joints,
+            cfg.model.depth_dim, num_rotations=t.teacher_num_rotations,
+            rotation_range=t.teacher_rotation_range,
+            patch_hw=cfg.model.input_shape, rotation_mode=args.rotation_mode)
+        print(f"int8 teacher: {len(q8.paths)} modules quantized "
+              f"(calibrated on the first batch's sweep patches)")
+    else:
+        teacher_apply = frozen_teacher(teacher, cfg)
     runner = (CascadeRunner(teacher_apply, cfg.augment,
                             pass1_rotations=args.cascade_pass1,
                             pass2_batch=args.batch_size, device=device,

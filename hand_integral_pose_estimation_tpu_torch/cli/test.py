@@ -12,9 +12,11 @@ the training split).
     python -m hand_integral_pose_estimation_tpu_torch.cli.test --synthetic \
         --model-dir output/model_dump [--epoch 3] --device cuda
 
-`--model-dir` evaluates a snapshot that `cli.train` wrote (the latest one
-unless `--epoch` names another); give it the `--pose-resnet` and
-`--pose-input` the model was trained with.
+`--model-dir` (default output/model_dump, as in the JAX CLI) evaluates a
+snapshot that `cli.train` wrote (the latest one unless `--epoch`, or the
+JAX CLI's `--test-epoch`, names another); give it the `--pose-resnet` and
+`--pose-input` the model was trained with. Where there is no snapshot, a
+fresh model from `--seed` is evaluated, with a note.
 """
 
 from __future__ import annotations
@@ -38,9 +40,10 @@ def build_argparser():
                    help="a reference ResPoseNet snapshot .pth (main/model.py "
                         "state_dict; {'network': ...} envelope and "
                         "DataParallel 'module.' prefix ok)")
-    p.add_argument("--model-dir", default=None,
+    p.add_argument("--model-dir", default="output/model_dump",
                    help="directory of cli.train's snapshot_{epoch}.pth.tar")
-    p.add_argument("--epoch", type=int, default=None,
+    p.add_argument("--epoch", "--test-epoch", dest="epoch", type=int,
+                   default=None,
                    help="snapshot epoch under --model-dir (default: latest)")
     p.add_argument("--pose-resnet", type=int, default=None)
     p.add_argument("--pose-input", type=int, default=None)
@@ -81,12 +84,13 @@ def main(argv=None):
     if args.torch_snapshot:
         load_pose_snapshot(model, args.torch_snapshot)
         print(f"loaded reference snapshot {args.torch_snapshot}")
-    elif args.model_dir:
-        epoch = load_checkpoint(args.model_dir, model, epoch=args.epoch)
-        print(f"loaded snapshot_{epoch} from {args.model_dir}")
     else:
-        print(f"no snapshot given: evaluating a fresh model (seed "
-              f"{args.seed})")
+        try:
+            epoch = load_checkpoint(args.model_dir, model, epoch=args.epoch)
+            print(f"loaded snapshot_{epoch} from {args.model_dir}")
+        except FileNotFoundError:
+            print(f"no snapshot found in {args.model_dir}: evaluating a "
+                  f"fresh model (seed {args.seed})")
     tester = Tester(cfg=cfg, dataset=dataset, model=model, device=args.device)
     coords, batch = tester.run(batch_size=args.batch_size)
     summary = evaluate_test_split(coords, batch, result_dir=args.result_dir)

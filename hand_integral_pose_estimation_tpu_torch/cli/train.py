@@ -26,8 +26,13 @@ as in the reference. `--panet-ckpt` adds the PANet prior term, weighted by
 instead of the boxes of the projected gt joints (the use_hand_detector
 mode, FreiHand.py:468-470): they come from the `--bbox-db` cache, swept by
 the detector of `--detector-ckpt` (random weights from `--seed` without
-one) and saved there when it is missing or stale. The ImageNet init, the
-device mesh and the YUV transport come with later ports.
+one) and saved there when it is missing or stale.
+
+A file-backed split is decoded by the native batch prefetcher, the next
+batch while the device trains on this one; `--yuv-transport` ships the
+JPEGs' 4:2:0 planes (half the bytes) and finishes the decode on the
+device, bitwise the host decode. The ImageNet init and the device mesh
+come with later ports.
 """
 
 from __future__ import annotations
@@ -102,6 +107,11 @@ def build_argparser():
                    help="decode the materialised heatmap (kernels 1 and 2) "
                         "instead of the fused projection + decode (kernels "
                         "3 and 4)")
+    p.add_argument("--yuv-transport", action="store_true",
+                   help="ship batches to the device as the JPEGs' own 4:2:0 "
+                        "planes (half the bytes) and finish the decode on "
+                        "the device, bitwise the host decode (ops/yuv.py); "
+                        "needs --data-dir with 4:2:0 JPEGs of 224x224")
     return p
 
 
@@ -228,7 +238,8 @@ def main(argv=None):
                       continue_train=args.continue_train, seed=args.seed,
                       test_dataset=test_dataset, device=args.device,
                       fuse_head=not args.unfused_head,
-                      teacher_apply=teacher_apply, panet_apply=panet_apply)
+                      teacher_apply=teacher_apply, panet_apply=panet_apply,
+                      yuv_transport=args.yuv_transport)
     trainer.fit(end_epoch=args.epochs, steps_per_epoch=args.steps_per_epoch)
     return trainer
 

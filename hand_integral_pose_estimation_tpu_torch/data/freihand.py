@@ -35,6 +35,9 @@ from hand_integral_pose_estimation_tpu_torch.data.native_loader import (
 
 VERSIONS = ("gs", "hom", "sample", "auto")
 DB_SIZE = 32560  # unique training samples (FreiHand.py:173)
+#: (height, width) every frame is decoded at: FreiHAND's JPEGs are 224^2,
+#: and K and the boxes are in these pixels whatever the model's input size
+FRAME_HW = (224, 224)
 
 
 def version_map_id(idx: int, version: str) -> int:
@@ -150,7 +153,7 @@ class FreiHandDataset:
 
     def read_image(self, rec: SampleRecord) -> np.ndarray:
         """RGB (224, 224, 3) uint8 through the native decoder."""
-        return decode_jpeg(rec.img_path)
+        return decode_jpeg(rec.img_path, *FRAME_HW)
 
     def sample_indices(self, rng: np.random.RandomState, batch_size: int,
                        labelled_prob: Optional[float] = None) -> np.ndarray:
@@ -174,6 +177,16 @@ class FreiHandDataset:
     def host_batch(self, indices: np.ndarray) -> dict:
         recs = [self.records[i] for i in indices]
         return stack_host_batch(recs, [self.read_image(r) for r in recs])
+
+
+def reads_jpeg_files(dataset) -> bool:
+    """True when `dataset`'s records name JPEG files that its `read_image`
+    decodes with `decode_jpeg` at `FRAME_HW`: a `FreiHandDataset`, or a
+    subclass that keeps its `read_image` (not `InMemoryFreiHand`, whose
+    records name no files). Only such datasets can be read through the
+    batch prefetcher (`data.native_loader.NativeLoader`)."""
+    return getattr(type(dataset), "read_image",
+                   None) is FreiHandDataset.read_image
 
 
 def stack_host_batch(recs: list[SampleRecord],

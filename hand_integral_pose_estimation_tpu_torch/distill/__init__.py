@@ -9,6 +9,7 @@ from hand_integral_pose_estimation_tpu_torch.distill.teacher_labels import (  # 
     FilteredLabels,
     filter_precision_curve,
     generate_filtered_labels,
+    quantized_teacher_apply,
     rotation_sweep_camera,
     sweep_patches,
     teacher_error_vs_variance,

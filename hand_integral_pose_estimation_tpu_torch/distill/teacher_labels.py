@@ -14,14 +14,16 @@ clip(patch - mean, 0, 255) is the training `_normalise` at std 1 and a
 colour scale of 1, exactly. The teacher decodes through kernel 3
 (`training.teacher`). The JAX package's sweep off the TPU warps with the
 single-pass bilinear filter; this one always takes the two-pass filter of
-the TPU kernel (ROADMAP Queue 3 item 4). The int8 teacher and the device
-mesh of the JAX package are not ported yet.
+the TPU kernel (ROADMAP Queue 3 item 4). `quantized_teacher_apply` gives
+an int8 teacher, calibrated on the sweep's own patches. The device mesh of
+the JAX package is not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,9 +36,17 @@ from hand_integral_pose_estimation_tpu_torch.geometry import (
     rotation,
     transforms,
 )
+from hand_integral_pose_estimation_tpu_torch.ops.fused_head import (
+    head_projection_integral,
+)
 from hand_integral_pose_estimation_tpu_torch.ops.warp import (
     warp_axis_aligned_batch,
     warp_normalise_batch,
+)
+from hand_integral_pose_estimation_tpu_torch.quantize import (
+    calibrate,
+    quantize_params,
+    quantized_calls,
 )
 
 #: side of the factored sweep's shared base crop
@@ -153,6 +163,69 @@ def rotation_sweep_camera(
         coords, trans_inv[:, None], tprime[:, None], K[:, None],
         Rz[None].expand(B, T, 3, 3), pw, ph)
     return cam, tprime
+
+
+def quantized_teacher_apply(
+    model: torch.nn.Module,
+    images: torch.Tensor,
+    K: torch.Tensor,
+    bbox: torch.Tensor,
+    acfg: AugmentConfig,
+    num_joints: int,
+    depth_dim: int,
+    num_rotations: int = 21,
+    rotation_range: float = 0.52,
+    patch_hw=(224, 224),
+    rotation_mode: str = "factored",
+    calib_rotations: int = 5,
+    forward: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    method: str = "auto",
+):
+    """An int8 teacher for the variance filter (JAX
+    distill/teacher_labels.py:272-350).
+
+    Calibration taps the teacher's conv inputs during one float sweep over
+    `images` (a representative batch, with K and bbox), so the scales come
+    from the filter's own warped, normalised patches, on
+    `calib_rotations` angles of the sweep spread evenly over it, endpoints
+    included. The heatmap projection (`head.final_layer`) stays in float.
+    `forward` is the float teacher body, patches -> (N, J, 3): by default
+    the pose net's features and the fused projection + decode (kernel 3 on
+    the card), which reads the projection's weights directly. `model` is
+    put in eval mode.
+
+    Returns `(teacher_apply, Quantized)`: patches -> (N, J, 3) with the
+    int8 convs, and the bundle."""
+    model.eval()
+    if forward is None:
+        @torch.no_grad()
+        def forward(patches):
+            feats = model(patches, return_features=True)
+            weight, bias = model.final_projection()
+            return head_projection_integral(feats, weight, bias, num_joints,
+                                            depth_dim)
+
+    full = sweep_thetas(num_rotations, rotation_range)
+    idx = np.unique(np.round(np.linspace(
+        0, num_rotations - 1, min(calib_rotations, num_rotations))
+    ).astype(int))
+
+    def calib_fn(im):
+        return rotation_sweep_camera(forward, im, K, bbox, acfg, full[idx],
+                                     rotation_range, patch_hw, rotation_mode,
+                                     method)[0]
+
+    amax = calibrate(calib_fn, images, model=model)
+    q = dataclasses.replace(
+        quantize_params(model, amax, skip=("head.final_layer",)),
+        root_type=type(model))
+    calls = quantized_calls(q, model)
+
+    def teacher_apply(patches: torch.Tensor) -> torch.Tensor:
+        with calls:
+            return forward(patches)
+
+    return teacher_apply, q
 
 
 def camera_project(joint_cam: torch.Tensor, K: torch.Tensor):

@@ -7,11 +7,16 @@ path of BASELINE config 4 (the reference's `HandDetector.detect` ->
 with no host round trip: the detector (kernels 7 and 6 on the card), the
 eval crop, the pose net's features, the fused projection + soft-argmax
 (kernel 3) and the camera back-projection. The JAX package compiles the
-stages into one program; eagerly they are issued one after another.
+stages into one program; eagerly they are issued one after another. With
+int8 post-training quantization (`int8_calib`) both nets' convs and
+Linears run as int8 products (`quantize/ptq.py`); the kernels stay the
+same.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -28,6 +33,13 @@ from hand_integral_pose_estimation_tpu_torch.geometry import labels
 from hand_integral_pose_estimation_tpu_torch.ops.fused_head import (
     head_projection_integral,
 )
+from hand_integral_pose_estimation_tpu_torch.quantize import (
+    Quantized,
+    calibrate,
+    quantize_params,
+    quantized_calls,
+    verify_source_params,
+)
 
 
 class PipelineOutput(NamedTuple):
@@ -43,8 +55,19 @@ class TwoStagePipeline:
     put in eval mode.
 
     `split_detector=True` runs the detector as its two halves
-    (`detect_split`). `mesh` (multi-GPU serving) and `int8_calib` (int8
-    post-training quantisation) belong to later ports and raise."""
+    (`detect_split`).
+
+    With `int8_calib`, both nets' convs, transposed convs and Linears run
+    as s8 x s8 -> s32 products (`quantize`). It is either
+    `(images_rgb, K, ref_bone_len)`, calibration inputs that the pipeline
+    itself runs once per net in float to take each module's input scale,
+    or a pre-built `(q_pose, q_det)` pair of bundles carrying their root
+    types (`quantize.load_quantized(path, root_type=...)`), checked against
+    the nets' weights. The heatmap projection stays in float: kernel 3
+    reads its weights directly. The bundles land on
+    `self.quantized = (q_pose, q_det)`. As in the JAX package, int8 does
+    not compose with `split_detector`. `mesh` (multi-GPU serving) comes
+    with the port of `parallel/` and raises."""
 
     def __init__(self, cfg: Config, pose_net: nn.Module, detector: nn.Module,
                  device: str | torch.device = "cuda",
@@ -52,16 +75,59 @@ class TwoStagePipeline:
         if mesh is not None:
             raise NotImplementedError(
                 "TwoStagePipeline(mesh=...): multi-GPU serving comes with "
-                "the port of the mesh (ROADMAP Queue 1 step 13)")
-        if int8_calib is not None:
-            raise NotImplementedError(
-                "TwoStagePipeline(int8_calib=...): int8 serving comes with "
-                "the port of quantize/ptq.py (ROADMAP Queue 1 step 12)")
+                "the port of parallel/")
+        if split_detector and int8_calib is not None:
+            raise ValueError("split_detector does not compose with "
+                             "int8_calib (as in the JAX package)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.pose_net = pose_net.to(self.device).eval()
         self.detector = detector.to(self.device).eval()
         self.split_detector = split_detector
+        self.quantized = None
+        self._int8 = ()
+        if int8_calib is not None:
+            self.quantized = self._quantize(int8_calib)
+            q_pose, q_det = self.quantized
+            self._int8 = (quantized_calls(q_det, self.detector),
+                          quantized_calls(q_pose, self.pose_net))
+
+    def _quantize(self, int8_calib):
+        """(q_pose, q_det) from pre-built bundles, checked, or calibrated
+        through the pipeline on the given inputs, one net at a time."""
+        if (len(int8_calib) == 2
+                and all(isinstance(x, Quantized) for x in int8_calib)):
+            q_pose, q_det = int8_calib
+            for q, want in ((q_pose, type(self.pose_net)),
+                            (q_det, type(self.detector))):
+                if q.root_type is None:
+                    raise ValueError(
+                        f"pre-built int8 bundles must carry root_type "
+                        f"(expected {want.__name__}); load them with "
+                        f"quantize.load_quantized(path, root_type=ModelCls)")
+                if q.root_type is not want:
+                    raise ValueError(
+                        f"int8 bundle order is (q_pose, q_det): got a "
+                        f"{q.root_type.__name__} bundle where a "
+                        f"{want.__name__} one was expected")
+            verify_source_params(q_pose, self.pose_net, "pose net")
+            verify_source_params(q_det, self.detector, "detector")
+            return q_pose, q_det
+        images, K, ref = int8_calib
+        K, ref = self._tensor(K), self._tensor(ref)
+
+        def run(im):
+            return self(im, K, ref)
+
+        amax_det = calibrate(run, images, model=self.detector)
+        amax_pose = calibrate(run, images, model=self.pose_net)
+        q_det = dataclasses.replace(quantize_params(self.detector, amax_det),
+                                    root_type=type(self.detector))
+        q_pose = dataclasses.replace(
+            quantize_params(self.pose_net, amax_pose,
+                            skip=("head.final_layer",)),
+            root_type=type(self.pose_net))
+        return q_pose, q_det
 
     def _tensor(self, x) -> torch.Tensor:
         """A host array goes to a card through pinned memory with a
@@ -102,7 +168,12 @@ class TwoStagePipeline:
         images_rgb = self._tensor(images_rgb)
         K = self._tensor(K)
         ref_bone_len = self._tensor(ref_bone_len)
-        bbox = detect_hand_crop_bbox(
-            self.detector, images_rgb, self.cfg.detector,
-            pad_factor=self.cfg.augment.pad_factor, split=self.split_detector)
-        return self._pose_stage(images_rgb, bbox.to(K.dtype), K, ref_bone_len)
+        with contextlib.ExitStack() as int8:
+            for calls in self._int8:
+                int8.enter_context(calls)
+            bbox = detect_hand_crop_bbox(
+                self.detector, images_rgb, self.cfg.detector,
+                pad_factor=self.cfg.augment.pad_factor,
+                split=self.split_detector)
+            return self._pose_stage(images_rgb, bbox.to(K.dtype), K,
+                                    ref_bone_len)

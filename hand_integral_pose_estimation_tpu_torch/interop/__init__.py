@@ -4,6 +4,7 @@ from hand_integral_pose_estimation_tpu_torch.interop.jax_params import (  # noqa
     detector_state_dict_from_jax,
     panet_state_dict_from_jax,
     pose_state_dict_from_jax,
+    quantized_from_jax,
 )
 from hand_integral_pose_estimation_tpu_torch.interop.snapshot import (  # noqa: F401
     load_pose_snapshot,

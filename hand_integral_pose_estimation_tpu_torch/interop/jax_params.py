@@ -1,5 +1,6 @@
 """JAX variables -> this package's `state_dict`s: the pose net, the
-Faster R-CNN detector and PANet.
+Faster R-CNN detector and PANet; and the JAX package's int8 bundles
+(`quantized_from_jax`) by the same maps.
 
 The inverses of `convert_pose_snapshot` and `convert_faster_rcnn_state_dict`
 in hand_integral_pose_estimation_tpu/interop/torch_weights.py and of
@@ -171,3 +172,84 @@ def detector_state_dict_from_jax(variables: Mapping[str, Any], det_cfg
         sd[f"{name}.weight"] = _t(np.asarray(params[key]["kernel"]).T)
         sd[f"{name}.bias"] = _t(params[key]["bias"])
     return sd
+
+
+def _block_name(model, prefix: str, index: str, conv: int) -> str:
+    """Torch name of `Conv_{conv}` in block `prefix.index`: conv{k+1} on
+    the main path, `downsample.0` past it (see `_block`)."""
+    block = model.get_submodule(f"{prefix}.{index}")
+    n_main = 3 if hasattr(block, "conv3") else 2
+    return (f"{prefix}.{index}.conv{conv + 1}" if conv < n_main
+            else f"{prefix}.{index}.downsample.0")
+
+
+def _module_from_jax(path: str, model):
+    """A JAX module path -> (torch module name, kernel layout), by the maps
+    of `pose_state_dict_from_jax` and `detector_state_dict_from_jax`; the
+    layout is "conv", "deconv", "dense" or "rpn_cls"."""
+    pose = type(model).__name__ == "ResPoseNet"
+    flat = ({"backbone/conv1": ("backbone.conv1", "conv"),
+             "head/final": ("head.final_layer", "conv")} if pose else
+            {"base/conv1": ("RCNN_base.0", "conv"),
+             "rpn_conv": ("RCNN_rpn.RPN_Conv", "conv"),
+             "rpn_cls": ("RCNN_rpn.RPN_cls_score", "rpn_cls"),
+             "rpn_bbox": ("RCNN_rpn.RPN_bbox_pred", "conv"),
+             "cls_score": ("RCNN_cls_score", "dense"),
+             "bbox_pred": ("RCNN_bbox_pred", "dense")})
+    if path in flat:
+        return flat[path]
+    parts = path.split("/")
+    if pose and parts[0] == "head" and parts[1].startswith("deconv"):
+        return f"head.deconv_layers.{3 * int(parts[1][6:])}", "deconv"
+    trees = ("backbone",) if pose else ("base", "tail")
+    if (len(parts) == 3 and parts[0] in trees
+            and parts[1].startswith("layer") and parts[2].startswith("Conv_")):
+        stage, index = (int(v) for v in parts[1][5:].split("_"))
+        prefix = (f"backbone.layer{stage}" if pose else
+                  "RCNN_top.0" if stage == 4 else f"RCNN_base.{3 + stage}")
+        return _block_name(model, prefix, index, int(parts[2][5:])), "conv"
+    raise ValueError(f"no {type(model).__name__} module maps from the JAX "
+                     f"path {path!r}")
+
+
+def quantized_from_jax(bundle, model):
+    """A JAX package `Quantized` bundle (kernels, kscales, biases, ascales
+    and skipped keyed by flax paths; arrays of any kind `np.asarray`
+    reads) -> this package's `quantize.Quantized` for `model` (a
+    `ResPoseNet` or a ResNet `FasterRCNN`): the same int8 values in the
+    torch names and layouts, the RPN class conv's output channels permuted
+    with its scales and biases, the digest recomputed from `model`'s
+    weights and `type(model)` as the root type."""
+    from hand_integral_pose_estimation_tpu_torch.quantize import (
+        Quantized,
+        digest_params,
+    )
+
+    A = getattr(model, "num_anchors", None)
+
+    def out_channels(x, layout):
+        return _rpn_cls_from_jax(x, A) if layout == "rpn_cls" else x
+
+    def kernel(k, layout):
+        k = np.asarray(k)
+        if layout == "dense":
+            return k.T
+        if layout == "deconv":
+            return np.transpose(k, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+        return np.transpose(out_channels(k, layout), (3, 2, 0, 1))
+
+    names = {p: _module_from_jax(p, model) for p in bundle.kernels}
+    kernels, kscales, biases, ascales = {}, {}, {}, {}
+    for p, (name, layout) in names.items():
+        kernels[name] = torch.from_numpy(np.ascontiguousarray(
+            kernel(bundle.kernels[p], layout)))
+        kscales[name] = torch.from_numpy(np.array(
+            out_channels(np.asarray(bundle.kscales[p]), layout)))
+        ascales[name] = float(bundle.ascales[p])
+        if p in bundle.biases:
+            biases[name] = torch.from_numpy(np.array(
+                out_channels(np.asarray(bundle.biases[p]), layout)))
+    skipped = tuple(sorted(_module_from_jax(p, model)[0]
+                           for p in bundle.skipped))
+    return Quantized(kernels, kscales, ascales, biases, skipped,
+                     type(model), digest_params(model, kernels))

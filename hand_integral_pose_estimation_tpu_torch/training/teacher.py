@@ -58,9 +58,19 @@ def make_frozen_teacher(cfg: Config, model_dir: str,
     `cli.train`'s `snapshot_{epoch}.pth.tar` (the highest epoch unless
     `epoch` names one), or a reference `snapshot_*.pth` file
     (`interop.snapshot`). Returns `frozen_teacher`'s closure."""
+    return frozen_teacher(load_teacher_model(cfg, model_dir, epoch, device),
+                          cfg)
+
+
+def load_teacher_model(cfg: Config, model_dir: str,
+                       epoch: Optional[int] = None,
+                       device: str | torch.device = "cuda") -> nn.Module:
+    """The teacher's pose net on `device`, from `model_dir` as
+    `make_frozen_teacher` reads it; raises FileNotFoundError when there is
+    no snapshot."""
     model = get_pose_net(cfg.model)
     if os.path.isfile(model_dir):
         load_pose_snapshot(model, model_dir)
     else:
         ckpt.load_checkpoint(model_dir, model, epoch=epoch)
-    return frozen_teacher(model.to(torch.device(device)), cfg)
+    return model.to(torch.device(device))

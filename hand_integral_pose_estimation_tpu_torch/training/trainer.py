@@ -8,14 +8,22 @@ normalises, runs the net, decodes and, in training, takes the optimizer
 step. On the card each chunk of `scan_steps` train steps, and each eval
 batch, is one replay of a captured CUDA graph (`training.graphs`), the
 counterpart of the JAX runners' jitted `lax.scan` and eval programs; on
-the CPU the same chunks run as eager steps. The device mesh, the native
-JPEG prefetch, the YUV transport and the profiler of the JAX runners wait
-for later ports.
+the CPU the same chunks run as eager steps.
+
+File-backed splits (`data.freihand.reads_jpeg_files`) are decoded by the
+native batch prefetcher (`native_prefetch`, on by default, as in the JAX
+runners): the next batch decodes on a C++ thread pool while the device
+runs the current one, and each batch is decoded once. `yuv_transport`
+ships the JPEGs' own 4:2:0 planes (1.5 bytes a pixel instead of 3) and
+finishes the decode on the device (`ops.yuv`, bitwise the host decode),
+inside the captured chunk. The device mesh and the profiler of the JAX
+runners wait for later ports.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import os
 import time
@@ -28,9 +36,16 @@ from torch import nn
 from hand_integral_pose_estimation_tpu_torch.config import Config
 from hand_integral_pose_estimation_tpu_torch.data import pipeline
 from hand_integral_pose_estimation_tpu_torch.data.freihand import (
+    FRAME_HW,
     padded_batches,
+    reads_jpeg_files,
+    stack_host_batch,
+)
+from hand_integral_pose_estimation_tpu_torch.data.native_loader import (
+    NativeLoader,
 )
 from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
+from hand_integral_pose_estimation_tpu_torch.ops.yuv import yuv420_to_rgb
 from hand_integral_pose_estimation_tpu_torch.training import (
     checkpoint as ckpt,
 )
@@ -76,6 +91,52 @@ def _to_device(host: dict, device: torch.device) -> dict:
     return out
 
 
+def _uses_loader(dataset, native_prefetch: bool,
+                 yuv_transport: bool) -> bool:
+    """Whether a runner over `dataset` reads it through the batch
+    prefetcher: prefetch is on and the dataset's frames are JPEG files
+    read at `FRAME_HW`. Otherwise the host reads batches itself
+    (`dataset.host_batch`). The YUV transport needs the prefetcher and
+    raises without it."""
+    if yuv_transport and not native_prefetch:
+        raise ValueError("yuv_transport needs native_prefetch")
+    if not reads_jpeg_files(dataset):
+        if yuv_transport:
+            raise ValueError(
+                f"yuv_transport needs a file-backed dataset whose records "
+                f"name JPEG files (a FreiHandDataset), not "
+                f"{type(dataset).__name__}")
+        return False
+    return native_prefetch
+
+
+def _loader(batch_size: int, yuv_transport: bool) -> NativeLoader:
+    return NativeLoader(batch_size, *FRAME_HW,
+                        layout="yuv420" if yuv_transport else "rgb")
+
+
+def _prefetched(loader: NativeLoader, records, index_batches):
+    """Host batches of `index_batches` (an iterator of index arrays) with
+    submit-ahead double buffering: batch i+1 is drawn and submitted only
+    after batch i is collected, so the draws happen in the order a plain
+    loop makes them, and nothing is left in flight at the end (or when the
+    consumer stops early)."""
+    try:
+        idx = next(index_batches, None)
+        if idx is None:
+            return
+        loader.submit([records[i].img_path for i in idx])
+        while idx is not None:
+            images = loader.wait()
+            nxt = next(index_batches, None)
+            if nxt is not None:
+                loader.submit([records[i].img_path for i in nxt])
+            yield stack_host_batch([records[i] for i in idx], list(images))
+            idx = nxt
+    finally:
+        loader.discard()
+
+
 @dataclasses.dataclass
 class Trainer:
     """End-to-end training runner (reference Trainer, common/base.py:90-177).
@@ -87,8 +148,12 @@ class Trainer:
     batches, stack them (k, B, ...), copy them to `device`, and run
     `make_train_batch` and the train step on each. On the card a chunk is
     one replay of a captured CUDA graph (the first chunk of each length
-    runs eagerly, as the warm-up); on the CPU it is k eager steps. The host waits on the device once per
-    chunk, for the last step's metrics. `fuse_head` picks the fused
+    runs eagerly, as the warm-up); on the CPU it is k eager steps. The
+    host waits on the device once per chunk, for the last step's metrics.
+    Host batches of a file-backed split come from the batch prefetcher
+    (`native_prefetch`, `host_batches`); with `yuv_transport` their image
+    field is the packed 4:2:0 planes, decoded in the chunk before
+    `make_train_batch`. `fuse_head` picks the fused
     projection + decode arm (the default) or the heatmap + decode arm.
     `test_dataset`, when given, gets the epoch-end average-loss sweep
     (main/train.py:140-163). `metrics_dir`, when given, receives
@@ -117,9 +182,19 @@ class Trainer:
     fuse_head: bool = True
     teacher_apply: Optional[Callable] = None
     panet_apply: Optional[Callable] = None
+    #: decode file-backed batches with the native prefetcher, the next
+    #: batch while the device runs this one
+    native_prefetch: bool = True
+    #: ship the JPEGs' 4:2:0 planes and finish the decode on the device
+    #: (bitwise the host decode); needs native_prefetch and 4:2:0 JPEGs of
+    #: `FRAME_HW`
+    yuv_transport: bool = False
 
     def __post_init__(self):
         self.device = torch.device(self.device)
+        self.loader = (_loader(self.cfg.train.batch_size, self.yuv_transport)
+                       if _uses_loader(self.dataset, self.native_prefetch,
+                                       self.yuv_transport) else None)
         if self.log_dir:
             os.makedirs(self.log_dir, exist_ok=True)
             path = os.path.abspath(os.path.join(self.log_dir,
@@ -175,8 +250,11 @@ class Trainer:
 
     def _augment(self, generator: torch.Generator,
                  d: dict) -> pipeline.Batch:
+        image = d["image"]
+        if self.yuv_transport:
+            image = yuv420_to_rgb(image, *FRAME_HW)
         return pipeline.make_train_batch(
-            generator, d["image"], d["joint_cam"], d["K"],
+            generator, image, d["joint_cam"], d["K"],
             d["bbox_detector"], d["labelled"], d["teacher_cam_normalized"],
             d["ref_bone_len"], self.cfg.augment, self.cfg.model.input_shape)
 
@@ -190,6 +268,19 @@ class Trainer:
                 k: None if v is None else v[i] for k, v in chunk.items()}))
         return torch.stack([metrics[k] for k in METRICS])
 
+    def host_batches(self, rng: np.random.RandomState, num_steps: int):
+        """The host batches of `num_steps` steps, each drawn with the
+        dataset's sampler from `rng`: through the prefetcher where there is
+        one (each batch decoded once, the next while this one trains),
+        else `dataset.host_batch`. Both draw the same indices in the same
+        order, and no batch is drawn past the last step (the JAX Trainer
+        keeps one in flight into the next epoch)."""
+        draws = (self.dataset.sample_indices(rng, self.batch_size)
+                 for _ in range(num_steps))
+        if self.loader is None:
+            return map(self.dataset.host_batch, draws)
+        return _prefetched(self.loader, self.dataset.records, draws)
+
     def run_epoch(self, epoch: int, num_steps: Optional[int] = None,
                   log_every: int = 20) -> dict:
         """`num_steps` train steps (default: one pass worth of batches) in
@@ -202,11 +293,10 @@ class Trainer:
         k = max(1, self.scan_steps)
         read_s = step_s = 0.0
         last = {}
+        batches = self.host_batches(rng, num_steps)
         for itr in range(0, num_steps, k):
             t0 = time.perf_counter()
-            hosts = [self.dataset.host_batch(
-                self.dataset.sample_indices(rng, self.batch_size))
-                for _ in range(min(k, num_steps - itr))]
+            hosts = list(itertools.islice(batches, min(k, num_steps - itr)))
             chunk = {key: None if hosts[0][key] is None
                      else np.stack([h[key] for h in hosts])
                      for key in hosts[0]}
@@ -282,9 +372,16 @@ class Tester:
     model: nn.Module
     device: str | torch.device = "cuda"
     fuse_head: bool = True
+    #: as the Trainer's: decode file-backed batches with the prefetcher
+    native_prefetch: bool = True
+    #: as the Trainer's: 4:2:0 planes, decoded on the device
+    yuv_transport: bool = False
 
     def __post_init__(self):
         self.device = torch.device(self.device)
+        # a prefetcher per sweep, at the sweep's batch size
+        self._prefetch = _uses_loader(self.dataset, self.native_prefetch,
+                                      self.yuv_transport)
         self.model = self.model.to(self.device).eval()
         self.eval_step = make_eval_step(self.model, self.cfg, self.fuse_head)
         self.graphs = (CapturedStep(self.eval_batch, self.device)
@@ -295,8 +392,11 @@ class Tester:
         return self._crop(_to_device(host, self.device))
 
     def _crop(self, d: dict) -> pipeline.Batch:
+        image = d["image"]
+        if self.yuv_transport:
+            image = yuv420_to_rgb(image, *FRAME_HW)
         return pipeline.make_eval_batch(
-            d["image"], d["joint_cam"], d["K"], d["bbox_detector"],
+            image, d["joint_cam"], d["K"], d["bbox_detector"],
             d["ref_bone_len"], self.cfg.augment, self.cfg.model.input_shape)
 
     def eval_batch(self, d: dict):
@@ -320,8 +420,7 @@ class Tester:
         bs = batch_size or self.cfg.train.test_batch_size
         n = len(self.dataset)
         outs = []
-        for idx in padded_batches(n, bs):
-            host = self.dataset.host_batch(idx)
+        for host in self.host_batches(bs):
             host = {k: host[k] for k in EVAL_FIELDS}
             if self.graphs is not None:
                 outs.append(self.graphs(host))
@@ -333,6 +432,19 @@ class Tester:
             torch.cat(field).cpu().numpy()[:n]
             for field in zip(*[b for _, b in outs])])
         return coords, merged
+
+    def host_batches(self, batch_size: int):
+        """The sweep's host batches (`padded_batches` of the split): through
+        a prefetcher made for the sweep, with submit-ahead double
+        buffering (batch i+1 decodes while the device evaluates batch i),
+        where the dataset is read through one; else `dataset.host_batch`.
+        An empty split yields nothing."""
+        idxs = padded_batches(len(self.dataset), batch_size)
+        if not self._prefetch:
+            yield from map(self.dataset.host_batch, idxs)
+            return
+        with _loader(batch_size, self.yuv_transport) as loader:
+            yield from _prefetched(loader, self.dataset.records, idxs)
 
     def mean_loss(self, batch_size: Optional[int] = None) -> float:
         """Per-sample JointLocationLoss averaged over the whole split (the

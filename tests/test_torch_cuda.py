@@ -1522,3 +1522,99 @@ def test_semi_supervised_graph_replays_equal_eager_steps(dev, deterministic):
                 kernels.WARP_TWOPASS: 1}
     assert kernels.graph_launches(graph) == {
         k.symbol: 2 * per_step.get(k, 0) for k in kernels.KERNELS}
+
+
+# ------------------------------------------- the YUV decode and int8 layers
+
+@pytest.mark.parametrize("shape", [(32, 224, 224), (3, 226, 150),
+                                   (3, 120, 88), (3, 2, 2)])
+def test_yuv_decode_on_the_card_is_the_cpu_decode(dev, shape):
+    """`yuv420_to_rgb` on the card gives the CPU's bytes (which the CPU
+    tests hold to libjpeg), eagerly and replayed from a captured CUDA
+    graph: no host synchronisation, no data-dependent shape."""
+    from hand_integral_pose_estimation_tpu_torch.ops.yuv import (
+        planar_sizes,
+        yuv420_to_rgb,
+    )
+
+    B, H, W = shape
+    g = torch.Generator().manual_seed(H * W)
+    packed = torch.randint(0, 256, (B, sum(planar_sizes(H, W))),
+                           generator=g, dtype=torch.uint8)
+    want = yuv420_to_rgb(packed, H, W)
+    static = packed.to(dev)
+    assert torch.equal(yuv420_to_rgb(static, H, W).cpu(), want)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        yuv420_to_rgb(static, H, W)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = yuv420_to_rgb(static, H, W)
+    static.copy_(torch.flip(packed, (0,)).to(dev))
+    graph.replay()
+    assert torch.equal(out.cpu(), torch.flip(want, (0,)))
+
+
+INT8_LAYERS = {
+    "stem": (lambda: torch.nn.Conv2d(3, 64, 7, 2, 3, bias=False),
+             (4, 3, 224, 224)),
+    "3x3_s2": (lambda: torch.nn.Conv2d(128, 128, 3, 2, 1, bias=False),
+               (4, 128, 56, 56)),
+    "1x1_n18": (lambda: torch.nn.Conv2d(512, 18, 1), (4, 512, 38, 38)),
+    "deconv": (lambda: torch.nn.ConvTranspose2d(256, 256, 4, 2, 1,
+                                                bias=False),
+               (4, 256, 28, 28)),
+    "linear_n2": (lambda: torch.nn.Linear(2048, 2), (1200, 2048)),
+}
+
+
+@pytest.mark.parametrize("name", list(INT8_LAYERS))
+def test_int8_layer_on_the_card_is_exact(dev, name):
+    """An int8 layer on the card (im2col views and `torch._int_mm`, the
+    operands padded as the card's GEMM demands) at the paths' shapes: with
+    unit scales its output is the int32 sums, equal to a float64 product
+    of the same int8 values (exact: every sum is below 2^24); with
+    calibrated scales the output is bitwise the float64 product's
+    epilogue in float32."""
+    from hand_integral_pose_estimation_tpu_torch.quantize import (
+        Quantized,
+        quantize_model,
+        quantized_apply,
+    )
+
+    make, shape = INT8_LAYERS[name]
+    mod = make().to(dev)
+    deconv = isinstance(mod, torch.nn.ConvTranspose2d)
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def f64(x, w):
+        if isinstance(mod, torch.nn.Linear):
+            return x @ w.T
+        if deconv:
+            return torch.nn.functional.conv_transpose2d(x, w, None, 2, 1)
+        return torch.nn.functional.conv2d(x, w, None, mod.stride,
+                                          mod.padding)
+
+    kq = torch.randint(-127, 128, mod.weight.shape, device=dev,
+                       generator=g).to(torch.int8)
+    n = mod.weight.shape[1 if deconv else 0]
+    unit = Quantized({"": kq}, {"": torch.ones(n, device=dev)}, {"": 1.0},
+                     {})
+    xi = torch.randint(-127, 128, shape, device=dev, generator=g).float()
+    with torch.no_grad():
+        sums = quantized_apply(mod, unit, xi).double()
+    want = f64(xi.double(), kq.double())
+    assert float(want.abs().max()) < 2 ** 24
+    assert torch.equal(sums, want)
+    x = torch.randn(shape, device=dev, generator=g)
+    q = quantize_model(mod, [x])
+    view = (1, -1) if x.ndim == 2 else (1, -1, 1, 1)
+    xq = torch.round(x * (1.0 / q.ascales[""])).clamp(-127, 127)
+    oracle = f64(xq.double(), q.kernels[""].double()).float() * (
+        q.kscales[""] * q.ascales[""]).view(view)
+    if "" in q.biases:
+        oracle = oracle + q.biases[""].view(view)
+    with torch.no_grad():
+        assert torch.equal(quantized_apply(mod, q, x), oracle)

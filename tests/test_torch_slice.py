@@ -335,6 +335,42 @@ NO_JAX_SCRIPT = textwrap.dedent("""
                               "--model-dir", d + "/m", "--out",
                               d + "/corr.csv", "--batch-size", "2",
                               "--device", "cpu", *sizing])
+    # the input path and int8 serving: the prefetcher and the YUV
+    # transport on the fixture, the int8 pipeline and its CLIs
+    pkg_name = "hand_integral_pose_estimation_tpu_torch."
+    assert {pkg_name + m for m in ("ops.yuv", "data.native_loader",
+                                   "quantize", "quantize.ptq")} <= set(names)
+    from hand_integral_pose_estimation_tpu_torch import quantize
+    from hand_integral_pose_estimation_tpu_torch.distill import (
+        quantized_teacher_apply)
+    yuv_trainer = training.Trainer(
+        cfg.replace(train=TrainConfig(batch_size=2)).with_training_size(2),
+        FreiHandDataset(fixture, "training", cfg.with_training_size(2)),
+        device="cpu", yuv_transport=True, model_dir=d + "/yuv")
+    assert np.isfinite(yuv_trainer.run_epoch(0, num_steps=1)["loss"])
+    int8_pipe = TwoStagePipeline(
+        cfg.replace(detector=det_cfg), model,
+        build_detector(det_cfg, generator=torch.Generator().manual_seed(0)),
+        device="cpu", int8_calib=(host["image"], host["K"],
+                                  host["ref_bone_len"]))
+    assert bool(torch.isfinite(int8_pipe(
+        host["image"], host["K"], host["ref_bone_len"]).joints_cam).all())
+    quantize.save_quantized(d + "/q.npz", int8_pipe.quantized[0])
+    int8_teacher, _ = quantized_teacher_apply(
+        model, *args[:3], cfg.augment, 21, 8, num_rotations=3,
+        patch_hw=(64, 64))
+    assert generate_filtered_labels(int8_teacher, *args, num_rotations=3,
+                                    patch_hw=(64, 64)).keep.shape == (2,)
+    cli_evaluate.main(["--synthetic", "--synthetic-size", "3", "--batch-size",
+                       "2", "--use-detector", "--detector-resnet", "18",
+                       "--detector-scale", "64", "--detector-proposals", "16",
+                       "--int8", "--int8-db", d + "/int8", "--result-dir",
+                       d + "/eval8", "--model-dir", d + "/m", "--device",
+                       "cpu", *sizing])
+    generate_teacher_labels.main([
+        "--synthetic", "--synthetic-size", "2", "--batch-size", "2",
+        "--teacher-dtype", "int8", "--out", d + "/db8.npz", "--model-dir",
+        d + "/m", "--device", "cpu", *sizing])
     assert rotation.sample_rotation_matrix(torch.Generator(), 2).shape == (
         2, 3, 3)
     assert callable(losses.combined_loss) and callable(
@@ -354,7 +390,9 @@ def test_port_runs_without_jax(tmp_path):
     frozen teacher, the teacher-label sweep and its cascade, a student step
     with both terms, and the four new CLIs; detector training: the
     train_detector CLI, its snapshot restored, the convergence study; the
-    three study CLIs), with
+    three study CLIs; the input path: the prefetcher with the YUV
+    transport; int8 serving: the int8 pipeline, the int8 teacher and the
+    two CLIs' int8 flags), with
     jax/flax/optax/orbax and the JAX package blocked by a sys.meta_path
     finder in a fresh interpreter."""
     env = dict(os.environ)

@@ -749,7 +749,7 @@ def test_trainer_checkpoint_round_trip(tmp_path):
                                first.model.state_dict()) == 0.0
 
 
-def test_cli_train_then_test(tmp_path):
+def test_cli_train_then_test(tmp_path, capsys):
     """cli.train --synthetic writes snapshot_0; cli.test --model-dir loads
     it and scores it as the in-process Tester scores the same weights."""
     from hand_integral_pose_estimation_tpu_torch.cli import test as cli_test
@@ -775,11 +775,37 @@ def test_cli_train_then_test(tmp_path):
     assert np.isfinite(summary["pa_mpjpe"])
     assert summary["pa_mpjpe"] == want["pa_mpjpe"]
     assert summary["mpjpe"] == want["mpjpe"]
-    with pytest.raises(FileNotFoundError):
-        cli_test.main(["--synthetic", "--model-dir", str(tmp_path / "none"),
-                       "--device", "cpu", *sizing])
+    # as the JAX CLI: no snapshot in --model-dir evaluates a fresh model
+    # and says so
+    fresh = cli_test.main(["--synthetic", "--synthetic-size", "2",
+                           "--batch-size", "2", "--model-dir",
+                           str(tmp_path / "none"), "--device", "cpu",
+                           "--result-dir", str(tmp_path / "fresh"), *sizing])
+    assert "no snapshot found" in capsys.readouterr().out
+    assert np.isfinite(fresh["mpjpe"])
     with pytest.raises(SystemExit):
         cli_train.main(["--device", "cpu"])
+
+
+def test_cli_test_takes_the_jax_command_line():
+    """One command line through both packages' cli.test parsers: the same
+    model dir (output/model_dump by default), epoch (`--test-epoch`, the
+    JAX name, is an alias of the port's `--epoch`), batch, sizes and
+    snapshot."""
+    from hand_integral_pose_estimation_tpu.cli import test as jax_cli
+    from hand_integral_pose_estimation_tpu_torch.cli import test as cli_test
+
+    for argv in ([], ["--synthetic", "--model-dir", "m", "--test-epoch", "3",
+                      "--batch-size", "4", "--synthetic-size", "8",
+                      "--result-dir", "r", "--torch-snapshot", "s.pth"]):
+        a = cli_test.build_argparser().parse_args(argv)
+        b = jax_cli.build_argparser().parse_args(argv)
+        fields = ("model_dir", "batch_size", "synthetic_size", "result_dir",
+                  "torch_snapshot", "synthetic", "data_dir")
+        assert [getattr(a, f) for f in fields] == [getattr(b, f)
+                                                   for f in fields], argv
+        assert a.epoch == b.test_epoch
+    assert cli_test.build_argparser().parse_args(["--epoch", "2"]).epoch == 2
 
 
 def test_train_step_returns_scalars_and_keeps_its_gradients():

@@ -114,13 +114,22 @@ def test_two_stage_pipeline_matches_jax(tiny, pose, split):
 
 
 def test_two_stage_pipeline_refuses_what_it_has_not_ported(tiny, pose):
+    """`mesh` is refused and names the module to come; int8 serving is
+    ported and runs (tests/test_torch_quantize.py holds it to the JAX
+    package): both nets are quantized and the output is finite."""
     _, _, _, det = tiny
     mcfg, _, _, net = pose
     cfg = Config(model=mcfg, detector=DetectorConfig(**TINY))
-    with pytest.raises(NotImplementedError, match="step 13"):
+    with pytest.raises(NotImplementedError, match="parallel/"):
         TwoStagePipeline(cfg, net, det, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="step 12"):
-        TwoStagePipeline(cfg, net, det, device="cpu", int8_calib=object())
+    images = tiny_images()
+    K = np.broadcast_to(CAMERA, (2, 3, 3)).copy()
+    ref = np.ones(2, np.float32)
+    pipe = TwoStagePipeline(cfg, net, det, device="cpu",
+                            int8_calib=(images, K, ref))
+    q_pose, q_det = pipe.quantized
+    assert len(q_pose.paths) > 10 and len(q_det.paths) > 10
+    assert np.isfinite(pipe(images, K, ref).joints_cam.numpy()).all()
 
 
 # ------------------------------------------------------- the challenge dump
@@ -218,7 +227,8 @@ def test_evaluate_cli_runs_the_detector_then_reuses_its_cache(tmp_path,
 
 def test_evaluate_cli_flags_resolve_as_in_jax():
     """The detector flags, the native preset and --set give the JAX CLI's
-    DetectorConfig; --mesh and --int8 are refused with their step."""
+    DetectorConfig; --mesh is refused and names parallel/, --int8 without
+    the detector path with the JAX CLI's message."""
     for argv in ([], ["--detector-native"],
                  ["--detector-native", "--detector-scale", "128",
                   "--detector-resnet", "50", "--detector-proposals", "32"],
@@ -232,9 +242,9 @@ def test_evaluate_cli_flags_resolve_as_in_jax():
             jax_evaluate_cli.build_argparser().parse_args(argv),
             jconfig.DetectorConfig())
         assert dataclasses.asdict(got) == dataclasses.asdict(want), argv
-    for flag, step in ((["--mesh", "data=2"], "step 13"),
-                       (["--int8"], "step 12")):
-        with pytest.raises(SystemExit, match=step):
+    for flag, why in ((["--mesh", "data=2"], "parallel/"),
+                      (["--int8"], "two-stage detector")):
+        with pytest.raises(SystemExit, match=why):
             cli.main(["--synthetic", *flag])
     with pytest.raises(SystemExit, match="synthetic"):
         cli.main([])
