@@ -5,7 +5,7 @@ int8 serving.
 
     python3 chip_smoke.py
 
-Ten phases, each printing what it found; any failure exits non-zero
+Eleven phases, each printing what it found; any failure exits non-zero
 before the result line.
 
 1. device: requires CUDA (there is no CPU fallback), prints the card, its
@@ -104,11 +104,17 @@ before the result line.
    4 on synthetic scenes, heads scaled: one step kernel-backed against
    plain-backed from one state and one set of draws under cuDNN's
    deterministic algorithms (sampled RoIs equal, losses, every parameter's
-   gradient), the kernel-backed step twice bitwise equal, then ten SGD
-   steps with their launches per step (kernel 7, kernel 6 and its backward
-   once each), timed back to back and profiled; (d) `cli.train_detector
-   --synthetic` for three steps, its .pth restored by `build_detector` with
-   the same `detect`; (e) `cli.semi_supervised_study`,
+   gradient), the kernel-backed step twice bitwise equal, then, with the
+   frozen BatchNorm statistics set from one forward pass over the scenes
+   (each layer's own input statistics, so the untrained R101's
+   activations stay near unit size) and the heads scaled again, ten SGD
+   steps at the detector's rate with the same draws each step under
+   cuDNN's deterministic algorithms, whose loss must fall (the last below
+   the first, the mean of the last three below that of the first three),
+   with their launches per step (kernel 7, kernel 6 and its backward once
+   each), timed back to back and profiled; (d) `cli.train_detector
+   --synthetic` for three steps, its .pth restored by `build_detector`
+   with the same `detect`; (e) `cli.semi_supervised_study`,
    `cli.filter_cascade_study` and `cli.analyze_correlation` at a few steps;
 10. the input path and int8 serving: (a) `yuv420_to_rgb` on the card
    bitwise against the CPU at 32 x 224^2 and ragged even sizes, timed
@@ -130,7 +136,25 @@ before the result line.
    twice (pred.json bitwise equal), int8 against float per batch; (d)
    `quantized_teacher_apply` over the 8 x 21 sweep (keep set and variances
    against the float teacher, ms per batch) and `cli.generate_teacher_labels
-   --teacher-dtype int8`.
+   --teacher-dtype int8`;
+11. the device mesh (`parallel/`): kernels 3 and 4 at the model split's
+   joint counts (7 and 3: 392 and 168 channels) against their plain
+   versions; (a) `Trainer(mesh=make_mesh())` on one NCCL rank at
+   ModelConfig() and batch 32, scan_steps=4 (the second chunk captured
+   with its all-reduces: the graph's NCCL kernel nodes are counted)
+   against the same Trainer without a mesh over 8 steps, losses and
+   parameters, and the replay timed against the meshless one; (b) two
+   processes on the card over gloo (eager: a gloo collective cannot be
+   captured), 4 steps at a global batch of 32 (16 a rank) against one
+   process on the union of the two ranks' draws, then `Tester(mesh)` on
+   40 samples against one rank; (c) data=1 x model=2 at 21 joints runs
+   the head on the gathered weight (`head_model_split` false), and three
+   processes over model=3 (7 joints a rank, kernels 3 and 4 at J = 7)
+   hold eval coords and one step's gradients to the data-only run; (d)
+   `TwoStagePipeline(mesh)` over two ranks at phase 7's width, float and
+   int8, against one rank. The ranks are `parallel/_smoke_worker.py`;
+   a rank that fails fails the phase. Times of (b) and (d) are
+   time-shared on one card, not a scaling figure.
 
 Each path's launch counts start from 0 just before the path runs and are
 read just after it; the launches in the kernels line are their sum. The
@@ -148,6 +172,7 @@ card's name and power limit; the last line is the JSON result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import itertools
@@ -272,14 +297,13 @@ DET_GRAD_LEAF = 1e-3
 DET_GRAD_TOTAL = 1e-4
 DET_GRAD_BWD = 1e-4
 DET_TRAIN_STEPS = 10
-# The ten SGD steps' rate. The detector's weights are random: its frozen
-# BatchNorm keeps unit statistics, so the untrained R101's activations grow
-# by orders of magnitude through its 33 blocks (the phase prints their
-# mean size), and a small step moves the scaled heads' logits by hundreds:
-# the loss rose from 3 to ~1e4 within ten steps at 1e-3 and at 1e-5 in two
-# trial runs. The steps are there for the kernels' launches and the step's
-# time, which do not depend on the rate.
-DET_LR = 1e-7
+# The ten SGD steps' rate: the detector's own (make_detector_optimizer).
+# With unit frozen BatchNorm statistics the untrained R101's activations
+# grow by orders of magnitude through its 33 blocks (5.4e5 mean |x| at the
+# base's output), and steps at 1e-3 and even 1e-7 raised the loss from 3
+# to ~50-1e4 on an H100; so the statistics are first set from the
+# scenes themselves (`calibrate_frozen_batchnorm`).
+DET_LR = 1e-3
 # the card's published peaks (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -771,6 +795,28 @@ def plain_roi_align_backward():
         yield
     finally:
         ra_mod.roi_align_bwd_cuda = saved
+
+
+def calibrate_frozen_batchnorm(model, blob) -> None:
+    """Set each BatchNorm's running statistics to those of its own input
+    on `blob`, in one eval forward: a hook sets them just before the layer
+    normalises, so every later layer sees the normalised activations of
+    the layers before it. The frozen statistics of a trained detector play
+    this part; random weights with unit statistics have none."""
+    def hook(m, args):
+        x = args[0].float()
+        m.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        m.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.BatchNorm2d)]
+    try:
+        model.eval()
+        with torch.no_grad():
+            model(blob)
+    finally:
+        for h in handles:
+            h.remove()
 
 
 def scale_detector_heads(model, blob) -> None:
@@ -1764,25 +1810,39 @@ def detector_training_phase(dev, g, card):
     check(bitwise, "two kernel-backed train steps differ")
     del grad_k, grad_k2, grad_p, grad_b
 
+    calibrate_frozen_batchnorm(model, blob)
+    scale_detector_heads(model, blob)
+    with torch.no_grad():
+        size = float(model._rpn(blob)[0].abs().mean())
     optimizer, scheduler = make_detector_optimizer(model.parameters(),
                                                    lr=DET_LR)
     step = make_detector_train_step(model, optimizer, scheduler)
-    sampling = torch.Generator(device=dev).manual_seed(SEED + 2)
+    sampling = torch.Generator(device=dev)
+    # cuDNN's deterministic algorithms: the same ten losses on every run
+    torch.backends.cudnn.deterministic = True
     reset()
     per_step, losses = [], []
     for _ in range(DET_TRAIN_STEPS):
         before = counts()
+        # the same anchor and RoI draws each step: one objective, descended
+        sampling.manual_seed(SEED + 2)
         metrics = step(blob, gt, gc, gv, generator=sampling)
         per_step.append({k: v - before[k] for k, v in counts().items()
                          if v - before[k]})
         losses.append(metrics["loss"])
     losses = torch.stack(losses).tolist()
     steps_launches = counts()
+    torch.backends.cudnn.deterministic = deterministic
+    falls = (losses[-1] < losses[0]
+             and sum(losses[-3:]) < sum(losses[:3]))
     print(f"[detector training] {DET_TRAIN_STEPS} SGD steps at lr "
-          f"{DET_LR:g}: losses "
-          f"{[round(v, 4) for v in losses]}; launches per step {per_step}",
-          flush=True)
+          f"{DET_LR:g} with the frozen statistics set from the scenes (base "
+          f"features' mean |x| {size:.4g}): losses "
+          f"{[round(v, 4) for v in losses]}, falling {falls}; launches per "
+          f"step {per_step}", flush=True)
     check(all(math.isfinite(v) for v in losses), "non-finite detector loss")
+    check(falls, "the detector's loss did not fall over ten SGD steps on "
+          "one batch")
     check(all(p == {kernels.NMS.symbol: 1, kernels.ROI_ALIGN_FWD.symbol: 1,
                     kernels.ROI_ALIGN_BWD.symbol: 1} for p in per_step),
           f"detector train steps launched {per_step}")
@@ -2287,6 +2347,569 @@ def input_int8_phase(dev, g, card, cfg):
     check(len(db["keep"]) == 16 and np.isfinite(db["variance"]).all(),
           "cli.generate_teacher_labels --teacher-dtype int8")
     return launches
+
+
+# The mesh phase (11). a: one NCCL rank against no mesh over 8 steps (two
+# chunks of GRAPH_CHUNK, the second captured); b, d: two processes on the
+# card over gloo, 4 eager steps at a global batch of BATCH (16 a rank)
+# against one process on the union batch, the Tester over the mesh on
+# MESH_TEST_N samples (the tail padded), the pipeline on phase 7's frames;
+# c: three processes over model=3 at batch MESH_MODEL_BATCH.
+MESH_PAIR_STEPS = 4
+MESH_TEST_N = 40
+MESH_MODEL_BATCH = 8
+# Sync-BN's two-pass statistics and cuDNN's differ in float32 rounding;
+# under bf16 autocast such a difference flips 8-bit roundings layer after
+# layer (phase 5 holds the bf16 step's whole gradient to 5e-2 for one such
+# change). The loss, a mean of 32 x 63 terms, after a few steps: 2e-2.
+# Each parameter: Adam moves an element at most ~lr a step whatever its
+# gradient, so two runs whose small gradients differ in sign part by at
+# most 2.5 lr a step (the CPU tests' bound, tests/test_multihost.py's).
+MESH_LOSS_REL = 2e-2
+MESH_PARAM_STEP = 2.5
+# One step from one state against cuDNN's BatchNorm runs at float32
+# compute: under bf16 autocast a float32 rounding of BatchNorm's output
+# flips bf16 roundings, and the scaled (peaked) soft-argmax turns such a
+# perturbation of the features into another gradient (1.17 whole at bf16
+# on an H100). The loss at float32 differs by rounding only: 1e-4.
+MESH_STEP_LOSS_REL = 1e-4
+
+
+def spawn_ranks(job: str, world: int, case: dict, out_dir: str,
+                timeout: float = 600) -> list[dict]:
+    """`world` processes of the mesh phase's worker on this card, with
+    torchrun's environment on a free localhost port; fails the run (after
+    stopping every rank) if any rank fails or the group outlives
+    `timeout`. Returns each rank's results."""
+    import socket
+
+    case_path = os.path.join(out_dir, f"{job}_case.pt")
+    torch.save(case, case_path)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m",
+         "hand_integral_pose_estimation_tpu_torch.parallel._smoke_worker",
+         job, case_path, out_dir],
+        env=dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                 RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                 LOCAL_WORLD_SIZE=str(world)),
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        logs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        print("\n".join(log[-3000:] for log in logs), flush=True)
+        fail(f"mesh phase: ranks {bad} of the {job!r} group failed")
+    return [torch.load(os.path.join(out_dir, f"{job}_rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def set_projection(model, weight) -> None:
+    """The phase's scaled projection (whole) into a model laid out whole."""
+    with torch.no_grad():
+        model.head.final_layer.weight.copy_(weight)
+        model.head.final_layer.bias.zero_()
+
+
+def grad_distance(got: dict, want: dict):
+    """||got - want|| / ||want|| over all gradients, and the worst leaf's
+    (phase 5's measure); returns (whole, worst, its name)."""
+    worst, worst_name = 0.0, ""
+    for n, b in want.items():
+        a = got[n].to(b.device)
+        ref = float(b.norm())
+        r = float((a - b).norm()) / ref if ref else float(a.norm())
+        if r > worst:
+            worst, worst_name = r, n
+    total = math.sqrt(
+        sum(float((got[n].to(b.device) - b).double().square().sum())
+            for n, b in want.items())
+        / sum(float(b.double().square().sum()) for b in want.values()))
+    return total, worst, worst_name
+
+
+def param_distance(got: dict, want: dict) -> float:
+    """max |got - want| over the parameters of a state dict."""
+    return max(float((got[k].float().cpu() - v.float().cpu()).abs().max())
+               for k, v in want.items())
+
+
+def mesh_phase(dev, g, card, cfg):
+    """Phase 11. Returns the launches of the phase's main runs (the mesh
+    runs of a, b, c and d, in this process and in the ranks) and the
+    largest errors of kernels 3 and 4 at the model split's joint counts."""
+    import torch.distributed as dist
+
+    from hand_integral_pose_estimation_tpu_torch.config import DetectorConfig
+    from hand_integral_pose_estimation_tpu_torch.data import (
+        SyntheticFreiHand,
+        make_eval_batch,
+    )
+    from hand_integral_pose_estimation_tpu_torch.detect import (
+        build_detector,
+        prepare_blob,
+    )
+    from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
+    from hand_integral_pose_estimation_tpu_torch.ops.fused_head import (
+        head_projection_integral_bwd_cuda,
+        head_projection_integral_bwd_reference,
+        head_projection_integral_cuda,
+        head_projection_integral_reference,
+    )
+    from hand_integral_pose_estimation_tpu_torch.parallel import (
+        convert_sync_batchnorm,
+        init_distributed,
+        make_mesh,
+        place_state,
+    )
+    from hand_integral_pose_estimation_tpu_torch.training import (
+        Tester,
+        Trainer,
+        make_eval_fn,
+        make_optimizer,
+        make_train_step,
+        multistep_schedule,
+    )
+
+    J, D = cfg.model.num_joints, cfg.model.depth_dim
+    Ho, Wo = cfg.model.output_shape
+    F = cfg.model.deconv_channels
+    lr = cfg.train.lr
+    launches = {k.symbol: 0 for k in kernels.KERNELS}
+    err = {"head_projection_integral_fwd": 0.0,
+           "head_projection_integral_bwd": 0.0}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # kernels 3 and 4 at the model split's channel counts: 7 joints (392
+    # channels, model=3) and 3 joints (168, model=7), a ragged tail on
+    # the 64-channel blocks, bf16 features as on the path
+    for j in (7, 3):
+        feats = torch.randn(BATCH, Ho, Wo, F, device=dev,
+                            generator=g).bfloat16()
+        w = 0.3 * torch.randn(j * D, F, device=dev, generator=g)
+        b = torch.randn(j * D, device=dev, generator=g)
+        err["head_projection_integral_fwd"] = max(
+            err["head_projection_integral_fwd"], compare(
+                f"head_projection_integral_fwd at the model split, "
+                f"{(BATCH, Ho, Wo, F)}x{(j * D, F)} bf16/f32",
+                lambda: head_projection_integral_cuda(feats, w, b, j, D),
+                lambda: head_projection_integral_reference(feats, w, b, j,
+                                                           D)))
+        coords, m, s = head_projection_integral_cuda(feats, w, b, j, D)
+        cot = torch.randn(BATCH, j, 3, device=dev, generator=g)
+        err["head_projection_integral_bwd"] = max(
+            err["head_projection_integral_bwd"], compare_grads(
+                f"head_projection_integral_bwd at the model split, "
+                f"{(BATCH, Ho, Wo, F)}x{(j * D, F)} bf16/f32",
+                lambda: head_projection_integral_bwd_cuda(
+                    feats, w, b, m, s, coords, cot, j, D),
+                lambda: head_projection_integral_bwd_reference(
+                    feats, w, b, m, s, coords, cot, j, D),
+                GRAD_ABS_SCALE["head_projection_integral_bwd"]))
+        del feats, coords, m, s
+
+    # the projection every run of the phase starts from: scaled on the
+    # augmented batch of an unsplit model, then copied (or cut) into each
+    train_data = SyntheticFreiHand(n=2 * BATCH, render_joints=True, seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tmp = tempfile.mkdtemp()
+    probe = Trainer(cfg, train_data, model_dir=tmp, seed=SEED, device=dev)
+    probe.graphs = None
+    train_batch = probe.preprocess(gen, train_data.host_batch(
+        np.arange(BATCH)))
+    scale_projection(probe.model, train_batch.image)
+    weight = probe.model.head.final_layer.weight.detach().clone()
+    del probe
+
+    # ---- a. one NCCL rank, the chunk captured with its collectives
+    init_distributed("cuda")
+    nccl_version = torch.cuda.nccl.version()
+    check(dist.get_backend() == "nccl" and nccl_version >= (2, 9, 6),
+          f"phase 11a runs over {dist.get_backend()} with NCCL "
+          f"{nccl_version}, expected nccl >= 2.9.6 (collectives in a CUDA "
+          f"graph)")
+    mesh = make_mesh()
+
+    # sync-BN layer by layer at the stem's and layer4's shapes, float32 and
+    # bf16 inputs (float32 statistics and parameters), against BatchNorm
+    # in float64 on the same inputs and cotangents (its plain version),
+    # rounded to the outputs' dtypes: y, dx, dw and db, as compare_grads
+    # holds a backward kernel (GRAD_REL of the dtype plus 1e-4 of the
+    # largest entry). cuDNN's BatchNorm is held to the same float64 values
+    # beside it, for reference only: with bf16 inputs its weight and bias
+    # gradients are a bf16 computation's
+    for dt, (N, C, H, W) in itertools.product(
+            (torch.float32, torch.bfloat16),
+            ((BATCH, 64, 112, 112), (BATCH, 2048, 7, 7))):
+        x = (3 * torch.randn(N, C, H, W, device=dev, generator=g) + 1).to(
+            dt).contiguous(memory_format=torch.channels_last)
+        # the cotangent as it reaches y: rounded to y's dtype
+        cot = torch.randn(N, C, H, W, device=dev, generator=g).to(dt)
+        bns = {}
+        for kind in ("sync", "cudnn", "float64"):
+            bn = torch.nn.BatchNorm2d(C).to(dev)
+            with torch.no_grad():
+                bn.weight.copy_(torch.linspace(0.5, 1.5, C))
+                bn.bias.copy_(torch.linspace(-0.5, 0.5, C))
+            if kind == "sync":
+                bn = convert_sync_batchnorm(torch.nn.Sequential(bn),
+                                            mesh)[0]
+            bns[kind] = bn.double() if kind == "float64" else bn
+
+        def run(kind):
+            bn = bns[kind]
+            bn.zero_grad(set_to_none=True)
+            wide = kind == "float64"
+            xi = (x.double() if wide else x).detach().requires_grad_(True)
+            y = bn(xi)
+            y.backward(cot.double() if wide else cot)
+            out = (y.detach(), xi.grad, bn.weight.grad, bn.bias.grad)
+            if wide:
+                out = (out[0].to(dt), out[1].to(dt), out[2].float(),
+                       out[3].float())
+            return out
+        name = f"sync-BN over one NCCL rank {(N, C, H, W)} {dt}"
+        compare_grads(f"{name} (y, dx, dw, db) vs BatchNorm in float64",
+                      lambda: run("sync"), lambda: run("float64"), 1e-4)
+        want = run("float64")
+        got = run("cudnn")
+        rel = [float((a.float() - b.float()).abs().max())
+               / float(b.float().abs().max()) for a, b in zip(got, want)]
+        print(f"[kernels] {name}: cuDNN's BatchNorm against float64, max|d|"
+              f" / max (y, dx, dw, db): "
+              f"{', '.join(f'{r:.2e}' for r in rel)} (not held)",
+              flush=True)
+        del bns, x, cot
+
+    # one float32 step from one state, the projection scaled: the loss
+    # (the forward is well conditioned) against the step without a mesh;
+    # the gradients' distance is printed, not held: this random-weight
+    # R50's float32 gradient is itself ~1 % from its float64 value with
+    # either BatchNorm (tests/test_torch_mesh_train.py holds the mesh's
+    # step to the JAX step at float64)
+    cfg32 = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                  compute_dtype="float32"))
+    steps = {}
+    for use in (True, False):
+        model = get_pose_net(cfg32.model, generator=torch.Generator()
+                             .manual_seed(SEED)).to(dev)
+        set_projection(model, weight)
+        if use:
+            place_state(mesh, convert_sync_batchnorm(model, mesh))
+        opt = make_optimizer(model.parameters(), cfg32.train)
+        out = make_train_step(model, opt, multistep_schedule(
+            opt, 1, cfg.train.lr_dec_epoch, cfg.train.lr_dec_factor), cfg32,
+            mesh=mesh if use else None)(train_batch)
+        steps[use] = (float(out["loss"]),
+                      {n: p.grad for n, p in model.named_parameters()})
+        del model, opt
+    total, worst, worst_name = grad_distance(steps[True][1], steps[False][1])
+    d_loss = abs(steps[True][0] - steps[False][0]) / abs(steps[False][0])
+    print(f"[mesh] a. one train step on one NCCL rank (sync-BN, the "
+          f"gradient all-reduce) against the step without a mesh, R50 at "
+          f"float32 compute, batch {BATCH}, from one state: loss "
+          f"{steps[True][0]:.6f} vs {steps[False][0]:.6f} (rel d "
+          f"{d_loss:.3e}, tol {MESH_STEP_LOSS_REL:g}); gradients whole "
+          f"{total:.3e}, worst leaf {worst:.3e} ({worst_name}), not held",
+          flush=True)
+    check(d_loss <= MESH_STEP_LOSS_REL,
+          "phase 11a: the mesh's train step disagrees with the step without "
+          "a mesh")
+    del steps
+
+    # Trainer.run_epoch over 8 steps, scan_steps=4 (the first chunk eager,
+    # the second captured and replayed) from the Trainer's own init: the
+    # mesh's replay against the same Trainer run eagerly (bitwise, cuDNN
+    # deterministic), and against the Trainer without a mesh
+    all_reduce = dist.all_reduce
+    issued = collections.Counter()
+
+    def counted(*args, **kwargs):
+        # all-reduces issued while a stream captures: the chunk's own
+        issued[torch.cuda.is_current_stream_capturing()] += 1
+        return all_reduce(*args, **kwargs)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for name, use, graphs in (("mesh", True, True), ("eager", True, False),
+                              ("plain", False, True)):
+        t = Trainer(cfg, train_data, model_dir=tmp, seed=SEED, device=dev,
+                    scan_steps=GRAPH_CHUNK, mesh=mesh if use else None)
+        if not graphs:
+            t.graphs = None
+        for k in kernels.KERNELS:
+            k.launches = 0
+        issued.clear()
+        dist.all_reduce = counted
+        try:
+            m0 = t.run_epoch(0, num_steps=GRAPH_CHUNK)     # eager warm-up
+            m1 = t.run_epoch(1, num_steps=GRAPH_CHUNK)     # capture, replay
+        finally:
+            dist.all_reduce = all_reduce
+        torch.cuda.synchronize()
+        run = {"losses": (m0["loss"], m1["loss"]),
+               "state": {k: v.detach().clone()
+                         for k, v in training_state(t).items()},
+               "params": {k: v.detach().clone()
+                          for k, v in t.model.named_parameters()},
+               "issued": issued[True]}
+        if graphs:
+            run["launches"] = path_launches(t.graphs)
+            (graph,) = t.graphs.graphs.values()
+            names = kernels.graph_kernel_names(graph)
+            run["nodes"] = (sum("nccl" in n.lower() for n in names),
+                            len(names))
+            run["replay_ms"] = event_ms(graph.replay, 3) / GRAPH_CHUNK
+            del graph
+        runs[name] = run
+        del t
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
+    mesh_run, eager, plain = runs["mesh"], runs["eager"], runs["plain"]
+    add(mesh_run["launches"])
+    n_steps = 2 * GRAPH_CHUNK
+    bitwise = all(torch.equal(v, eager["state"][k])
+                  for k, v in mesh_run["state"].items())
+    dparam = param_distance(mesh_run["params"], plain["params"])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(mesh_run["losses"], plain["losses"]))
+    want = {k.symbol: (n_steps if k in (
+        kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+        kernels.HEAD_PROJECTION_INTEGRAL_BWD, kernels.WARP_TWOPASS) else 0)
+        for k in kernels.KERNELS}
+    print(f"[mesh] a. Trainer(mesh=make_mesh()) on one NCCL rank, "
+          f"ModelConfig() at batch {BATCH}, scan_steps {GRAPH_CHUNK} (the "
+          f"second chunk captured, cuDNN deterministic): NCCL "
+          f"{nccl_version}, {mesh_run['issued']} all-reduces issued while "
+          f"the chunk was captured (none without a mesh: "
+          f"{plain['issued']}), {mesh_run['nodes'][0]} NCCL kernel nodes of "
+          f"its {mesh_run['nodes'][1]} (a one-rank communicator sums in "
+          f"place without a kernel); the replayed training state bitwise "
+          f"equal to the same Trainer run eagerly {bitwise}; losses after "
+          f"{GRAPH_CHUNK} and {n_steps} steps {mesh_run['losses']} against "
+          f"{plain['losses']} without a mesh (max rel d {loss_rel:.3e}, tol "
+          f"{MESH_LOSS_REL:g}), parameters max |d| {dparam:.3e} (tol "
+          f"{MESH_PARAM_STEP * lr * n_steps:g}); launches "
+          f"{mesh_run['launches']}", flush=True)
+    print(f"[mesh] a. replay of the captured chunk: "
+          f"{mesh_run['replay_ms']:.3f} ms a step with the mesh (sync-BN, "
+          f"{mesh_run['issued'] // GRAPH_CHUNK} all-reduces a step), "
+          f"{plain['replay_ms']:.3f} ms without (CUDA events) on {card}",
+          flush=True)
+    check(mesh_run["issued"] > 0 and plain["issued"] == 0 and bitwise,
+          "phase 11a: the captured mesh chunk holds no collective or "
+          "differs from its eager run")
+    check(loss_rel <= MESH_LOSS_REL
+          and dparam <= MESH_PARAM_STEP * lr * n_steps,
+          "phase 11a: the one-rank mesh run disagrees with the run without "
+          "a mesh")
+    check(mesh_run["launches"] == want,
+          f"phase 11a: launches {mesh_run['launches']}, expected {want}")
+
+    # ---- b, c' and d: two processes on the card over gloo
+    det_cfg = dataclasses.replace(DetectorConfig(), resnet_style="caffe")
+    det = build_detector(det_cfg, generator=torch.Generator().manual_seed(
+        SEED)).to(dev)
+    frames = SyntheticFreiHand(n=PIPE_FRAMES, render_joints=True, seed=SEED)
+    host = frames.host_batch(np.arange(PIPE_FRAMES))
+    blob, _ = prepare_blob(torch.from_numpy(host["image"][:DET_BATCH]).to(
+        dev), det_cfg)
+    scale_detector_heads(det, blob)
+    pose = get_pose_net(cfg.model, generator=torch.Generator().manual_seed(
+        SEED))
+    set_projection(pose, weight.cpu())
+    pcfg = cfg.replace(detector=det_cfg)
+    out_dir = tempfile.mkdtemp()
+    pair = spawn_ranks("pair", 2, {
+        "cfg": cfg, "seed": SEED, "n_train": 2 * BATCH,
+        "steps": MESH_PAIR_STEPS, "final_weight": weight.cpu(),
+        "n_test": MESH_TEST_N, "test_batch": BATCH,
+        "model_batch": MESH_MODEL_BATCH, "pipe_cfg": pcfg,
+        "pose": pose.state_dict(),
+        "det": {k: v.cpu() for k, v in det.state_dict().items()},
+        "frames": {k: host[k] for k in ("image", "K", "ref_bone_len")},
+        "pipe_batch": DET_BATCH}, out_dir)
+    for r in pair:
+        for key in ("train_launches", "test_launches", "model2_launches"):
+            add(r[key])
+        for counts in r["pipe_launches"].values():
+            add(counts)
+
+    # b. against one process on the union of the two ranks' draws
+    union = np.concatenate([r["sampled"] for r in pair], axis=1)
+    t = Trainer(cfg, train_data, model_dir=tmp, seed=SEED, device=dev,
+                scan_steps=MESH_PAIR_STEPS)
+    t.graphs = None
+    t.host_batches = lambda rng, num_steps: map(train_data.host_batch,
+                                                union[:num_steps])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = t.run_epoch(0, num_steps=MESH_PAIR_STEPS)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3 / MESH_PAIR_STEPS
+    m0, m1 = (r["metrics"] for r in pair)
+    loss_rel = abs(m0["loss"] - m["loss"]) / abs(m["loss"])
+    dparam = param_distance(pair[0]["params"], dict(
+        t.model.named_parameters()))
+    print(f"[mesh] b. Trainer over data=2 on two processes (gloo, eager: "
+          f"not captured), global batch {BATCH}, {MESH_PAIR_STEPS} steps: "
+          f"the ranks sampled {pair[0]['sampled'][0][:4].tolist()}... and "
+          f"{pair[1]['sampled'][0][:4].tolist()}...; loss {m0['loss']:.5f} "
+          f"(both ranks {m0 == m1}) against {m['loss']:.5f} on the union "
+          f"batch in one process (rel d {loss_rel:.3e}, tol "
+          f"{MESH_LOSS_REL:g}); parameters max |d| {dparam:.3e} (tol "
+          f"{MESH_PARAM_STEP * lr * MESH_PAIR_STEPS:g})", flush=True)
+    print(f"[mesh] b. time-shared on one card, not a scaling figure: "
+          f"{pair[0]['train_ms_per_step']:.1f} ms a step over two gloo "
+          f"ranks (16 rows each) against {one_ms:.1f} ms for one eager "
+          f"process at {BATCH} rows (host clock) on {card}", flush=True)
+    check(m0 == m1 and not np.array_equal(pair[0]["sampled"],
+                                          pair[1]["sampled"]),
+          "phase 11b: the ranks disagree or sampled the same records")
+    check(loss_rel <= MESH_LOSS_REL
+          and dparam <= MESH_PARAM_STEP * lr * MESH_PAIR_STEPS,
+          "phase 11b: the two-rank run disagrees with the union run")
+    model = get_pose_net(cfg.model).to(dev)
+    model.load_state_dict(pair[0]["params"])
+    set_projection(model, weight)
+    test_data = SyntheticFreiHand(n=MESH_TEST_N, render_joints=True,
+                                  seed=SEED + 1)
+    t0 = time.perf_counter()
+    want_coords, _ = Tester(cfg, test_data, model, device=dev).run(
+        batch_size=BATCH)
+    one_ms = (time.perf_counter() - t0) * 1e3
+    e = max(float(np.abs(r["tester_coords"] - want_coords).max())
+            for r in pair)
+    print(f"[mesh] b. Tester over data=2, {MESH_TEST_N} samples at batch "
+          f"{BATCH} (the tail padded), the trained weights with the scaled "
+          f"projection: coords max|d| {e:.3e} against one "
+          f"rank (tol {COORD_TOL:g}); {pair[0]['test_ms']:.1f} ms for the "
+          f"sweep time-shared over two ranks against {one_ms:.1f} ms on one "
+          f"(host clock, first sweep of each, on {card})", flush=True)
+    check(e <= COORD_TOL, "phase 11b: the Tester over the mesh disagrees "
+          "with one rank")
+    del t, model
+
+    # c'. data=1 x model=2 at 21 joints: the gathered weight
+    shapes = pair[0]["model2_split_shapes"]
+    m2 = [r["model2_metrics"]["loss"] for r in pair]
+    head = [(r["model2_launches"][kernels.HEAD_PROJECTION_INTEGRAL_FWD.symbol],
+             r["model2_launches"][kernels.HEAD_PROJECTION_INTEGRAL_BWD.symbol])
+            for r in pair]
+    print(f"[mesh] c. data=1 x model=2 at {J} joints: head_model_split "
+          f"{pair[0]['split_21_on_2']}, the final projection's blocks "
+          f"{shapes}, one step's loss {m2} with kernels 3 and 4 launched "
+          f"{head} a rank at all {J} joints on the gathered weight",
+          flush=True)
+    check(not pair[0]["split_21_on_2"]
+          and shapes.get("head.final_layer.weight", (0,))[0] == J * D // 2
+          and all(math.isfinite(v) for v in m2) and m2[0] == m2[1]
+          and all(h == (1, 1) for h in head),
+          "phase 11c: the model=2 path at 21 joints did not run as it should")
+
+    # d. the two-stage pipeline over data=2
+    for mode in ("float", "int8"):
+        got, one = pair[0][f"{mode}_mesh"], pair[0][f"{mode}_one"]
+        e_c = float((got["coords_label"] - one["coords_label"]).abs().max())
+        box = one["crop_bbox"]
+        e_b = float(((got["crop_bbox"] - box).abs() - BOX_TOL_ABS
+                     - BOX_TOL_REL * box.abs()).max())
+        same = all(torch.equal(pair[0][f"{mode}_mesh"][f],
+                               pair[1][f"{mode}_mesh"][f]) for f in got)
+        print(f"[mesh] d. TwoStagePipeline(mesh) {mode} over two gloo ranks, "
+              f"{PIPE_FRAMES} frames at batch {DET_BATCH}: coords max|d| "
+              f"{e_c:.3e} (tol {COORD_TOL:g}), crop boxes within tol "
+              f"{e_b <= 0}, both ranks' outputs equal {same}; "
+              f"{pair[0][f'{mode}_mesh_ms_per_batch']:.1f} ms a batch "
+              f"time-shared over two ranks against "
+              f"{pair[0][f'{mode}_one_ms_per_batch']:.1f} ms on one rank "
+              f"(host clock) on {card}; launches "
+              f"{pair[0]['pipe_launches'][mode]}",
+              flush=True)
+        check(e_c <= COORD_TOL and e_b <= 0 and same, f"phase 11d: the "
+              f"{mode} pipeline over the mesh disagrees with one rank")
+    del det, pose, pair
+
+    # ---- c. three processes, data=1 x model=3: 7 joints a rank
+    ccfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, batch_size=MESH_MODEL_BATCH))
+    rows = np.arange(MESH_MODEL_BATCH)
+    tb = type(train_batch)(*[None if v is None else v[:MESH_MODEL_BATCH]
+                             for v in train_batch])
+    eh = test_data.host_batch(rows)
+    eb = make_eval_batch(*(torch.from_numpy(eh[k]).to(dev) for k in
+                           ("image", "joint_cam", "K")), None,
+                         torch.from_numpy(eh["ref_bone_len"]).to(dev),
+                         cfg.augment, cfg.model.input_shape)
+    model3 = spawn_ranks("model3", 3, {
+        "cfg": ccfg, "seed": SEED, "final_weight": weight.cpu(),
+        "eval_batch": type(eb)(*[None if v is None else v.cpu() for v in eb]),
+        "train_batch": type(tb)(*[None if v is None else v.cpu()
+                                  for v in tb])}, out_dir)
+    for r in model3:
+        add(r["launches"])
+    # the data-only run: the same sync-BN over this process's one rank,
+    # the head whole, so the split is the one difference
+    model = get_pose_net(cfg.model, generator=torch.Generator().manual_seed(
+        SEED)).to(dev)
+    set_projection(model, weight)
+    place_state(mesh, convert_sync_batchnorm(model, mesh))
+    want_coords = make_eval_fn(model, ccfg, True, mesh)(eb)[0]
+    e = max(float((r["coords"].to(dev) - want_coords).abs().max())
+            for r in model3)
+    opt = make_optimizer(model.parameters(), ccfg.train)
+    step = make_train_step(model, opt, multistep_schedule(
+        opt, 1, ccfg.train.lr_dec_epoch, ccfg.train.lr_dec_factor), ccfg,
+        mesh=mesh)
+    loss = float(step(tb)["loss"])
+    want = {n: p.grad for n, p in model.named_parameters()}
+    got = dict(model3[0]["grads"])
+    for n in model3[0]["block_shapes"]:
+        got[n] = torch.cat([r["grads"][n] for r in model3])
+    total, worst_leaf, worst = grad_distance(got, want)
+    fwd = kernels.HEAD_PROJECTION_INTEGRAL_FWD.symbol
+    bwd = kernels.HEAD_PROJECTION_INTEGRAL_BWD.symbol
+    print(f"[mesh] c. data=1 x model=3 on three processes (gloo): "
+          f"head_model_split {model3[0]['split']}, blocks "
+          f"{model3[0]['block_shapes']}; eval coords at batch "
+          f"{MESH_MODEL_BATCH} max|d| {e:.3e} against the data-only run "
+          f"(tol {COORD_TOL:g}); one step's loss "
+          f"{[r['loss'] for r in model3]} against {loss:.5f}, gradients "
+          f"worst leaf {worst_leaf:.3e} at {worst} (tol "
+          f"{GRAD_LEAF_REL_BF16:g}), whole {total:.3e} (tol "
+          f"{GRAD_TOTAL_REL_BF16:g}); kernels 3 and 4 launched "
+          f"{[(r['launches'][fwd], r['launches'][bwd]) for r in model3]} "
+          f"a rank at 7 joints", flush=True)
+    check(model3[0]["split"]
+          and model3[0]["block_shapes"]["head.final_layer.weight"][0]
+          == J * D // 3 and e <= COORD_TOL
+          and worst_leaf <= GRAD_LEAF_REL_BF16
+          and total <= GRAD_TOTAL_REL_BF16
+          and all((r["launches"][fwd], r["launches"][bwd]) == (2, 1)
+                  for r in model3),
+          "phase 11c: the model=3 split disagrees with the data-only run")
+    del model, opt, step, want, got
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches, err
 
 
 def main() -> None:
@@ -3000,6 +3623,11 @@ def main() -> None:
     # ---- 10. the input path's device half and int8 serving
     int8_launches = input_int8_phase(dev, g, card, cfg)
 
+    # ---- 11. the device mesh
+    mesh_launches, mesh_err = mesh_phase(dev, g, card, cfg)
+    for name, e in mesh_err.items():
+        err[name] = max(err[name], e)
+
     pkg = "hand_integral_pose_estimation_tpu_torch/csrc/"
     ref = "hand_integral_pose_estimation_tpu/ops/"
     meta = {
@@ -3038,7 +3666,7 @@ def main() -> None:
          "launches": (serving_launches[k.symbol] + train_launches[k.symbol]
                       + det_launches[k.symbol] + semi_launches[k.symbol]
                       + dtrain_launches[k.symbol]
-                      + int8_launches[k.symbol]),
+                      + int8_launches[k.symbol] + mesh_launches[k.symbol]),
          "max_abs_err": err[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}

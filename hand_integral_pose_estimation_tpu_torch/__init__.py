@@ -16,8 +16,8 @@ schedule, checkpoints, CUDA-graph replay of the train chunks and eval
 batches, the frozen teacher and the PANet trainer (`losses.py`,
 `training/`), the rotation-variance teacher labels and their cascade
 (`distill/`), the PA-MPJPE / MPJPE evaluation, the challenge dump and the
-offline PCK / AUC scorer (`evaluation/`) and the metrics writer
-(`utils/`), driven by `training.Trainer`, `training.Tester`,
+offline PCK / AUC scorer (`evaluation/`), the metrics writer (`utils/`)
+and the device mesh over `torch.distributed` (`parallel/`), driven by `training.Trainer`, `training.Tester`,
 `training.Evaluator`, `inference.TwoStagePipeline` and `cli/`.
 
 Public layouts follow the JAX package so the two compare like with like:

@@ -30,8 +30,13 @@ snapshot under `--model-dir` (or `--evaluate-epoch`) when there is one.
 `--int8` runs both nets of the two-stage sweep with int8 post-training
 quantization (`quantize/ptq.py`), calibrated on the first batch; with
 `--int8-db PREFIX` the bundles are written to PREFIX.pose.npz and
-PREFIX.det.npz, and read from there when both exist. `--mesh` comes with
-the port of `parallel/`.
+PREFIX.det.npz, and read from there when both exist.
+
+`--mesh` (default `auto`) splits each batch of the sweep (the two-stage
+pipeline or the Tester) over the ranks of a `torchrun` launch, one GPU
+each (`auto`: the largest rank prefix that divides `--batch-size`; none in
+a single process); rank 0 writes pred.json. `--split-detector` does not
+compose with an explicit `--mesh`, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -92,9 +97,10 @@ def build_argparser():
                    help="seed of the random weights of a model without a "
                         "checkpoint")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--mesh", default=None,
-                   help="not ported: multi-GPU sweeps come with the port of "
-                        "parallel/")
+    p.add_argument("--mesh", default="auto",
+                   help="device mesh for the sharded sweep (both the "
+                        "two-stage serving pipeline and the Tester path): "
+                        "'auto', 'none', or 'data=N[,model=M]'")
     p.add_argument("--int8", action="store_true",
                    help="int8 post-training quantization of both nets of the "
                         "two-stage sweep (per-channel weights, input scales "
@@ -145,9 +151,6 @@ def resolve_detector_cfg(args, base):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.mesh is not None:
-        raise SystemExit("--mesh is not ported: multi-GPU sweeps come with "
-                         "the port of parallel/")
 
     import dataclasses
     import os
@@ -155,6 +158,10 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from hand_integral_pose_estimation_tpu_torch.cli.mesh_arg import (
+        join_launcher,
+        resolve_eval_mesh,
+    )
     from hand_integral_pose_estimation_tpu_torch.cli.train import load_split
     from hand_integral_pose_estimation_tpu_torch.config import Config
     from hand_integral_pose_estimation_tpu_torch.data import (
@@ -165,11 +172,18 @@ def main(argv=None):
         evaluate_challenge,
     )
     from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
+    from hand_integral_pose_estimation_tpu_torch.parallel import is_writer
     from hand_integral_pose_estimation_tpu_torch.training import (
         Tester,
         load_checkpoint,
     )
 
+    if args.split_detector and args.mesh not in ("auto", "none"):
+        raise SystemExit("--split-detector is a single-chip latency knob; "
+                         "it does not compose with an explicit --mesh")
+    args.device = join_launcher(args.device)
+    mesh = (None if args.split_detector else
+            resolve_eval_mesh(args.mesh, args.batch_size))
     cfg = Config()
     hw = args.pose_input
     cfg = cfg.replace(
@@ -237,12 +251,12 @@ def main(argv=None):
             int8_calib = (host["image"], host["K"], host["ref_bone_len"])
         pipe = TwoStagePipeline(cfg, model, detector, device=args.device,
                                 split_detector=args.split_detector,
-                                int8_calib=int8_calib)
+                                int8_calib=int8_calib, mesh=mesh)
         if args.int8:
             q_pose, q_det = pipe.quantized
             print(f"int8: quantized {len(q_pose.paths)} pose + "
                   f"{len(q_det.paths)} detector modules")
-            if files and not loaded:
+            if files and not loaded and is_writer():
                 save_quantized(files[0], q_pose)
                 save_quantized(files[1], q_det)
                 print(f"int8: wrote the bundles {args.int8_db}.*")
@@ -258,15 +272,17 @@ def main(argv=None):
         bbox = np.concatenate(bbox_all)[:n]
         K = np.concatenate(K_all)[:n]
         ref = np.concatenate(ref_all)[:n]
-        if args.bbox_db:
+        if args.bbox_db and is_writer():
             detector_db.save_bbox_db(args.bbox_db, dataset, bbox)
             print(f"cached crop boxes -> {args.bbox_db}")
     else:
         tester = Tester(cfg=cfg, dataset=dataset, model=model,
-                        device=args.device)
+                        device=args.device, mesh=mesh)
         coords, batch = tester.run(batch_size=args.batch_size)
         bbox, K, ref = batch.bbox, batch.K, batch.ref_bone_len
 
+    if not is_writer():
+        return None
     preds = evaluate_challenge(coords, bbox, K, ref,
                                result_dir=args.result_dir,
                                patch_hw=cfg.model.input_shape)

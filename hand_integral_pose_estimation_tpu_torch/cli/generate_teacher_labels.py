@@ -17,8 +17,9 @@ tprime, variance, keep, labelled and the record names), which `cli.train
 --filtered-db` reads. `--cascade` gives the same keep set with the exact
 early-reject cascade. `--teacher-dtype` sets the teacher's compute dtype;
 `int8` runs its convs as int8 products, calibrated on the first batch's
-own sweep patches (`distill.quantized_teacher_apply`). `--mesh` comes
-with the port of `parallel/`.
+own sweep patches (`distill.quantized_teacher_apply`). `--mesh` (default
+`none`, as in the JAX CLI) splits each batch's sweep over the ranks of a
+`torchrun` launch, one GPU each; rank 0 writes the db.
 """
 
 from __future__ import annotations
@@ -65,6 +66,12 @@ def build_argparser():
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the fresh teacher when no snapshot exists")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--mesh", default="none",
+                   help="'auto' | 'none' | 'data=N[,model=M]': split each "
+                        "generation batch's sweep over the mesh's data axis "
+                        "(the reference's DataParallel teacher filter loop, "
+                        "generate_filtered_teacher_labels.py:403-509); "
+                        "--batch-size must divide by the data-axis size")
     return p
 
 
@@ -76,6 +83,10 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from hand_integral_pose_estimation_tpu_torch.cli.mesh_arg import (
+        join_launcher,
+        resolve_eval_mesh,
+    )
     from hand_integral_pose_estimation_tpu_torch.cli.train import (
         load_split,
         sized_config,
@@ -93,11 +104,14 @@ def main(argv=None):
     from hand_integral_pose_estimation_tpu_torch.distill.teacher_labels \
         import camera_project
     from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
+    from hand_integral_pose_estimation_tpu_torch.parallel import is_writer
     from hand_integral_pose_estimation_tpu_torch.training.teacher import (
         frozen_teacher,
         load_teacher_model,
     )
 
+    args.device = join_launcher(args.device)
+    mesh = resolve_eval_mesh(args.mesh, args.batch_size)
     cfg = sized_config(args.pose_resnet, args.pose_input)
     if args.training_size:
         cfg = cfg.with_training_size(args.training_size)
@@ -149,7 +163,7 @@ def main(argv=None):
     runner = (CascadeRunner(teacher_apply, cfg.augment,
                             pass1_rotations=args.cascade_pass1,
                             pass2_batch=args.batch_size, device=device,
-                            **sweep)
+                            mesh=mesh, **sweep)
               if args.cascade else None)
     results = {k: [] for k in ("joint_cam_normalized", "tprime",
                                "variance", "keep", "labelled")}
@@ -167,7 +181,7 @@ def main(argv=None):
             with torch.no_grad():
                 out = generate_filtered_labels(
                     teacher_apply, images, K, box, labelled, joint_cam,
-                    cfg.augment, **sweep)
+                    cfg.augment, mesh=mesh, **sweep)
             for k in ("joint_cam_normalized", "tprime", "variance", "keep"):
                 results[k].append(getattr(out, k).cpu().numpy())
             results["labelled"].append(labelled.cpu().numpy())
@@ -185,6 +199,8 @@ def main(argv=None):
     # rows are positional: the names let apply_filtered_labels refuse a db
     # made for another record set
     merged["name"] = _record_names(dataset)
+    if not is_writer():
+        return merged
     np.savez(args.out, **merged)
     print(f"kept {int(merged['keep'].sum())}/{len(merged['keep'])} samples "
           f"-> {args.out}")

@@ -17,6 +17,10 @@ snapshot that `cli.train` wrote (the latest one unless `--epoch`, or the
 JAX CLI's `--test-epoch`, names another); give it the `--pose-resnet` and
 `--pose-input` the model was trained with. Where there is no snapshot, a
 fresh model from `--seed` is evaluated, with a note.
+
+`--mesh` (default `auto`) splits the sweep's batches over the ranks of a
+`torchrun` launch (`auto`: the largest rank prefix that divides
+`--batch-size`; none in a single process); rank 0 writes the results.
 """
 
 from __future__ import annotations
@@ -51,6 +55,10 @@ def build_argparser():
                    help="seed of the fresh model's init when no snapshot "
                         "is given")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--mesh", default="auto",
+                   help="device mesh for the sharded test sweep: 'auto' "
+                        "(largest rank prefix dividing --batch-size), "
+                        "'none', or 'data=N[,model=M]'")
     return p
 
 
@@ -59,6 +67,10 @@ def main(argv=None):
 
     import torch
 
+    from hand_integral_pose_estimation_tpu_torch.cli.mesh_arg import (
+        join_launcher,
+        resolve_eval_mesh,
+    )
     from hand_integral_pose_estimation_tpu_torch.cli.train import (
         load_split,
         sized_config,
@@ -70,11 +82,14 @@ def main(argv=None):
         load_pose_snapshot,
     )
     from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
+    from hand_integral_pose_estimation_tpu_torch.parallel import is_writer
     from hand_integral_pose_estimation_tpu_torch.training import (
         Tester,
         load_checkpoint,
     )
 
+    args.device = join_launcher(args.device)
+    mesh = resolve_eval_mesh(args.mesh, args.batch_size)
     cfg = sized_config(args.pose_resnet, args.pose_input)
     if args.training_size:
         cfg = cfg.with_training_size(args.training_size)
@@ -91,8 +106,11 @@ def main(argv=None):
         except FileNotFoundError:
             print(f"no snapshot found in {args.model_dir}: evaluating a "
                   f"fresh model (seed {args.seed})")
-    tester = Tester(cfg=cfg, dataset=dataset, model=model, device=args.device)
+    tester = Tester(cfg=cfg, dataset=dataset, model=model, device=args.device,
+                    mesh=mesh)
     coords, batch = tester.run(batch_size=args.batch_size)
+    if not is_writer():
+        return None
     summary = evaluate_test_split(coords, batch, result_dir=args.result_dir)
     print(summary["p1_summary"])
     print(summary["p2_summary"])

@@ -31,8 +31,20 @@ one) and saved there when it is missing or stale.
 A file-backed split is decoded by the native batch prefetcher, the next
 batch while the device trains on this one; `--yuv-transport` ships the
 JPEGs' 4:2:0 planes (half the bytes) and finishes the decode on the
-device, bitwise the host decode. The ImageNet init and the device mesh
-come with later ports.
+device, bitwise the host decode.
+
+`--mesh` (default `auto`, as in the JAX CLI) lays the training out over
+the ranks of a `torchrun` launch, one GPU each, or CPU ranks over gloo:
+
+    torchrun --nproc_per_node 2 -m \
+        hand_integral_pose_estimation_tpu_torch.cli.train --synthetic \
+        --mesh data=2 --device cpu --pose-resnet 18 --pose-input 64 \
+        --batch-size 4 --epochs 1 --steps-per-epoch 2
+
+`auto` is a data-parallel mesh over every rank (none in a single process,
+which trains exactly as without the flag); `data=N[,model=M]` an explicit
+layout (`model` splits the final projection); `none` no mesh. Rank 0
+writes the snapshots. The ImageNet init comes with a later port.
 """
 
 from __future__ import annotations
@@ -56,6 +68,10 @@ def build_argparser():
                    help="end epoch (default: cfg.train.end_epoch)")
     p.add_argument("--steps-per-epoch", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--mesh", default="auto",
+                   help="device mesh for sharded training: 'auto' "
+                        "(data-parallel over every rank of a torchrun "
+                        "launch), 'none', or 'data=N[,model=M]'")
     p.add_argument("--continue", dest="continue_train", action="store_true",
                    help="resume from the latest snapshot (base.py:62-71)")
     p.add_argument("--seed", type=int, default=0)
@@ -159,9 +175,20 @@ def main(argv=None):
     import dataclasses
     import logging
 
+    from hand_integral_pose_estimation_tpu_torch.cli.mesh_arg import (
+        join_launcher,
+        parse_explicit_mesh,
+    )
     from hand_integral_pose_estimation_tpu_torch.training import Trainer
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    args.device = join_launcher(args.device)
+    mesh, model_par, auto_mesh = None, 1, False
+    if args.mesh == "auto":
+        auto_mesh = True
+    elif args.mesh not in ("none", "1"):
+        # explicit layout over the first N*M ranks
+        mesh, model_par = parse_explicit_mesh(args.mesh)
     cfg = sized_config(args.pose_resnet, args.pose_input, args.batch_size)
     if args.lam is not None:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, lam=args.lam))
@@ -239,7 +266,8 @@ def main(argv=None):
                       test_dataset=test_dataset, device=args.device,
                       fuse_head=not args.unfused_head,
                       teacher_apply=teacher_apply, panet_apply=panet_apply,
-                      yuv_transport=args.yuv_transport)
+                      yuv_transport=args.yuv_transport, mesh=mesh,
+                      model_parallelism=model_par, auto_mesh=auto_mesh)
     trainer.fit(end_epoch=args.epochs, steps_per_epoch=args.steps_per_epoch)
     return trainer
 

@@ -96,19 +96,26 @@ def make_train_batch(generator: torch.Generator, images: torch.Tensor,
                      teacher_cam_normalized: Optional[torch.Tensor],
                      ref_bone_len: torch.Tensor,
                      acfg: AugmentConfig = AugmentConfig(),
-                     patch_hw=(224, 224)) -> Batch:
+                     patch_hw=(224, 224),
+                     block: tuple[int, int] = (0, 1)) -> Batch:
     """Augmented training batch on the device (dataset.py:117-175 in
     filtered-teacher mode): the GT label and the teacher label are made
     under the SAME rotation, box and colour jitter.
 
     `generator` lives on the compute device and draws every sample's
     rotation (augment.py:252-280) and colour scale (augment.py:246-248);
-    the tensors are as `make_train_batch_with` takes them."""
+    the tensors are as `make_train_batch_with` takes them. `block` =
+    (i, n): the tensors are block i of a global batch of n such blocks
+    (a rank's rows under a device mesh); the noise is drawn for the whole
+    global batch and block i of it taken, as the JAX package draws
+    per-row noise over the global batch (data/pipeline.py:127)."""
+    i, n = block
     B = images.shape[0]
     R = rotation.sample_rotation_matrix(
-        generator, B, acfg.rot_prob, acfg.z_rot_range,
-        acfg.arbitrary_rot_range, dtype=K.dtype)
-    color = rotation.sample_color_scale(generator, B, acfg.color_factor)
+        generator, n * B, acfg.rot_prob, acfg.z_rot_range,
+        acfg.arbitrary_rot_range, dtype=K.dtype)[i * B:(i + 1) * B]
+    color = rotation.sample_color_scale(generator, n * B,
+                                        acfg.color_factor)[i * B:(i + 1) * B]
     return make_train_batch_with(R, color, images, joint_cam, K,
                                  bbox_detector, labelled,
                                  teacher_cam_normalized, ref_bone_len, acfg,

@@ -13,7 +13,9 @@ outputs are fixed-size with a validity mask instead of the reference's
 variable-length `cls_dets`. `detect_split` runs the detector's `upstream`
 and `downstream` halves as two calls, for API parity with the JAX package,
 where the split avoids an XLA composition loss; eagerly the two are the
-same work.
+same work. `detect(..., mesh=...)` splits the images over a device mesh's
+data axis (`parallel.over_data`; the weights are replicated) and gathers
+the detections; the split program refuses a mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from hand_integral_pose_estimation_tpu_torch.ops.warp import (
     channel_constant,
     warp_axis_aligned_batch,
 )
+from hand_integral_pose_estimation_tpu_torch.parallel import over_data
 
 
 class Detections(NamedTuple):
@@ -91,14 +94,18 @@ def _postprocess(out: DetectionOutputs, cfg: DetectorConfig, blob_hw,
 
 @torch.inference_mode()
 def detect(model: FasterRCNN, images_rgb: torch.Tensor,
-           cfg: Optional[DetectorConfig] = None) -> Detections:
+           cfg: Optional[DetectorConfig] = None, mesh=None) -> Detections:
     """Full two-stage detection (hand_detector.py:160-246): blob ->
     forward -> decode -> clip -> rescale -> threshold -> class NMS. Runs on
-    the device of `images_rgb`, where the model must live."""
+    the device of `images_rgb`, where the model must live. With `mesh`
+    (a `parallel.Mesh`; the same images on every rank) each rank detects
+    its rows and every rank returns the whole batch's detections."""
     cfg = cfg or model.cfg
-    blob, scale = prepare_blob(images_rgb, cfg)
-    out = model(blob)
-    return _postprocess(out, cfg, blob.shape[1:3], scale)
+
+    def run(images):
+        blob, scale = prepare_blob(images, cfg)
+        return _postprocess(model(blob), cfg, blob.shape[1:3], scale)
+    return over_data(run, mesh, images_rgb)
 
 
 @torch.inference_mode()
@@ -134,10 +141,16 @@ def _crop_from_detections(det: Detections, orig_hw,
 def detect_hand_crop_bbox(model: FasterRCNN, images_rgb: torch.Tensor,
                           cfg: Optional[DetectorConfig] = None,
                           pad_factor: float = 1.75,
-                          split: bool = False) -> torch.Tensor:
+                          split: bool = False, mesh=None) -> torch.Tensor:
     """(B, H, W, 3) RGB images -> (B, 4) square + padded crop boxes
     (cx, cy, w, h), the boxes the pose stage crops with (augment.py:317-342).
-    `split=True` runs the detector as `detect_split`."""
+    `split=True` runs the detector as `detect_split`, which takes no
+    `mesh`."""
     H, W = int(images_rgb.shape[1]), int(images_rgb.shape[2])
-    det = (detect_split if split else detect)(model, images_rgb, cfg)
+    if split:
+        if mesh is not None:
+            raise ValueError("split-program detect does not take a mesh")
+        det = detect_split(model, images_rgb, cfg)
+    else:
+        det = detect(model, images_rgb, cfg, mesh=mesh)
     return _crop_from_detections(det, (H, W), pad_factor)

@@ -18,6 +18,11 @@ variance and mean come from both passes in float64 on the host. Each
 rotation's crop is the same in either pass as in the single pass, because
 the factored base is sized for the full sweep. Labelled rows finish in
 pass 1 with their GT normalisation.
+
+With `mesh`, both passes' sweeps split their batches over the mesh's data
+axis (`rotation_sweep_camera(mesh=...)`); the host-side bound test, the
+queue and the float64 combine are unchanged, and every rank holds the
+whole result. Each batch and `pass2_batch` must divide by the data axis.
 """
 
 from __future__ import annotations
@@ -67,11 +72,16 @@ class CascadeRunner:
         pass2_batch: int = 8,
         safety: float = 1e-3,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         self.num_rotations = num_rotations
         self.variance_threshold = variance_threshold
         self.safety = safety
         self.pass2_batch = pass2_batch
+        if mesh is not None and pass2_batch % mesh.shape["data"]:
+            raise ValueError(
+                f"pass2_batch {pass2_batch} must divide by the mesh "
+                f"'data'-axis size {mesh.shape['data']}")
         self.device = torch.device(device)
         thetas = sweep_thetas(num_rotations, rotation_range)
         self.idx1 = pass1_rotation_indices(num_rotations, pass1_rotations)
@@ -83,7 +93,7 @@ class CascadeRunner:
             def run(images, K, bbox):
                 return rotation_sweep_camera(
                     teacher_apply, images, K, bbox, acfg, th,
-                    rotation_range, patch_hw, rotation_mode)
+                    rotation_range, patch_hw, rotation_mode, mesh=mesh)
             return run
 
         self._sweep1 = sweep(thetas[self.idx1])

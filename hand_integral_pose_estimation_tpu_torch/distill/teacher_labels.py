@@ -15,8 +15,10 @@ colour scale of 1, exactly. The teacher decodes through kernel 3
 (`training.teacher`). The JAX package's sweep off the TPU warps with the
 single-pass bilinear filter; this one always takes the two-pass filter of
 the TPU kernel (ROADMAP Queue 3 item 4). `quantized_teacher_apply` gives
-an int8 teacher, calibrated on the sweep's own patches. The device mesh of
-the JAX package is not ported yet.
+an int8 teacher, calibrated on the sweep's own patches. With `mesh` (a
+`parallel.Mesh`) the sweep of a batch is split over its data axis
+(`parallel.over_data`): each rank warps, forwards and back-projects its
+rows, with no collective but the gather of the results.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from hand_integral_pose_estimation_tpu_torch.ops.warp import (
     warp_axis_aligned_batch,
     warp_normalise_batch,
 )
+from hand_integral_pose_estimation_tpu_torch.parallel import over_data
 from hand_integral_pose_estimation_tpu_torch.quantize import (
     calibrate,
     quantize_params,
@@ -139,13 +142,21 @@ def rotation_sweep_camera(
     patch_hw=(224, 224),
     rotation_mode: str = "factored",
     method: str = "auto",
+    mesh=None,
 ):
     """Per-rotation camera-frame teacher predictions for one batch, the
     core of the filter (single pass and cascade): the sweep's crops
     (`sweep_patches`), the teacher, and each prediction back-projected to
     the normalised camera frame with its rotation undone
     (generate_filtered_teacher_labels.py:467-489, convert_to_cam_coord
-    :124-131). Returns (cam (B, T, J, 3), tprime (B,))."""
+    :124-131). Returns (cam (B, T, J, 3), tprime (B,)). `mesh` splits the
+    batch over its data axis; every rank returns the whole batch's."""
+    if mesh is not None:
+        return over_data(
+            lambda im, Ki, bb: rotation_sweep_camera(
+                teacher_apply, im, Ki, bb, acfg, thetas, cover_range,
+                patch_hw, rotation_mode, method),
+            mesh, images, K, bbox)
     B = images.shape[0]
     ph, pw = patch_hw
     T = len(thetas)
@@ -256,6 +267,7 @@ def generate_filtered_labels(
     patch_hw=(224, 224),
     rotation_mode: str = "factored",
     method: str = "auto",
+    mesh=None,
 ) -> FilteredLabels:
     """Variance-filtered pseudo-labels for one batch.
 
@@ -265,11 +277,12 @@ def generate_filtered_labels(
     reference's faster_rcnn_bbox), labelled (B,) bool, joint_cam (B, J, 3)
     GT joints (read for labelled rows only), all on one device. Labelled
     rows keep their GT normalisation and are always kept. `rotation_mode`
-    and `method` as in `sweep_patches`."""
+    and `method` as in `sweep_patches`; `mesh` as in
+    `rotation_sweep_camera`."""
     cam, tprime = rotation_sweep_camera(
         teacher_apply, images, K, bbox, acfg,
         sweep_thetas(num_rotations, rotation_range), rotation_range,
-        patch_hw, rotation_mode, method)
+        patch_hw, rotation_mode, method, mesh)
     variance = cam.var(dim=1, unbiased=False).sum(dim=(-2, -1))   # (B,)
     mean_pred = cam.mean(dim=1)
     gt_norm = gt_normalized(joint_cam.to(K.dtype), K, tprime)

@@ -10,7 +10,7 @@ eval crop, the pose net's features, the fused projection + soft-argmax
 stages into one program; eagerly they are issued one after another. With
 int8 post-training quantization (`int8_calib`) both nets' convs and
 Linears run as int8 products (`quantize/ptq.py`); the kernels stay the
-same.
+same. With a device mesh the batch is split over its data axis.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from hand_integral_pose_estimation_tpu_torch.config import Config
@@ -33,6 +34,7 @@ from hand_integral_pose_estimation_tpu_torch.geometry import labels
 from hand_integral_pose_estimation_tpu_torch.ops.fused_head import (
     head_projection_integral,
 )
+from hand_integral_pose_estimation_tpu_torch.parallel import over_data
 from hand_integral_pose_estimation_tpu_torch.quantize import (
     Quantized,
     calibrate,
@@ -66,16 +68,24 @@ class TwoStagePipeline:
     the nets' weights. The heatmap projection stays in float: kernel 3
     reads its weights directly. The bundles land on
     `self.quantized = (q_pose, q_det)`. As in the JAX package, int8 does
-    not compose with `split_detector`. `mesh` (multi-GPU serving) comes
-    with the port of `parallel/` and raises."""
+    not compose with `split_detector`.
+
+    With `mesh` (a `parallel.Mesh`; each rank is given the same batch)
+    every stage runs on each rank's rows of the batch, both nets'
+    weights replicated, and the outputs are gathered over the data axis,
+    so every rank returns the whole batch's (JAX inference.py:40-100).
+    The batch must divide by the data axis. int8 composes with it:
+    calibration runs without the mesh, on every rank, and the ranks take
+    the largest of their scales, so all of them quantize alike; the
+    quantized pipeline then runs split. `split_detector` refuses a mesh,
+    as in the JAX package."""
 
     def __init__(self, cfg: Config, pose_net: nn.Module, detector: nn.Module,
                  device: str | torch.device = "cuda",
                  split_detector: bool = False, mesh=None, int8_calib=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TwoStagePipeline(mesh=...): multi-GPU serving comes with "
-                "the port of parallel/")
+        if split_detector and mesh is not None:
+            raise ValueError("split_detector does not compose with mesh "
+                             "(as in the JAX package)")
         if split_detector and int8_calib is not None:
             raise ValueError("split_detector does not compose with "
                              "int8_calib (as in the JAX package)")
@@ -84,6 +94,7 @@ class TwoStagePipeline:
         self.pose_net = pose_net.to(self.device).eval()
         self.detector = detector.to(self.device).eval()
         self.split_detector = split_detector
+        self.mesh = mesh
         self.quantized = None
         self._int8 = ()
         if int8_calib is not None:
@@ -117,10 +128,13 @@ class TwoStagePipeline:
         K, ref = self._tensor(K), self._tensor(ref)
 
         def run(im):
-            return self(im, K, ref)
+            return self._run(self._tensor(im), K, ref)
 
-        amax_det = calibrate(run, images, model=self.detector)
-        amax_pose = calibrate(run, images, model=self.pose_net)
+        with torch.inference_mode():
+            amax_det = self._agree(calibrate(run, images,
+                                             model=self.detector))
+            amax_pose = self._agree(calibrate(run, images,
+                                              model=self.pose_net))
         q_det = dataclasses.replace(quantize_params(self.detector, amax_det),
                                     root_type=type(self.detector))
         q_pose = dataclasses.replace(
@@ -128,6 +142,16 @@ class TwoStagePipeline:
                             skip=("head.final_layer",)),
             root_type=type(self.pose_net))
         return q_pose, q_det
+
+    def _agree(self, amax: dict) -> dict:
+        """Under a mesh, each activation scale's largest over the ranks."""
+        if self.mesh is None:
+            return amax
+        keys = sorted(amax)
+        t = torch.tensor([amax[k] for k in keys], dtype=torch.float64,
+                         device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        return dict(zip(keys, t.tolist()))
 
     def _tensor(self, x) -> torch.Tensor:
         """A host array goes to a card through pinned memory with a
@@ -165,9 +189,12 @@ class TwoStagePipeline:
     def __call__(self, images_rgb, K, ref_bone_len) -> PipelineOutput:
         """images_rgb (B, H, W, 3) uint8 or float, K (B, 3, 3), ref_bone_len
         (B,): tensors or numpy arrays, moved to the pipeline's device."""
-        images_rgb = self._tensor(images_rgb)
-        K = self._tensor(K)
-        ref_bone_len = self._tensor(ref_bone_len)
+        return over_data(self._run, self.mesh, self._tensor(images_rgb),
+                         self._tensor(K), self._tensor(ref_bone_len))
+
+    def _run(self, images_rgb: torch.Tensor, K: torch.Tensor,
+             ref_bone_len: torch.Tensor) -> PipelineOutput:
+        """Both stages on device tensors, in int8 where quantized."""
         with contextlib.ExitStack() as int8:
             for calls in self._int8:
                 int8.enter_context(calls)

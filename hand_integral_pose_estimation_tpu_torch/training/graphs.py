@@ -20,6 +20,14 @@ state. Random draws come from generators registered with each graph, so
 replays draw what eager calls would draw, and a `manual_seed` between
 replays takes effect. A capture or replay that fails raises: nothing is
 retried eagerly.
+
+A step under a device mesh over NCCL holds collectives (sync-BN's, the
+gradient all-reduce), and it is captured like any other, as PyTorch's
+CUDA-graphs notes on DDP allow: NCCL 2.9.6 or later, the eager warm-up on
+a side stream (which also creates the communicators before the capture),
+and async error handling off (`parallel.init_distributed` sets it). A gloo
+collective cannot be captured, so the runners give a step under a gloo
+mesh no `CapturedStep`.
 """
 
 from __future__ import annotations

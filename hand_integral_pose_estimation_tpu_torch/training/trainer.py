@@ -16,8 +16,18 @@ runners): the next batch decodes on a C++ thread pool while the device
 runs the current one, and each batch is decoded once. `yuv_transport`
 ships the JPEGs' own 4:2:0 planes (1.5 bytes a pixel instead of 3) and
 finishes the decode on the device (`ops.yuv`, bitwise the host decode),
-inside the captured chunk. The device mesh and the profiler of the JAX
-runners wait for later ports.
+inside the captured chunk.
+
+Under a device mesh (`parallel.Mesh`, one process a GPU, JAX
+training/trainer.py:141-199 and :415-530) the Trainer feeds each rank its
+slice of the global batch from a sampling stream of its own and steps it
+with sync-BN, the model-split head and the gradient all-reduce
+(`make_train_step(mesh=...)`); the Tester crops, forwards and decodes each
+rank's slice of a batch and gathers the coords and geometry over the data
+axis. Only rank 0 writes logs, metrics and snapshots. A step that holds
+NCCL collectives is captured like any other; a gloo group cannot be
+captured, so over gloo on the card the chunks run eagerly. The profiler of
+the JAX runners waits for a later port.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from hand_integral_pose_estimation_tpu_torch.config import Config
@@ -46,6 +57,18 @@ from hand_integral_pose_estimation_tpu_torch.data.native_loader import (
 )
 from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
 from hand_integral_pose_estimation_tpu_torch.ops.yuv import yuv420_to_rgb
+from hand_integral_pose_estimation_tpu_torch.parallel import (
+    convert_sync_batchnorm,
+    gather_data,
+    is_writer,
+    make_mesh,
+    make_multihost_mesh,
+    place_state,
+    process_batch_size,
+    shard_host_batch,
+    split_params,
+    world_size,
+)
 from hand_integral_pose_estimation_tpu_torch.training import (
     checkpoint as ckpt,
 )
@@ -108,6 +131,13 @@ def _uses_loader(dataset, native_prefetch: bool,
                 f"{type(dataset).__name__}")
         return False
     return native_prefetch
+
+
+def _capturable(device: torch.device, mesh) -> bool:
+    """Whether a runner's steps replay as CUDA graphs: on the card, and
+    under a mesh only over NCCL (a gloo collective cannot be captured)."""
+    return device.type == "cuda" and (
+        mesh is None or dist.get_backend(mesh.group) == "nccl")
 
 
 def _loader(batch_size: int, yuv_transport: bool) -> NativeLoader:
@@ -189,13 +219,28 @@ class Trainer:
     #: (bitwise the host decode); needs native_prefetch and 4:2:0 JPEGs of
     #: `FRAME_HW`
     yuv_transport: bool = False
+    #: device mesh for sharded training: a `parallel.make_mesh(...)` layout,
+    #: or `auto_mesh` to build the (data, model) mesh over every rank of the
+    #: process group (`parallel.init_distributed`) when there are several.
+    #: The global batch is cfg.train.batch_size and must divide by the data
+    #: axis; each rank feeds only its slice.
+    mesh: Optional[object] = None
+    #: the auto-built mesh's model axis (splits the final projection)
+    model_parallelism: int = 1
+    auto_mesh: bool = False
 
     def __post_init__(self):
         self.device = torch.device(self.device)
-        self.loader = (_loader(self.cfg.train.batch_size, self.yuv_transport)
+        self.writer = is_writer()
+        self._resolve_mesh()
+        mesh = self.mesh
+        # this rank's rows of each global batch
+        self.local_batch = process_batch_size(self.cfg.train.batch_size,
+                                              mesh)
+        self.loader = (_loader(self.local_batch, self.yuv_transport)
                        if _uses_loader(self.dataset, self.native_prefetch,
                                        self.yuv_transport) else None)
-        if self.log_dir:
+        if self.log_dir and self.writer:
             os.makedirs(self.log_dir, exist_ok=True)
             path = os.path.abspath(os.path.join(self.log_dir,
                                                 "train_logs.txt"))
@@ -209,16 +254,18 @@ class Trainer:
             self.cfg.model,
             generator=torch.Generator().manual_seed(self.seed)).to(
                 self.device)
+        if self.active and mesh is not None:
+            place_state(mesh, convert_sync_batchnorm(self.model, mesh))
         self.optimizer = make_optimizer(self.model.parameters(), tcfg)
         self.start_epoch = 0
         if self.continue_train:
             try:
                 epoch = ckpt.load_checkpoint(self.model_dir, self.model,
-                                             self.optimizer)
+                                             self.optimizer, mesh=mesh)
                 self.start_epoch = epoch + 1
-                logger.info("resumed from snapshot_%d", epoch)
+                self._log("resumed from snapshot_%d", epoch)
             except FileNotFoundError:
-                logger.info("no snapshot found; training from scratch")
+                self._log("no snapshot found; training from scratch")
         # the schedule rides in the optimizer's step count
         self.global_step = optimizer_steps(self.optimizer)
         self.scheduler = multistep_schedule(
@@ -229,15 +276,64 @@ class Trainer:
         self.train_step = make_train_step(
             self.model, self.optimizer, self.scheduler, self.cfg,
             teacher_apply=self.teacher_apply, panet_apply=self.panet_apply,
-            fuse_head=self.fuse_head)
+            fuse_head=self.fuse_head, mesh=mesh)
         # one generator for the run, seeded per epoch: a graph replays the
         # draws of the generator object it was captured with
         self.generator = torch.Generator(device=self.device)
         self.graphs = (CapturedStep(self.train_chunk, self.device,
                                     generators=(self.generator,))
-                       if self.device.type == "cuda" else None)
+                       if _capturable(self.device, mesh) else None)
+        if self.device.type == "cuda" and self.graphs is None:
+            self._log("gloo collectives cannot be captured: the chunks run "
+                      "eagerly")
         self.metrics = (MetricsWriter(self.metrics_dir)
-                        if self.metrics_dir else None)
+                        if self.metrics_dir and self.writer else None)
+
+    @property
+    def active(self) -> bool:
+        """False on a rank outside the mesh's grid: it trains nothing."""
+        return self.mesh is None or self.mesh.member
+
+    def _log(self, *args) -> None:
+        if self.writer:
+            logger.info(*args)
+
+    def _resolve_mesh(self) -> None:
+        """The JAX Trainer's mesh rules (trainer.py:141-199) over the ranks
+        of the process group: with `auto_mesh` (or a model axis) and
+        several ranks, a (data, model) mesh over all of them when the batch
+        divides the data axis, else over the first ranks of the largest
+        data axis that divides it (the JAX package takes a prefix of its
+        devices); an explicit `mesh` must divide the batch."""
+        world = world_size()
+        batch = self.cfg.train.batch_size
+        mp = self.model_parallelism
+        if self.mesh is None and (self.auto_mesh or mp > 1) and world > 1:
+            if mp < 1 or mp > world or world % mp:
+                raise ValueError(
+                    f"model_parallelism {mp} must be >=1 and divide the "
+                    f"visible device count {world}")
+            data_n = world // mp
+            if batch % data_n == 0:
+                self.mesh = make_multihost_mesh(model_parallelism=mp)
+            else:
+                data_n = next(d for d in range(data_n, 0, -1)
+                              if batch % d == 0)
+                if data_n * mp > 1:
+                    self.mesh = make_mesh(mp, ranks=range(data_n * mp))
+                    self._log("auto mesh: batch %d not divisible by %d "
+                              "devices; using %d", batch, world,
+                              data_n * mp)
+                else:
+                    self._log("auto mesh: batch %d has no usable data-axis "
+                              "split over %d devices; training "
+                              "single-device", batch, world)
+        if self.mesh is not None:
+            dsize = self.mesh.shape["data"]
+            if batch % dsize:
+                raise ValueError(f"batch_size {batch} must divide by the "
+                                 f"data-axis size {dsize}")
+            self._log("training over mesh %s", self.mesh.shape)
 
     def lr_at(self, step: int) -> float:
         """The learning rate of step `step` (from 0)."""
@@ -250,13 +346,18 @@ class Trainer:
 
     def _augment(self, generator: torch.Generator,
                  d: dict) -> pipeline.Batch:
+        """`make_train_batch` of this rank's rows, with the noise of the
+        global batch's rows."""
         image = d["image"]
         if self.yuv_transport:
             image = yuv420_to_rgb(image, *FRAME_HW)
+        block = ((0, 1) if self.mesh is None else
+                 (self.mesh.data_index, self.mesh.shape["data"]))
         return pipeline.make_train_batch(
             generator, image, d["joint_cam"], d["K"],
             d["bbox_detector"], d["labelled"], d["teacher_cam_normalized"],
-            d["ref_bone_len"], self.cfg.augment, self.cfg.model.input_shape)
+            d["ref_bone_len"], self.cfg.augment, self.cfg.model.input_shape,
+            block=block)
 
     def train_chunk(self, chunk: dict) -> torch.Tensor:
         """Train steps over a stacked chunk of host fields on the device,
@@ -275,7 +376,7 @@ class Trainer:
         else `dataset.host_batch`. Both draw the same indices in the same
         order, and no batch is drawn past the last step (the JAX Trainer
         keeps one in flight into the next epoch)."""
-        draws = (self.dataset.sample_indices(rng, self.batch_size)
+        draws = (self.dataset.sample_indices(rng, self.local_batch)
                  for _ in range(num_steps))
         if self.loader is None:
             return map(self.dataset.host_batch, draws)
@@ -286,9 +387,21 @@ class Trainer:
         """`num_steps` train steps (default: one pass worth of batches) in
         chunks of `scan_steps`. Host sampling and the device's augmentation
         noise are seeded from (seed, epoch), so the steps do not depend on
-        the chunking. Returns the last step's metrics as floats."""
+        the chunking. Returns the last step's metrics as floats.
+
+        Under a mesh each rank samples its slice from a stream of its own:
+        the seed takes 1000003 x the rank's data index, as the JAX Trainer
+        takes the process index (with one stream every rank would feed the
+        same records, and the global batch would be copies of one slice).
+        The ranks of a model row share a data index, and so their rows.
+        The augmentation noise is drawn for the global batch from the one
+        generator and each rank takes its rows."""
+        if not self.active:
+            return {}
         num_steps = num_steps or self.steps_per_epoch
-        rng = np.random.RandomState(self.seed * 100003 + epoch)
+        rank = 0 if self.mesh is None else self.mesh.data_index
+        rng = np.random.RandomState(self.seed * 100003 + epoch
+                                    + 1000003 * rank)
         self.generator.manual_seed(self.seed * 131 + epoch)
         k = max(1, self.scan_steps)
         read_s = step_s = 0.0
@@ -318,7 +431,7 @@ class Trainer:
                     prefix="train")
             if itr % log_every == 0:
                 n = itr + len(hosts)
-                logger.info(
+                self._log(
                     "epoch %d itr %d/%d loss %.5f (sup %.4f unsup %.4f) "
                     "s_mpjpe %.4f t_mpjpe %.4f lr %.2e | %.3fs/itr "
                     "(read %.3f step %.3f)", epoch, itr, num_steps,
@@ -333,27 +446,50 @@ class Trainer:
             save_every: int = 1) -> nn.Module:
         """Epochs start_epoch .. end_epoch - 1, a snapshot after every
         `save_every`-th and the last, and the test-split sweep after each
-        when `test_dataset` is set. Returns the model."""
+        when `test_dataset` is set. Returns the model.
+
+        The sweep rides the training mesh when the test batch divides its
+        data axis (JAX trainer.py:401-409); else every rank sweeps the
+        whole split with the whole model. A rank outside the mesh's grid
+        trains nothing."""
+        if not self.active:
+            logger.info("rank %d is outside the mesh %s: idle",
+                        self.mesh.rank, self.mesh.shape)
+            return self.model
         end_epoch = end_epoch or self.cfg.train.end_epoch
         tester = None
         for epoch in range(self.start_epoch, end_epoch):
             self.run_epoch(epoch, steps_per_epoch)
             if (epoch + 1) % save_every == 0 or epoch == end_epoch - 1:
                 path = ckpt.save_checkpoint(self.model_dir, self.model,
-                                            self.optimizer, epoch)
-                logger.info("saved %s", path)
+                                            self.optimizer, epoch,
+                                            mesh=self.mesh)
+                self._log("saved %s", path)
             if self.test_dataset is not None:
                 if tester is None:
-                    tester = Tester(self.cfg, self.test_dataset, self.model,
-                                    device=self.device,
-                                    fuse_head=self.fuse_head)
+                    tester = self._tester()
+                if tester.model is not self.model:
+                    tester.model.load_state_dict(
+                        ckpt.whole_state(self.model, mesh=self.mesh)[0])
                 test_loss = tester.mean_loss()
-                logger.info("epoch %d/%d average loss on test set %.4f",
-                            epoch, end_epoch, test_loss)
+                self._log("epoch %d/%d average loss on test set %.4f",
+                          epoch, end_epoch, test_loss)
                 if self.metrics is not None:
                     self.metrics.write(self.global_step, {"loss": test_loss},
                                        prefix="test")
         return self.model
+
+    def _tester(self) -> "Tester":
+        mesh = self.mesh
+        if mesh is not None and (self.cfg.train.test_batch_size
+                                 % mesh.shape["data"]):
+            mesh = None
+        model = self.model
+        if mesh is None and split_params(model):
+            # the whole model, refreshed before each sweep
+            model = get_pose_net(self.cfg.model).to(self.device)
+        return Tester(self.cfg, self.test_dataset, model, device=self.device,
+                      fuse_head=self.fuse_head, mesh=mesh)
 
 
 @dataclasses.dataclass
@@ -365,7 +501,13 @@ class Tester:
     `fuse_head` picks the fused projection + decode (the default) or the
     heatmap + decode arm. On the card each batch (crop, net, decode, loss)
     is one replay of a CUDA graph captured at the batch size (the first
-    batch of a size runs eagerly, as the warm-up)."""
+    batch of a size runs eagerly, as the warm-up).
+
+    With `mesh`, each rank crops, forwards and decodes its slice of each
+    batch (the final projection split over `model` where the model was
+    laid out so) and the coords and the Batch fields are gathered over
+    the data axis, in rank order, inside the step; every rank returns the
+    whole sweep. The batch must divide by the data axis."""
 
     cfg: Config
     dataset: object
@@ -376,16 +518,22 @@ class Tester:
     native_prefetch: bool = True
     #: as the Trainer's: 4:2:0 planes, decoded on the device
     yuv_transport: bool = False
+    #: device mesh: the sweep's batches split over its data axis
+    mesh: Optional[object] = None
 
     def __post_init__(self):
         self.device = torch.device(self.device)
+        if self.mesh is not None and "data" not in self.mesh.axis_names:
+            raise ValueError(f"Tester mesh must have a 'data' axis; got "
+                             f"{self.mesh.axis_names}")
         # a prefetcher per sweep, at the sweep's batch size
         self._prefetch = _uses_loader(self.dataset, self.native_prefetch,
                                       self.yuv_transport)
         self.model = self.model.to(self.device).eval()
-        self.eval_step = make_eval_step(self.model, self.cfg, self.fuse_head)
+        self.eval_step = make_eval_step(self.model, self.cfg, self.fuse_head,
+                                        self.mesh)
         self.graphs = (CapturedStep(self.eval_batch, self.device)
-                       if self.device.type == "cuda" else None)
+                       if _capturable(self.device, self.mesh) else None)
 
     def preprocess(self, host: dict) -> pipeline.Batch:
         """Host batch dict (numpy) -> device Batch (make_eval_batch)."""
@@ -405,7 +553,11 @@ class Tester:
         eval step."""
         batch = self._crop(d)
         coords, _ = self.eval_step(batch)
-        return coords, batch._replace(image=None)
+        batch = batch._replace(image=None)
+        if self.mesh is not None:
+            coords, *fields = gather_data([coords, *batch], self.mesh)
+            batch = pipeline.Batch(*fields)
+        return coords, batch
 
     def run(self, batch_size: Optional[int] = None):
         """Sweep every sample exactly once. The last partial batch is padded
@@ -418,6 +570,11 @@ class Tester:
 
         Returns (coords (N, J, 3) numpy, merged Batch of numpy arrays)."""
         bs = batch_size or self.cfg.train.test_batch_size
+        if self.mesh is not None and bs % self.mesh.shape["data"]:
+            raise ValueError(
+                f"test batch size {bs} must divide by the mesh data-axis "
+                f"size {self.mesh.shape['data']} (pass batch_size= or set "
+                f"cfg.train.test_batch_size accordingly)")
         n = len(self.dataset)
         outs = []
         for host in self.host_batches(bs):
@@ -438,12 +595,15 @@ class Tester:
         a prefetcher made for the sweep, with submit-ahead double
         buffering (batch i+1 decodes while the device evaluates batch i),
         where the dataset is read through one; else `dataset.host_batch`.
-        An empty split yields nothing."""
-        idxs = padded_batches(len(self.dataset), batch_size)
+        An empty split yields nothing. Under a mesh, this rank's rows of
+        each batch."""
+        idxs = (shard_host_batch(self.mesh, idx)
+                for idx in padded_batches(len(self.dataset), batch_size))
         if not self._prefetch:
             yield from map(self.dataset.host_batch, idxs)
             return
-        with _loader(batch_size, self.yuv_transport) as loader:
+        with _loader(process_batch_size(batch_size, self.mesh),
+                     self.yuv_transport) as loader:
             yield from _prefetched(loader, self.dataset.records, idxs)
 
     def mean_loss(self, batch_size: Optional[int] = None) -> float:

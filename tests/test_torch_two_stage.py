@@ -114,14 +114,18 @@ def test_two_stage_pipeline_matches_jax(tiny, pose, split):
 
 
 def test_two_stage_pipeline_refuses_what_it_has_not_ported(tiny, pose):
-    """`mesh` is refused and names the module to come; int8 serving is
-    ported and runs (tests/test_torch_quantize.py holds it to the JAX
-    package): both nets are quantized and the output is finite."""
+    """`mesh` is ported (tests/test_torch_mesh_serving.py runs it over two
+    ranks); with `split_detector` it is refused, as in the JAX package.
+    int8 serving is ported and runs (tests/test_torch_quantize.py holds it
+    to the JAX package): both nets are quantized and the output is
+    finite."""
     _, _, _, det = tiny
     mcfg, _, _, net = pose
     cfg = Config(model=mcfg, detector=DetectorConfig(**TINY))
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        TwoStagePipeline(cfg, net, det, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="split_detector does not compose "
+                       "with mesh"):
+        TwoStagePipeline(cfg, net, det, device="cpu", mesh=object(),
+                         split_detector=True)
     images = tiny_images()
     K = np.broadcast_to(CAMERA, (2, 3, 3)).copy()
     ref = np.ones(2, np.float32)
@@ -227,7 +231,8 @@ def test_evaluate_cli_runs_the_detector_then_reuses_its_cache(tmp_path,
 
 def test_evaluate_cli_flags_resolve_as_in_jax():
     """The detector flags, the native preset and --set give the JAX CLI's
-    DetectorConfig; --mesh is refused and names parallel/, --int8 without
+    DetectorConfig; --mesh data=2 in one process exits with the JAX CLI's
+    message for a layout larger than the visible devices, --int8 without
     the detector path with the JAX CLI's message."""
     for argv in ([], ["--detector-native"],
                  ["--detector-native", "--detector-scale", "128",
@@ -242,7 +247,7 @@ def test_evaluate_cli_flags_resolve_as_in_jax():
             jax_evaluate_cli.build_argparser().parse_args(argv),
             jconfig.DetectorConfig())
         assert dataclasses.asdict(got) == dataclasses.asdict(want), argv
-    for flag, why in ((["--mesh", "data=2"], "parallel/"),
+    for flag, why in ((["--mesh", "data=2"], "needs 2 devices, 1 visible"),
                       (["--int8"], "two-stage detector")):
         with pytest.raises(SystemExit, match=why):
             cli.main(["--synthetic", *flag])
