@@ -14,14 +14,17 @@ before the result line.
 2. build: compiles the CUDA kernels from `csrc/` (one nvcc per source, all
    at once) and prints the seconds, then counts the tensor-core product
    instructions (HMMA / HGMMA) in the SASS of the fused head's bf16
-   kernels (kernels 3 and 4) and fails if any has none;
+   kernels (kernels 3 and 4) and of kernel 4's float32-feature route, and
+   fails if any has none;
 3. kernels: each of the five pose kernels against its plain PyTorch
    version on the card, at the shapes of the two paths and at small ragged
    shapes; kernel 1 also at batch 1 with its planned chunks and with more
    chunks than rows, on `hm[1:]` and on a base off 16 bytes (its generic
    path), and twice at the serving shape for the same bits; kernels 3 and
-   4 with bf16 features (tensor cores) and float32 ones (CUDA cores), and
-   also at the two-stage path's pose batch of 4; kernel 5 bitwise against
+   4 with bf16 features (tensor cores) and float32 ones (kernel 3 on CUDA
+   cores, kernel 4 on the tensor cores, counted on their own entry points),
+   and also at the two-stage path's pose batch of 4, kernel 4 twice at the
+   serving shape on both routes for the same bits; kernel 5 bitwise against
    its plain version with float32 and uint8 frames, with and without its
    normalising epilogue, and on degenerate maps (singular, an exact
    90-degree turn, a horizon inside the output, positions at +-inf);
@@ -42,7 +45,10 @@ before the result line.
    the fused head's forward and backward or the soft-argmax's), the
    finite losses, the snapshot it writes, and on one batch the
    kernel-backed step's gradients against a plain-backed step's from the
-   same state; then `Trainer.fit` with scan_steps=4 as graph replays (one
+   same state, at bf16 and at float32 compute; the fused arm at float32
+   compute also takes a few counted steps of `Trainer.fit` (kernels 3 and
+   4 on float32 features); then `Trainer.fit` with scan_steps=4 as graph
+   replays (one
    eager warm-up chunk, then one replay a chunk) against the same Trainer
    run eagerly under cuDNN's deterministic algorithms: launch counts from
    the graph's nodes and the training state bitwise equal; then it times
@@ -95,8 +101,10 @@ before the result line.
    graph timing; the teacher and PANet unchanged;
 9. detector training: (a) the ROIAlign backward kernel against the plain
    VJP at the training shape (4 x 38x38x1024, 4 x 128 RoIs in the sampled
-   layout: foreground first with the gt box, zero padding slots) and at
-   ragged ones (RoIs partly off the map, under one cell, R = 1, C = 6),
+   layout: foreground first with the gt box, zero padding slots), at
+   ragged ones (RoIs partly off the map, under one cell, R = 1, C = 6) and
+   at a 1 000-pixel image's 63 x 38 map, whose 32-channel strip the kernel
+   cuts into bands of rows, with an image whose RoIs all lie off the map;
    two launches bitwise equal, timed beside its bound; (b) kernel 7 at the
    training proposal shape, 4 x 12 000 -> 2 000 at IoU 0.7, keep sets
    bitwise equal with and without early exit; (c) the train step of the
@@ -107,14 +115,15 @@ before the result line.
    gradient), the kernel-backed step twice bitwise equal, then, with the
    frozen BatchNorm statistics set from one forward pass over the scenes
    (each layer's own input statistics, so the untrained R101's
-   activations stay near unit size) and the heads scaled again, ten SGD
-   steps at the detector's rate with the same draws each step under
+   activations stay near unit size) and the heads scaled again, twenty
+   SGD steps at the detector's rate with the same draws each step under
    cuDNN's deterministic algorithms, whose loss must fall (the last below
    the first, the mean of the last three below that of the first three),
-   with their launches per step (kernel 7, kernel 6 and its backward once
-   each), timed back to back and profiled; (d) `cli.train_detector
-   --synthetic` for three steps, its .pth restored by `build_detector`
-   with the same `detect`; (e) `cli.semi_supervised_study`,
+   each step's backward kernel held to the plain VJP on its own
+   cotangent and RoIs, with their launches per step (kernel 7, kernel 6
+   and its backward once each), timed back to back and profiled; (d)
+   `cli.train_detector --synthetic` for three steps, its .pth restored by
+   `build_detector` with the same `detect`; (e) `cli.semi_supervised_study`,
    `cli.filter_cascade_study` and `cli.analyze_correlation` at a few steps;
 10. the input path and int8 serving: (a) `yuv420_to_rgb` on the card
    bitwise against the CPU at 32 x 224^2 and ragged even sizes, timed
@@ -139,8 +148,9 @@ before the result line.
    --teacher-dtype int8`;
 11. the device mesh (`parallel/`): kernels 3 and 4 at the model split's
    joint counts (7 and 3: 392 and 168 channels) against their plain
-   versions; (a) `Trainer(mesh=make_mesh())` on one NCCL rank at
-   ModelConfig() and batch 32, scan_steps=4 (the second chunk captured
+   versions, kernel 4 on bf16 and float32 features (bitwise twice);
+   (a) `Trainer(mesh=make_mesh())` on one NCCL rank at ModelConfig() and
+   batch 32, scan_steps=4 (the second chunk captured
    with its all-reduces: the graph's NCCL kernel nodes are counted)
    against the same Trainer without a mesh over 8 steps, losses and
    parameters, and the replay timed against the meshless one; (b) two
@@ -164,10 +174,14 @@ operations it must do over the card's peak for their type, from the H100
 SXM data sheet: 67 TFLOP/s for float32 on CUDA cores, and for the fused
 head's 1x1 projections (bf16 features times float32 weights or gradients)
 989/3 TFLOP/s, the bf16 tensor-core rate over the three bf16 products
-that carry a float32 operand split into bf16 parts to float32 accuracy. No single PyTorch
-call computes any of the eight functions (there is no torchvision here for
-NMS or ROIAlign and its backward), so `library_ms` is null. The line before the last is the
-card's name and power limit; the last line is the JSON result.
+that carry a float32 operand split into bf16 parts to float32 accuracy;
+with float32 features (both operands float32) 989/6 TFLOP/s, six such
+products (495/3 for 3xTF32). The kernels line has the fused head's
+float32-feature entry points as their own rows (`*_f32`). No single
+PyTorch call computes any of the ten functions (there is no torchvision
+here for NMS or ROIAlign and its backward), so `library_ms` is null. The
+line before the last is the card's name and power limit; the last line is
+the JSON result.
 """
 
 from __future__ import annotations
@@ -196,6 +210,8 @@ SEED = 0
 # inside its time limit (about 80 s of command time on an H100)
 TRAIN_STEPS = 3
 TIME_STEPS = 12
+# Trainer.fit steps at float32 compute (the fused head's float32 route)
+F32_TRAIN_STEPS = 2
 # Trainer(scan_steps=k) on the card, k = 1 and GRAPH_CHUNK: one eager
 # warm-up chunk, then GRAPH_STEPS / k - 1 replays of one captured chunk
 GRAPH_CHUNK = 4
@@ -296,8 +312,16 @@ DET_LOSS_REL = 1e-5
 DET_GRAD_LEAF = 1e-3
 DET_GRAD_TOTAL = 1e-4
 DET_GRAD_BWD = 1e-4
-DET_TRAIN_STEPS = 10
-# The ten SGD steps' rate: the detector's own (make_detector_optimizer).
+# SGD steps on one objective (the same draws each step), whose loss must
+# fall: the last below the first, the mean of the last three below that of
+# the first three. The proposals move with the weights, so float32
+# rounding alone turns a trajectory: of 16 runs from one state that differ
+# only in the rounding of the ROIAlign backward (the kernel, its plain VJP
+# in float32 and in float64, every detector op plain, and either times
+# 1 + 1e-7 or 1e-6 N(0, 1)), 4 fell over ten steps on an H100 and all 16
+# over twenty (scripts/detector_descent_study.py).
+DET_TRAIN_STEPS = 20
+# The SGD steps' rate: the detector's own (make_detector_optimizer).
 # With unit frozen BatchNorm statistics the untrained R101's activations
 # grow by orders of magnitude through its 33 blocks (5.4e5 mean |x| at the
 # base's output), and steps at 1e-3 and even 1e-7 raised the loss from 3
@@ -310,6 +334,9 @@ F32_FLOPS = 67e12
 # a bf16 x float32 product to float32 accuracy on tensor cores: the float32
 # operand split into three bf16 parts, three bf16 products
 BF16X3_FLOPS = 989e12 / 3
+# a float32 x float32 product to float32 accuracy on tensor cores: six bf16
+# products of the parts (the rate of 3xTF32 on the TF32 units, 495/3)
+BF16X6_FLOPS = 989e12 / 6
 
 
 def fail(msg: str) -> None:
@@ -793,6 +820,31 @@ def plain_roi_align_backward():
     ra_mod.roi_align_bwd_cuda = ra_mod.roi_align_bwd_plain
     try:
         yield
+    finally:
+        ra_mod.roi_align_bwd_cuda = saved
+
+
+@contextlib.contextmanager
+def roi_align_backward_held():
+    """Hold every launch of kernel 6's backward kernel to the plain VJP on
+    the same cotangent and RoIs; yields the list of max|d| / max|plain|,
+    one entry a launch. The kernel's result is what the caller gets."""
+    from hand_integral_pose_estimation_tpu_torch.ops import (
+        roi_align as ra_mod,
+    )
+    saved = ra_mod.roi_align_bwd_cuda
+    errors = []
+
+    def held(g, rois, feature_hw, *args):
+        got = saved(g, rois, feature_hw, *args)
+        want = ra_mod.roi_align_bwd_plain(g, rois, feature_hw, *args)
+        errors.append(float((got - want).abs().max())
+                      / max(float(want.abs().max()), 1e-30))
+        return got
+
+    ra_mod.roi_align_bwd_cuda = held
+    try:
+        yield errors
     finally:
         ra_mod.roi_align_bwd_cuda = saved
 
@@ -1605,7 +1657,7 @@ def training_rois(B, R, H, W, g, dev):
 
 
 def detector_training_phase(dev, g, card):
-    """Phase 9. Returns the launches of the phase's main runs (the ten SGD
+    """Phase 9. Returns the launches of the phase's main runs (the SGD
     steps and `cli.train_detector`) by kernel symbol, and for
     "roi_align_bwd" (max_abs_err, (ms, plain_ms), (bound_ms, bound_by))."""
     from hand_integral_pose_estimation_tpu_torch.cli import (
@@ -1638,13 +1690,20 @@ def detector_training_phase(dev, g, card):
     def counts():
         return {k.symbol: k.launches for k in kernels.KERNELS}
 
-    # ---- a. the ROIAlign backward kernel against the plain VJP
+    # ---- a. the ROIAlign backward kernel against the plain VJP; the last
+    # shape is a 1 000-pixel image's map (63 x 38), whose 32-channel strip
+    # (306 KB) the kernel cuts into bands of rows, its second image's RoIs
+    # all off the map
     worst = 0.0
     path = None
     for (B, H, W, C, R) in ((DET_BATCH, 38, 38, 1024, 128),
                             (2, 21, 19, 256, 13), (1, 9, 11, 64, 1),
-                            (3, 9, 11, 6, 9)):
+                            (3, 9, 11, 6, 9), (2, 63, 38, 1024, 64)):
         rois = training_rois(B, R, H, W, g, dev)
+        banded = H == 63
+        if banded:
+            rois[1] = torch.tensor([-900.0, -900.0, -500.0, -600.0],
+                                   device=dev)
         cot = torch.randn(B, R, 7, 7, C, device=dev, generator=g)
         got = roi_align_bwd_cuda(cot, rois, (H, W))
         again = roi_align_bwd_cuda(cot, rois, (H, W))
@@ -1654,9 +1713,15 @@ def detector_training_phase(dev, g, card):
         tol = ROI_BWD_TOL * float(want.abs().max())
         same = bool(torch.equal(got, again))
         ok = e <= tol and same and float(want.abs().max()) > 0
+        note = ""
+        if banded:
+            empty = not bool(got[1].any())
+            ok = ok and empty
+            note = f", banded, the image without RoIs all zero {empty}"
         print(f"[detector training] roi_align_bwd {(B, H, W, C)} x {R} "
               f"RoIs: max|d| {e:.3e} (tol {tol:.3e}), two launches "
-              f"bitwise equal {same} {'ok' if ok else 'FAILED'}", flush=True)
+              f"bitwise equal {same}{note} {'ok' if ok else 'FAILED'}",
+              flush=True)
         check(ok, "the ROIAlign backward kernel disagrees with the plain "
               "VJP or differs between launches")
         worst = max(worst, e)
@@ -1818,31 +1883,41 @@ def detector_training_phase(dev, g, card):
                                                    lr=DET_LR)
     step = make_detector_train_step(model, optimizer, scheduler)
     sampling = torch.Generator(device=dev)
-    # cuDNN's deterministic algorithms: the same ten losses on every run
+    # cuDNN's deterministic algorithms: the same losses on every run; each
+    # step's backward kernel held to the plain VJP on that step's own
+    # cotangent and RoIs
     torch.backends.cudnn.deterministic = True
     reset()
     per_step, losses = [], []
-    for _ in range(DET_TRAIN_STEPS):
-        before = counts()
-        # the same anchor and RoI draws each step: one objective, descended
-        sampling.manual_seed(SEED + 2)
-        metrics = step(blob, gt, gc, gv, generator=sampling)
-        per_step.append({k: v - before[k] for k, v in counts().items()
-                         if v - before[k]})
-        losses.append(metrics["loss"])
+    with roi_align_backward_held() as bwd_errors:
+        for _ in range(DET_TRAIN_STEPS):
+            before = counts()
+            # the same anchor and RoI draws each step: one objective,
+            # descended
+            sampling.manual_seed(SEED + 2)
+            metrics = step(blob, gt, gc, gv, generator=sampling)
+            per_step.append({k: v - before[k] for k, v in counts().items()
+                             if v - before[k]})
+            losses.append(metrics["loss"])
     losses = torch.stack(losses).tolist()
     steps_launches = counts()
     torch.backends.cudnn.deterministic = deterministic
     falls = (losses[-1] < losses[0]
              and sum(losses[-3:]) < sum(losses[:3]))
+    steps_bwd_ok = (len(bwd_errors) == DET_TRAIN_STEPS
+                    and max(bwd_errors) <= ROI_BWD_TOL)
     print(f"[detector training] {DET_TRAIN_STEPS} SGD steps at lr "
           f"{DET_LR:g} with the frozen statistics set from the scenes (base "
           f"features' mean |x| {size:.4g}): losses "
-          f"{[round(v, 4) for v in losses]}, falling {falls}; launches per "
-          f"step {per_step}", flush=True)
+          f"{[round(v, 4) for v in losses]}, falling {falls}; the backward "
+          f"kernel against the plain VJP at each step: max|d| / max "
+          f"{max(bwd_errors):.3e} (tol {ROI_BWD_TOL:g}); launches per step "
+          f"{per_step}", flush=True)
     check(all(math.isfinite(v) for v in losses), "non-finite detector loss")
-    check(falls, "the detector's loss did not fall over ten SGD steps on "
-          "one batch")
+    check(falls, f"the detector's loss did not fall over {DET_TRAIN_STEPS} "
+          f"SGD steps on one batch")
+    check(steps_bwd_ok, "the ROIAlign backward kernel disagrees with the "
+          "plain VJP in a train step")
     check(all(p == {kernels.NMS.symbol: 1, kernels.ROI_ALIGN_FWD.symbol: 1,
                     kernels.ROI_ALIGN_BWD.symbol: 1} for p in per_step),
           f"detector train steps launched {per_step}")
@@ -2490,8 +2565,10 @@ def mesh_phase(dev, g, card, cfg):
     F = cfg.model.deconv_channels
     lr = cfg.train.lr
     launches = {k.symbol: 0 for k in kernels.KERNELS}
-    err = {"head_projection_integral_fwd": 0.0,
-           "head_projection_integral_bwd": 0.0}
+    err = {name: 0.0 for name in (
+        "head_projection_integral_fwd", "head_projection_integral_bwd",
+        "head_projection_integral_fwd_f32",
+        "head_projection_integral_bwd_f32")}
 
     def add(counts):
         for k, v in counts.items():
@@ -2499,31 +2576,44 @@ def mesh_phase(dev, g, card, cfg):
 
     # kernels 3 and 4 at the model split's channel counts: 7 joints (392
     # channels, model=3) and 3 joints (168, model=7), a ragged tail on
-    # the 64-channel blocks, bf16 features as on the path
-    for j in (7, 3):
+    # the 64-channel blocks, bf16 features as on the path and float32 ones
+    # (compute_dtype="float32"), kernel 4 twice for the same bits
+    for j, fdt in itertools.product((7, 3), (torch.bfloat16, torch.float32)):
+        sfx, tag = (("_f32", "f32") if fdt == torch.float32
+                    else ("", "bf16"))
         feats = torch.randn(BATCH, Ho, Wo, F, device=dev,
-                            generator=g).bfloat16()
+                            generator=g).to(fdt)
         w = 0.3 * torch.randn(j * D, F, device=dev, generator=g)
         b = torch.randn(j * D, device=dev, generator=g)
-        err["head_projection_integral_fwd"] = max(
-            err["head_projection_integral_fwd"], compare(
+        err["head_projection_integral_fwd" + sfx] = max(
+            err["head_projection_integral_fwd" + sfx], compare(
                 f"head_projection_integral_fwd at the model split, "
-                f"{(BATCH, Ho, Wo, F)}x{(j * D, F)} bf16/f32",
+                f"{(BATCH, Ho, Wo, F)}x{(j * D, F)} {tag}/f32",
                 lambda: head_projection_integral_cuda(feats, w, b, j, D),
                 lambda: head_projection_integral_reference(feats, w, b, j,
                                                            D)))
         coords, m, s = head_projection_integral_cuda(feats, w, b, j, D)
         cot = torch.randn(BATCH, j, 3, device=dev, generator=g)
-        err["head_projection_integral_bwd"] = max(
-            err["head_projection_integral_bwd"], compare_grads(
+        err["head_projection_integral_bwd" + sfx] = max(
+            err["head_projection_integral_bwd" + sfx], compare_grads(
                 f"head_projection_integral_bwd at the model split, "
-                f"{(BATCH, Ho, Wo, F)}x{(j * D, F)} bf16/f32",
+                f"{(BATCH, Ho, Wo, F)}x{(j * D, F)} {tag}/f32",
                 lambda: head_projection_integral_bwd_cuda(
                     feats, w, b, m, s, coords, cot, j, D),
                 lambda: head_projection_integral_bwd_reference(
                     feats, w, b, m, s, coords, cot, j, D),
                 GRAD_ABS_SCALE["head_projection_integral_bwd"]))
-        del feats, coords, m, s
+        first = head_projection_integral_bwd_cuda(feats, w, b, m, s, coords,
+                                                  cot, j, D)
+        again = head_projection_integral_bwd_cuda(feats, w, b, m, s, coords,
+                                                  cot, j, D)
+        same = all(torch.equal(x, y) for x, y in zip(first, again))
+        print(f"[kernels] head_projection_integral_bwd at the model split, "
+              f"{j * D} channels, {tag} features, run twice: bitwise equal "
+              f"{same}", flush=True)
+        check(same, "the fused-head backward is not deterministic at the "
+              "model split")
+        del feats, coords, m, s, first, again
 
     # the projection every run of the phase starts from: scaled on the
     # augmented batch of an unsplit model, then copied (or cut) into each
@@ -2975,11 +3065,14 @@ def main() -> None:
     print(f"[build] {lib_path.name} from {kernels.CSRC.name}/ in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     tensor_core = kernels.tensor_core_instructions()
+    tensor_core32 = kernels.tensor_core_instructions(kernels.F32_MMA_KERNELS)
     print(f"[build] tensor-core product instructions (HMMA / HGMMA) in the "
-          f"SASS of the fused head's bf16 kernels: {tensor_core}", flush=True)
-    check(all(n > 0 for n in tensor_core.values()),
-          f"a bf16 fused-head kernel has no tensor-core product: "
-          f"{tensor_core}")
+          f"SASS of the fused head's bf16 kernels: {tensor_core}; of kernel "
+          f"4's float32-feature route: {tensor_core32}", flush=True)
+    check(all(n > 0 for n in (*tensor_core.values(),
+                              *tensor_core32.values())),
+          f"a tensor-core fused-head kernel has no tensor-core product: "
+          f"{tensor_core}, {tensor_core32}")
 
     # ---- 3. kernels against their plain versions
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -2991,7 +3084,8 @@ def main() -> None:
     err = {name: 0.0 for name in (
         "softmax_integral_fwd", "head_projection_integral_fwd",
         "softmax_integral_bwd", "head_projection_integral_bwd",
-        "warp_twopass")}
+        "warp_twopass", "head_projection_integral_fwd_f32",
+        "head_projection_integral_bwd_f32")}
     shapes = ((BATCH, Ho, Wo, J, D, F), (1, 8, 8, 3, 4, 40),
               (3, 7, 5, 2, 100, 40))
     for (B, H, W, j, d, f) in shapes:
@@ -3050,10 +3144,12 @@ def main() -> None:
     del hm, first, again
 
     # kernels 3 and 4 also at the two-stage path's pose batch, with bf16
-    # features (the tensor-core kernels) and float32 ones (CUDA cores)
+    # features (the tensor-core kernels) and float32 ones (kernel 3 on CUDA
+    # cores, kernel 4 on the tensor cores; their own err keys)
     for (B, H, W, j, d, f), fdt in itertools.product(
             shapes + ((DET_BATCH, Ho, Wo, J, D, F),),
             (torch.bfloat16, torch.float32)):
+        sfx = "_f32" if fdt == torch.float32 else ""
         feats = torch.randn(B, H, W, f, device=dev, generator=g).to(fdt)
         w = 0.3 * torch.randn(j * d, f, device=dev, generator=g)
         b = torch.randn(j * d, device=dev, generator=g)
@@ -3062,8 +3158,8 @@ def main() -> None:
                     lambda: head_projection_integral_cuda(feats, w, b, j, d),
                     lambda: head_projection_integral_reference(feats, w, b, j,
                                                                d))
-        err["head_projection_integral_fwd"] = max(
-            err["head_projection_integral_fwd"], e)
+        err["head_projection_integral_fwd" + sfx] = max(
+            err["head_projection_integral_fwd" + sfx], e)
         coords, m, s = head_projection_integral_cuda(feats, w, b, j, d)
         cot = torch.randn(B, j, 3, device=dev, generator=g)
         e = compare_grads(
@@ -3074,16 +3170,17 @@ def main() -> None:
             lambda: head_projection_integral_bwd_reference(feats, w, b, m, s,
                                                            coords, cot, j, d),
             GRAD_ABS_SCALE["head_projection_integral_bwd"])
-        err["head_projection_integral_bwd"] = max(
-            err["head_projection_integral_bwd"], e)
-        if B == BATCH and fdt == torch.bfloat16:
+        err["head_projection_integral_bwd" + sfx] = max(
+            err["head_projection_integral_bwd" + sfx], e)
+        if B == BATCH:
             again = head_projection_integral_bwd_cuda(feats, w, b, m, s,
                                                       coords, cot, j, d)
             first = head_projection_integral_bwd_cuda(feats, w, b, m, s,
                                                       coords, cot, j, d)
             same = all(torch.equal(x, y) for x, y in zip(first, again))
-            print(f"[kernels] head_projection_integral_bwd run twice: dW, db "
-                  f"and dfeat bitwise equal: {same}", flush=True)
+            print(f"[kernels] head_projection_integral_bwd {fdt} features "
+                  f"run twice: dW, db and dfeat bitwise equal: {same}",
+                  flush=True)
             check(same, "the fused-head backward is not deterministic")
     acfg = cfg.augment
     for (B, Hs, Ws, C, Ho2, Wo2) in ((BATCH, IH, IW, 3, IH, IW),
@@ -3277,12 +3374,32 @@ def main() -> None:
                            GRAD_TOTAL_REL_BF16)
             cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
                 cfg.model, compute_dtype="float32"))
-            trainer32 = Trainer(cfg32, train_data, model_dir=model_dir,
+            dir32 = tempfile.mkdtemp(dir=model_dir)
+            trainer32 = Trainer(cfg32, train_data, model_dir=dir32,
                                 seed=SEED, device=dev, fuse_head=fuse)
             trainer32.graphs = None
             scale_projection(trainer32.model, batch.image)
             gradient_check(arm + " float32", trainer32, batch, fuse,
                            GRAD_LEAF_REL_F32, GRAD_TOTAL_REL_F32)
+            if fuse:
+                # the float32 route's counted run: Trainer.fit at float32
+                # compute, its head on kernels 3 and 4 with float32 features
+                for k in kernels.KERNELS:
+                    k.launches = 0
+                trainer32.fit(end_epoch=1, steps_per_epoch=F32_TRAIN_STEPS)
+                torch.cuda.synchronize()
+                counts = {k.symbol: k.launches for k in kernels.KERNELS}
+                want_counts = {k.symbol: (F32_TRAIN_STEPS if k in (
+                    kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32,
+                    kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32,
+                    kernels.WARP_TWOPASS) else 0) for k in kernels.KERNELS}
+                print(f"[training] fused arm at float32 compute: "
+                      f"Trainer.fit took {F32_TRAIN_STEPS} steps at batch "
+                      f"{BATCH}, launches {counts}", flush=True)
+                check(counts == want_counts, f"float32 fused arm: launches "
+                      f"{counts}, expected {want_counts}")
+                for k, v in counts.items():
+                    train_launches[k] += v
             del trainer32
             torch.cuda.empty_cache()
 
@@ -3481,15 +3598,15 @@ def main() -> None:
     # CUDA-core kernels), kernel 3 at the two-stage path's pose batch
     feats32, feats4 = feats.float(), feats[:DET_BATCH].contiguous()
     c32, m32, s32 = head_projection_integral_cuda(feats32, w, b, J, D)
+    times["head_projection_integral_fwd_f32"] = time_pair(
+        lambda: head_projection_integral_cuda(feats32, w, b, J, D),
+        lambda: head_projection_integral_reference(feats32, w, b, J, D))
+    times["head_projection_integral_bwd_f32"] = time_pair(
+        lambda: head_projection_integral_bwd_cuda(
+            feats32, w, b, m32, s32, c32, cot, J, D),
+        lambda: head_projection_integral_bwd_reference(
+            feats32, w, b, m32, s32, c32, cot, J, D), iters=5)
     more = {
-        "head_projection_integral_fwd, float32 features": time_pair(
-            lambda: head_projection_integral_cuda(feats32, w, b, J, D),
-            lambda: head_projection_integral_reference(feats32, w, b, J, D)),
-        "head_projection_integral_bwd, float32 features": time_pair(
-            lambda: head_projection_integral_bwd_cuda(
-                feats32, w, b, m32, s32, c32, cot, J, D),
-            lambda: head_projection_integral_bwd_reference(
-                feats32, w, b, m32, s32, c32, cot, J, D), iters=5),
         f"head_projection_integral_fwd at batch {DET_BATCH}": time_pair(
             lambda: head_projection_integral_cuda(feats4, w, b, J, D),
             lambda: head_projection_integral_reference(feats4, w, b, J, D)),
@@ -3607,6 +3724,14 @@ def main() -> None:
         "head_projection_integral_bwd": bound(
             2 * feats.numel() * 2 + 2 * w.numel() * 4, 3 * proj_flops,
             BF16X3_FLOPS),
+        # the same work on float32 features, both operands float32: read
+        # them (and write dfeat) in float32, at float32 accuracy on the
+        # tensor cores
+        "head_projection_integral_fwd_f32": bound(
+            feats32.numel() * 4 + w.numel() * 4, proj_flops, BF16X6_FLOPS),
+        "head_projection_integral_bwd_f32": bound(
+            2 * feats32.numel() * 4 + 2 * w.numel() * 4, 3 * proj_flops,
+            BF16X6_FLOPS),
         # read the float32 images once and write the warped ones
         "warp_twopass": b32,
     }
@@ -3641,6 +3766,14 @@ def main() -> None:
                                  "integral.py:230"),
         "head_projection_integral_bwd": (
             kernels.HEAD_PROJECTION_INTEGRAL_BWD,
+            "head_projection_integral_bwd_mma.cu", "fused_head.py:106"),
+        # float32 features: kernel 3 on CUDA cores, kernel 4 on the tensor
+        # cores (the same C file as the bf16 route, its own kernels)
+        "head_projection_integral_fwd_f32": (
+            kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32,
+            "head_projection_integral.cu", "fused_head.py:40"),
+        "head_projection_integral_bwd_f32": (
+            kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32,
             "head_projection_integral_bwd_mma.cu", "fused_head.py:106"),
         "warp_twopass": (kernels.WARP_TWOPASS, "warp_twopass.cu",
                          "warp.py:156"),

@@ -1,7 +1,8 @@
 // Device code shared by the tensor-core fused-head kernels
 // (head_projection_integral_mma.cu, head_projection_integral_bwd_mma.cu):
 // the bf16 split of a float32 operand, cp.async staging into core-matrix
-// tiles, and Hopper's warpgroup product (wgmma) with float32 accumulation.
+// tiles, register operands read from such tiles (ldmatrix), and Hopper's
+// warpgroup product (wgmma) with float32 accumulation.
 //
 // The split. A float32 x is the exact sum of three bf16 parts
 //   hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid)
@@ -202,6 +203,27 @@ __device__ __forceinline__ void stage_features(
   cp_async_commit();
 }
 
+// The register operand (the mma.sync m16n8k16 A layout over warp wq's 16
+// rows) of columns k0 .. k0 + 15 of a core-matrix bf16 tile at shared
+// address `tile`, from each of its three planes (plane step `plane`
+// bytes): a[p] is plane p's. One ldmatrix.x4 a plane, lanes 8 m .. 8 m +
+// 7 addressing the rows of 8 x 8 matrix m = (rows 0-7 | 8-15) x (columns
+// 0-7 | 8-15), which registers 0 .. 3 of the layout hold.
+__device__ __forceinline__ void plane_fragments(uint32_t tile,
+                                                uint32_t plane, int kpad,
+                                                int wq, int lane, int k0,
+                                                uint32_t (&a)[3][4]) {
+  const int m = lane >> 3;
+  const int r = 16 * wq + 8 * (m & 1) + (lane & 7);
+  const uint32_t addr = tile + 2 * core_offset(r, k0 + 8 * (m >> 1), kpad);
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(a[p][0]), "=r"(a[p][1]), "=r"(a[p][2]), "=r"(a[p][3])
+        : "r"(addr + p * plane));
+}
+
 // ---- wgmma
 
 // Matrix descriptor of a no-swizzle operand at shared address `addr`:
@@ -268,15 +290,53 @@ __device__ __forceinline__ void wgmma_64x64x16_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 32 float32: columns 8 i + 2 (l % 4) + e for i < 4) += a . b^T
+// for a 64 x 16 and b 32 x 16 bf16 tiles read K-major; with accumulate 0,
+// d = a . b^T (its old value unread).
+__device__ __forceinline__ void wgmma_64x32x16(float (&d)[16], uint64_t a,
+                                               uint64_t b,
+                                               int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 32 float32) += a . b^T for a 64 x 16 bf16 fragment in registers
+// and b a 32 x 16 tile read K-major.
+__device__ __forceinline__ void wgmma_64x32x16_rs(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
 }
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
 // Keep the compiler from moving reads or writes of the accumulators across
 // the asynchronous product.
 template <int N>

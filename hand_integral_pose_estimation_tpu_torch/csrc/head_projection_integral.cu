@@ -163,34 +163,35 @@ cudaError_t head_projection_fwd_mma(const __nv_bfloat16* feats,
 
 }  // namespace hipe
 
-// feats_dtype: 0 = float32 (the CUDA-core kernel above), 1 = bfloat16 (the
-// tensor-core kernels of head_projection_integral_mma.cu); weight and bias
-// are float32. The caller guarantees contiguity and 1 <= depth <= 128; for
-// float32 that the staged weight fits in shared memory, for bfloat16 that
-// F % 4 == 0, F <= 256 and a workspace ws of batch * chunks * J*D * 4
-// floats (unused for float32). Returns the first launch's CUDA error code.
+// One entry point per route, so that each counts its own launches:
+// hipe_head_projection_integral_fwd takes bfloat16 feats (the tensor-core
+// kernels of head_projection_integral_mma.cu),
+// hipe_head_projection_integral_fwd_f32 float32 ones (the CUDA-core
+// kernel above). weight and bias are float32. The caller guarantees
+// contiguity and 1 <= depth <= 128; for bfloat16 that F % 4 == 0, F <= 256
+// and a workspace ws of batch * chunks * J*D * 4 floats, for float32 that
+// the staged weight fits in shared memory. Returns the first launch's CUDA
+// error code.
 extern "C" int hipe_head_projection_integral_fwd(
-    const void* feats, int feats_dtype, const void* weight, const void* bias,
-    void* coords, void* m, void* s, void* ws, int batch, int height,
-    int width, int num_feats, int num_joints, int depth, int chunks,
-    void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  auto w = static_cast<const float*>(weight);
-  auto bi = static_cast<const float*>(bias);
-  auto c = static_cast<float*>(coords);
-  auto mm = static_cast<float*>(m);
-  auto ss = static_cast<float*>(s);
-  cudaError_t err;
-  if (feats_dtype == 0) {
-    err = hipe::launch(static_cast<const float*>(feats), w, bi, c, mm, ss,
-                       batch, height, width, num_feats, num_joints, depth, st);
-  } else if (feats_dtype == 1) {
-    err = hipe::head_projection_fwd_mma(
-        static_cast<const __nv_bfloat16*>(feats), w, bi, c, mm, ss,
-        static_cast<float*>(ws), batch, height, width, num_feats, num_joints,
-        depth, chunks, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+    const void* feats, const void* weight, const void* bias, void* coords,
+    void* m, void* s, void* ws, int batch, int height, int width,
+    int num_feats, int num_joints, int depth, int chunks, void* stream) {
+  return static_cast<int>(hipe::head_projection_fwd_mma(
+      static_cast<const __nv_bfloat16*>(feats),
+      static_cast<const float*>(weight), static_cast<const float*>(bias),
+      static_cast<float*>(coords), static_cast<float*>(m),
+      static_cast<float*>(s), static_cast<float*>(ws), batch, height, width,
+      num_feats, num_joints, depth, chunks,
+      static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int hipe_head_projection_integral_fwd_f32(
+    const void* feats, const void* weight, const void* bias, void* coords,
+    void* m, void* s, int batch, int height, int width, int num_feats,
+    int num_joints, int depth, void* stream) {
+  return static_cast<int>(hipe::launch(
+      static_cast<const float*>(feats), static_cast<const float*>(weight),
+      static_cast<const float*>(bias), static_cast<float*>(coords),
+      static_cast<float*>(m), static_cast<float*>(s), batch, height, width,
+      num_feats, num_joints, depth, static_cast<cudaStream_t>(stream)));
 }

@@ -15,7 +15,12 @@ dfeat, dW and db without writing the heatmap or its gradient; for CPU
 tensors both take the plain versions. bf16 features, the main path's, go to
 the tensor-core kernels (`csrc/*_mma.cu`): each float32 operand is split
 into bf16 parts (`bf16_split`) and multiplied part by part, which keeps
-float32 accuracy. float32 features go to the CUDA-core kernels.
+float32 accuracy. float32 features (`compute_dtype="float32"`) take the
+same route in the backward, the features split into three parts as well
+and the part pairs kept to float32 accuracy (`F32_PART_PAIRS`); their
+forward is kernel 3's CUDA-core kernel. Each route counts its launches on
+its own entry point (`kernels.HEAD_PROJECTION_INTEGRAL_*_F32` for float32
+features).
 """
 
 from __future__ import annotations
@@ -31,21 +36,28 @@ from hand_integral_pose_estimation_tpu_torch.ops.integral import (
     softmax_integral_reference,
 )
 
-_FEAT_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward's entry point for each feature dtype's route
+_BWD = {torch.bfloat16: kernels.HEAD_PROJECTION_INTEGRAL_BWD,
+        torch.float32: kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32}
 # float32 features: the CUDA-core forward stages a joint's (F, D rounded up
 # to 8) float32 weight slice plus a (64, 65) float32 feature slice in one
 # CTA's shared memory
 _SMEM_BYTES = 232448 - 1024
-# tiles of 64 positions, at most 256 features (F % 4 == 0): the backward on
-# both paths and the bf16 forward
-_TILE = 64
+# at most 256 features (F % 4 == 0): the backward on both routes and the
+# bf16 forward. Their shared memory grows with F rounded up to 64, and at
+# F = 256 the largest (the bf16 dfeat kernel, 231 936 bytes; the float32
+# route's two take 197 888 and 196 608) still fits a CTA's 232 448
 _BWD_MAX_FEATS = 256
-# float32 features: dW partial sums over (image chunks x joints); one CTA
-# fits an SM (140 KB of shared memory), so about sixteen waves over the
-# card's 132 SMs keep the last, partial wave cheap
-_BWD_TARGET_CTAS = 16 * 132
-# bf16 features: the tensor-core kernels' blocks of 64 channels
+# the tensor-core kernels' blocks of 64 channels and their tiles of
+# positions in the dW partials: 64 for bf16 features, 32 for float32 ones
 _MMA_BLOCK_C = 64
+_DW_TILE = {torch.bfloat16: 64, torch.float32: 32}
+# float32 features: the (feature part, weight part) pairs the tensor-core
+# route multiplies, of the three-part splits (0 hi, 1 mid, 2 lo): those
+# whose parts' orders add up to at most 2^-16 of the product. The logits
+# pair feature and weight parts, dW the cotangent's and the feature's;
+# dfeat keeps the bf16 route's pairs of g and W, (0, 0), (0, 1), (1, 0).
+F32_PART_PAIRS = ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1))
 
 
 def bf16_split(x: torch.Tensor, parts: int) -> list[torch.Tensor]:
@@ -63,13 +75,13 @@ def bf16_split(x: torch.Tensor, parts: int) -> list[torch.Tensor]:
 
 
 def _mma_chunks(feats: torch.Tensor, num_channels: int) -> int:
-    """Chunks per image of the tensor-core grids, which have one CTA per
-    (image, chunk of its 64-position tiles, block of 64 channels) and one
+    """Chunks per image of the tensor-core dW grids, which have one CTA per
+    (image, chunk of its tiles of positions, block of 64 channels) and one
     CTA per SM: the count that least waves x (tiles per chunk + 1, the
     weight staging's share) take, so the last wave is nearly full at any
-    batch."""
+    batch. Tiles are the dtype's `_DW_TILE` positions."""
     B, H, W, _ = feats.shape
-    tiles = -(-(H * W) // _TILE)
+    tiles = -(-(H * W) // _DW_TILE[feats.dtype])
     ctas = B * -(-num_channels // _MMA_BLOCK_C)
     sms = kernels.sm_count(feats.device.index or 0)
     return min(range(1, tiles + 1), key=lambda c: (
@@ -110,15 +122,16 @@ def head_projection_integral_cuda(feats: torch.Tensor, weight: torch.Tensor,
                                   depth: int):
     """Launch the fused kernel. feats: contiguous CUDA (B, H, W, F) bfloat16
     (the tensor-core kernels: F % 4 == 0, F <= 256) or float32 (the
-    CUDA-core kernel); weight: contiguous float32 (J*D, F); bias: float32
-    (J*D,). Returns (coords, m, s) in float32."""
+    CUDA-core kernel, counted on `HEAD_PROJECTION_INTEGRAL_FWD_F32`);
+    weight: contiguous float32 (J*D, F); bias: float32 (J*D,). Returns
+    (coords, m, s) in float32."""
     for name, t in (("feats", feats), ("weight", weight), ("bias", bias)):
         if t.device.type != "cuda" or t.device != feats.device:
             raise ValueError(f"{name} must be on the CUDA device of feats, "
                              f"got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if feats.dtype not in _FEAT_DTYPE_CODES:
+    if feats.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"feats must be bfloat16 or float32, got {feats.dtype}")
     if weight.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError(f"weight and bias must be float32, got "
@@ -143,18 +156,19 @@ def head_projection_integral_cuda(feats: torch.Tensor, weight: torch.Tensor,
         coords = torch.empty(B, num_joints, 3, **f32)
         m = torch.empty(B, num_joints, **f32)
         s = torch.empty(B, num_joints, **f32)
+        outs = (feats.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                coords.data_ptr(), m.data_ptr(), s.data_ptr())
+        stream = torch.cuda.current_stream().cuda_stream
         if feats.dtype == torch.bfloat16:
             # per-(image, chunk, channel) partial states (m, s, sx, sy)
             chunks = _mma_chunks(feats, C)
             ws = torch.empty(B * chunks * C * 4, **f32)
+            kernels.HEAD_PROJECTION_INTEGRAL_FWD(
+                *outs, ws.data_ptr(), B, H, W, F, num_joints, depth, chunks,
+                stream)
         else:
-            chunks, ws = 1, None
-        kernels.HEAD_PROJECTION_INTEGRAL_FWD(
-            feats.data_ptr(), _FEAT_DTYPE_CODES[feats.dtype],
-            weight.data_ptr(), bias.data_ptr(), coords.data_ptr(),
-            m.data_ptr(), s.data_ptr(), 0 if ws is None else ws.data_ptr(),
-            B, H, W, F, num_joints, depth, chunks,
-            torch.cuda.current_stream().cuda_stream)
+            kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32(
+                *outs, B, H, W, F, num_joints, depth, stream)
     return coords, m, s
 
 
@@ -198,7 +212,8 @@ def head_projection_integral_bwd_cuda(feats: torch.Tensor,
                                       depth: int):
     """Launch the fused-head backward (`csrc/head_projection_integral_bwd.cu`,
     three launches: dfeat, per-chunk dW/db partials, their fixed-order sum;
-    on the tensor cores for bf16 features, `*_bwd_mma.cu`). Operands as
+    on the tensor cores for both feature dtypes, `*_bwd_mma.cu`; float32
+    features counted on `HEAD_PROJECTION_INTEGRAL_BWD_F32`). Operands as
     `head_projection_integral_cuda` takes them (F % 4 == 0, F <= 256),
     plus the forward's m, s (B, J), coords and the cotangent (B, J, 3).
     Returns (dfeat in the features' dtype, dW (J*D, F) float32, db (J*D,)
@@ -211,7 +226,7 @@ def head_projection_integral_bwd_cuda(feats: torch.Tensor,
     for name, t in (("feats", feats), ("weight", weight), ("bias", bias)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if feats.dtype not in _FEAT_DTYPE_CODES:
+    if feats.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"feats must be bfloat16 or float32, got {feats.dtype}")
     if weight.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError(f"weight and bias must be float32, got "
@@ -229,20 +244,9 @@ def head_projection_integral_bwd_cuda(feats: torch.Tensor,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} is not {shape}")
     _check_feats(feats, weight, depth, "backward")
-    depth_pad = -(-depth // 8) * 8
-    if (feats.dtype == torch.float32
-            and 4 * (F * (_TILE + 2) + depth_pad * F
-                     + depth_pad * _TILE + 5 * depth_pad)
-            > _SMEM_BYTES + 1024):
-        raise ValueError(f"F = {F} at depth {depth} does not fit the "
-                         f"backward kernel's shared memory")
     if B * H * W * num_joints == 0:
         raise ValueError(f"empty features {tuple(feats.shape)}")
-    tiles = -(-(H * W) // _TILE)
-    if feats.dtype == torch.bfloat16:
-        chunks = _mma_chunks(feats, C)
-    else:
-        chunks = min(tiles, max(1, -(-_BWD_TARGET_CTAS // (B * num_joints))))
+    chunks = _mma_chunks(feats, C)
     with torch.cuda.device(feats.device):
         mvec, T, A, Bc = channel_constants(m, s, coords, cot, H, W, depth)
         f32 = dict(dtype=torch.float32, device=feats.device)
@@ -251,12 +255,19 @@ def head_projection_integral_bwd_cuda(feats: torch.Tensor,
         db = torch.empty(C, **f32)
         ws = torch.empty(B * chunks, C, F, **f32)
         ws_db = torch.empty(B * chunks, C, **f32)
-        kernels.HEAD_PROJECTION_INTEGRAL_BWD(
-            feats.data_ptr(), _FEAT_DTYPE_CODES[feats.dtype],
-            weight.data_ptr(), bias.data_ptr(), mvec.data_ptr(),
-            T.data_ptr(), A.data_ptr(), Bc.data_ptr(), dfeat.data_ptr(),
+        planes = ()
+        if feats.dtype == torch.float32:  # their split bf16 planes
+            ws_planes = torch.empty(
+                kernels.head_projection_bwd_f32_workspace(
+                    B, H, W, F, num_joints, depth),
+                dtype=torch.uint8, device=feats.device)
+            planes = (ws_planes.data_ptr(),)
+        _BWD[feats.dtype](
+            feats.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            mvec.data_ptr(), T.data_ptr(), A.data_ptr(), Bc.data_ptr(),
+            dfeat.data_ptr(),
             dW.data_ptr(), db.data_ptr(), ws.data_ptr(), ws_db.data_ptr(),
-            B, H, W, F, num_joints, depth, chunks,
+            *planes, B, H, W, F, num_joints, depth, chunks,
             torch.cuda.current_stream().cuda_stream)
     return dfeat, dW, db
 

@@ -108,6 +108,8 @@ def build() -> Path:
 #: the tensor-core kernels of the fused head (kernels 3 and 4, bf16 path)
 MMA_KERNELS = ("hp_fwd_mma_kernel", "hp_bwd_dfeat_mma_kernel",
                "hp_bwd_dweight_mma_kernel")
+#: kernel 4's float32-feature route on the tensor cores
+F32_MMA_KERNELS = ("hp_bwd_dfeat_f32_kernel", "hp_bwd_dweight_f32_kernel")
 
 
 def tensor_core_instructions(names=MMA_KERNELS) -> dict[str, int]:
@@ -224,31 +226,77 @@ def softmax_integral_fwd_chunks(hm: int, dtype: int, batch: int, rows: int,
     return out.value
 
 
+@functools.lru_cache(maxsize=None)
+def _f32_planes_entry():
+    fn = library().hipe_head_projection_integral_bwd_f32_workspace
+    fn.argtypes = [_I, _I, _I, _I, _I, _I]
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def head_projection_bwd_f32_workspace(batch: int, height: int, width: int,
+                                      feats: int, joints: int,
+                                      depth: int) -> int:
+    """Bytes of the workspace kernel 4's float32-feature route takes (the
+    features and the weight split into bf16 planes); the C library owns
+    the layout. It launches nothing."""
+    return int(_f32_planes_entry()(batch, height, width, feats, joints,
+                                   depth))
+
+
+@functools.lru_cache(maxsize=None)
+def _roi_workspace_entry():
+    fn = library().hipe_roi_align_bwd_workspace
+    fn.argtypes = [_I, _I, _I, _I, _I]
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def roi_align_bwd_workspace(batch: int, rois: int, height: int, width: int,
+                            pooled: int) -> int:
+    """Bytes of the workspace the ROIAlign backward kernel takes (each
+    RoI's tables); the C library owns the layout. It launches nothing."""
+    return int(_roi_workspace_entry()(batch, rois, height, width, pooled))
+
+
 #: (hm, dtype, coords, m, s, ws, B, H, W, J, D, chunks per image (0: the
 #:  generic path, no workspace), stream)
 SOFTMAX_INTEGRAL_FWD = Kernel(
     "hipe_softmax_integral_fwd",
     [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ("softmax_integral_partial_kernel", "softmax_integral_fwd_kernel"))
-#: (feats, dtype, weight, bias, coords, m, s, ws, B, H, W, F, J, D,
-#:  chunks per image, stream)
+#: (feats, weight, bias, coords, m, s, ws, B, H, W, F, J, D,
+#:  chunks per image, stream): bf16 features on the tensor cores
 HEAD_PROJECTION_INTEGRAL_FWD = Kernel(
     "hipe_head_projection_integral_fwd",
-    [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    ("hp_fwd_mma_kernel", "head_projection_integral_fwd_kernel"))
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ("hp_fwd_mma_kernel",))
+#: (feats, weight, bias, coords, m, s, B, H, W, F, J, D, stream): float32
+#: features, the CUDA-core kernel
+HEAD_PROJECTION_INTEGRAL_FWD_F32 = Kernel(
+    "hipe_head_projection_integral_fwd_f32",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ("head_projection_integral_fwd_kernel",))
 
 #: (hm, dtype, m, s, coords, cot, grad, B, H, W, J, D, stream)
 SOFTMAX_INTEGRAL_BWD = Kernel(
     "hipe_softmax_integral_bwd",
     [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ("softmax_integral_bwd_vec_kernel", "softmax_integral_bwd_kernel"))
-#: (feats, dtype, weight, bias, m, T, A, B, dfeat, dW, db, ws, ws_db,
-#:  B, H, W, F, J, D, chunks per image, stream)
+#: (feats, weight, bias, m, T, A, B, dfeat, dW, db, ws, ws_db,
+#:  B, H, W, F, J, D, chunks per image, stream): bf16 features
 HEAD_PROJECTION_INTEGRAL_BWD = Kernel(
     "hipe_head_projection_integral_bwd",
-    [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
      _I, _I, _I, _I, _I, _I, _I, _P],
-    ("hp_bwd_dfeat_mma_kernel", "hp_bwd_dfeat_kernel"))
+    ("hp_bwd_dfeat_mma_kernel",))
+#: float32 features, on the tensor cores as well: the same arguments plus,
+#: after ws_db, the workspace of their split planes
+#: (`head_projection_bwd_f32_workspace` bytes)
+HEAD_PROJECTION_INTEGRAL_BWD_F32 = Kernel(
+    "hipe_head_projection_integral_bwd_f32",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+     _I, _I, _I, _I, _I, _I, _I, _P], ("hp_bwd_dfeat_f32_kernel",))
 #: (images, image dtype (0 float32, 1 uint8), maps, map dtype (0 float32,
 #:  1 float64), map strides (3), inverse, colour or NULL, host means and
 #:  stds or NULL, out, B, Hs, Ws, Ho, Wo, C, stream)
@@ -261,10 +309,11 @@ WARP_TWOPASS = Kernel(
 ROI_ALIGN_FWD = Kernel(
     "hipe_roi_align_fwd", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ("roi_align_fwd_kernel",))
-#: (g, rois, grad, B, H, W, C, R, pooled, sampling ratio, spatial scale,
-#:  stream)
+#: (g, rois, grad, workspace (`roi_align_bwd_workspace` bytes), B, H, W,
+#:  C, R, pooled, sampling ratio, spatial scale, stream)
 ROI_ALIGN_BWD = Kernel(
-    "hipe_roi_align_bwd", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "hipe_roi_align_bwd",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ("roi_align_bwd_kernel",))
 #: (boxes, alive, mask, keep, B, N, iou threshold, plus one, stop after,
 #:  stream)
@@ -273,7 +322,8 @@ NMS = Kernel("hipe_nms", [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
 
 KERNELS = (SOFTMAX_INTEGRAL_FWD, HEAD_PROJECTION_INTEGRAL_FWD,
            SOFTMAX_INTEGRAL_BWD, HEAD_PROJECTION_INTEGRAL_BWD, WARP_TWOPASS,
-           ROI_ALIGN_FWD, NMS, ROI_ALIGN_BWD)
+           ROI_ALIGN_FWD, NMS, ROI_ALIGN_BWD, HEAD_PROJECTION_INTEGRAL_FWD_F32,
+           HEAD_PROJECTION_INTEGRAL_BWD_F32)
 
 
 class _KernelNodeParams(ctypes.Structure):

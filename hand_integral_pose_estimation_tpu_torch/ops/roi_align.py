@@ -16,7 +16,10 @@ once) instead of building the TPU kernel's dense combined weights
 (`_ra_kernel`, roi_align.py:93). On the card it is a
 `torch.autograd.Function` whose backward is the kernel
 `csrc/roi_align_bwd.cu`: the plain version's VJP with respect to the
-features, gathered per output in a fixed order (the same bits every run).
+features, one CTA per (image, channel slice) holding that slice of the
+gradient in shared memory and adding the RoIs' separable contractions
+(columns, then rows) in RoI order, each output owned by one thread at a
+time (the same bits every run).
 It gives the RoIs no gradient: detector training detaches its proposals,
 as the reference's approximate joint training does, and RoIs that require
 grad under grad mode raise (`impl="plain"` differentiates them).
@@ -134,7 +137,10 @@ def roi_align_bwd_cuda(g: torch.Tensor, rois: torch.Tensor, feature_hw,
 
     g: CUDA (B, R, P, P, C), taken as contiguous float32; rois (B, R, 4) on
     the same device, any float dtype (taken as float32); feature_hw the
-    map's (H, W). Returns (B, H, W, C) float32. P is at most 32."""
+    map's (H, W). Returns (B, H, W, C) float32. P is at most 32. The
+    kernel reads each image's cotangent once when a 32-channel slice of
+    its gradient fits in shared memory, else once per band of rows a RoI
+    crosses."""
     B, R, P, P2, C = g.shape
     H, W = int(feature_hw[0]), int(feature_hw[1])
     if P != P2:
@@ -148,10 +154,12 @@ def roi_align_bwd_cuda(g: torch.Tensor, rois: torch.Tensor, feature_hw,
     boxes = rois.detach().to(torch.float32).contiguous()
     with torch.cuda.device(g.device):
         grad = torch.empty(B, H, W, C, dtype=torch.float32, device=g.device)
+        ws = torch.empty(kernels.roi_align_bwd_workspace(B, R, H, W, P),
+                         dtype=torch.uint8, device=g.device)
         kernels.ROI_ALIGN_BWD(
-            grad_out.data_ptr(), boxes.data_ptr(), grad.data_ptr(), B, H, W,
-            C, R, P, sampling_ratio, float(spatial_scale),
-            torch.cuda.current_stream().cuda_stream)
+            grad_out.data_ptr(), boxes.data_ptr(), grad.data_ptr(),
+            ws.data_ptr(), B, H, W, C, R, P, sampling_ratio,
+            float(spatial_scale), torch.cuda.current_stream().cuda_stream)
     return grad
 
 

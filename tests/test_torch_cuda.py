@@ -112,6 +112,13 @@ def test_softmax_integral_kernel_matches_plain(dev, shape, dtype):
     _check(got, integral.softmax_integral_reference(hm, J, D))
 
 
+# each feature dtype's route counts on its own entry point
+_HEAD_FWD = {torch.bfloat16: kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+             torch.float32: kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32}
+_HEAD_BWD = {torch.bfloat16: kernels.HEAD_PROJECTION_INTEGRAL_BWD,
+             torch.float32: kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32}
+
+
 @pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", HEAD_SHAPES)
 def test_head_projection_kernel_matches_plain(dev, shape, feat_dtype):
@@ -120,10 +127,11 @@ def test_head_projection_kernel_matches_plain(dev, shape, feat_dtype):
     feats = torch.randn(B, H, W, F, device=dev, generator=g).to(feat_dtype)
     w = 0.3 * torch.randn(J * D, F, device=dev, generator=g)
     b = torch.randn(J * D, device=dev, generator=g)
-    before = kernels.HEAD_PROJECTION_INTEGRAL_FWD.launches
+    kernel = _HEAD_FWD[feat_dtype]
+    before = kernel.launches
     got = fused_head.head_projection_integral_cuda(feats, w, b, J, D)
     torch.cuda.synchronize()
-    assert kernels.HEAD_PROJECTION_INTEGRAL_FWD.launches == before + 1
+    assert kernel.launches == before + 1
     _check(got, fused_head.head_projection_integral_reference(feats, w, b,
                                                               J, D))
 
@@ -329,11 +337,12 @@ def test_head_projection_bwd_kernel_matches_plain(dev, shape, feat_dtype):
     b = torch.randn(J * D, device=dev, generator=g)
     coords, m, s = fused_head.head_projection_integral_cuda(feats, w, b, J, D)
     cot = torch.randn(B, J, 3, device=dev, generator=g)
-    before = kernels.HEAD_PROJECTION_INTEGRAL_BWD.launches
+    kernel = _HEAD_BWD[feat_dtype]
+    before = kernel.launches
     got = fused_head.head_projection_integral_bwd_cuda(
         feats, w, b, m, s, coords, cot, J, D)
     torch.cuda.synchronize()
-    assert kernels.HEAD_PROJECTION_INTEGRAL_BWD.launches == before + 1
+    assert kernel.launches == before + 1
     want = fused_head.head_projection_integral_bwd_reference(
         feats, w, b, m, s, coords, cot, J, D)
     assert got[0].dtype == feat_dtype and got[1].dtype == torch.float32
@@ -343,14 +352,15 @@ def test_head_projection_bwd_kernel_matches_plain(dev, shape, feat_dtype):
         _close(gk, wk, torch.float32, FUSED_GRAD_ABS_SCALE)
 
 
-def test_head_projection_bwd_is_deterministic(dev):
+@pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
+def test_head_projection_bwd_is_deterministic(dev, feat_dtype):
     """dW and db are sums over the whole batch taken across CTAs: partial
     sums per chunk, then a fixed-order pass, so two runs give the same
-    bits (no float atomics)."""
+    bits (no float atomics), on both feature dtypes' routes."""
     B, H, W, J, D, F = 32, 56, 56, 21, 56, 256
     g = torch.Generator(device=dev).manual_seed(4)
     feats = torch.randn(B, H, W, F, device=dev,
-                        generator=g).to(torch.bfloat16)
+                        generator=g).to(feat_dtype)
     w = 0.1 * torch.randn(J * D, F, device=dev, generator=g)
     b = torch.randn(J * D, device=dev, generator=g)
     coords, m, s = fused_head.head_projection_integral_cuda(feats, w, b, J, D)
@@ -371,6 +381,51 @@ def test_bf16_fused_head_runs_on_tensor_cores(dev):
     counts = kernels.tensor_core_instructions()
     assert set(counts) == set(kernels.MMA_KERNELS)
     assert all(n > 0 for n in counts.values()), counts
+
+
+def test_f32_fused_head_bwd_runs_on_tensor_cores(dev):
+    """Kernel 4's float32-feature route (both its launches) holds
+    tensor-core products (HMMA / HGMMA) in its SASS."""
+    if kernels.cuda_tool("cuobjdump") is None:
+        pytest.skip("needs cuobjdump")
+    counts = kernels.tensor_core_instructions(kernels.F32_MMA_KERNELS)
+    assert set(counts) == set(kernels.F32_MMA_KERNELS)
+    assert all(n > 0 for n in counts.values()), counts
+
+
+# float32 features at the model split's channel counts (7 joints: 392
+# channels, model=3; 3 joints: 168, model=7; a ragged tail on the blocks of
+# 64 channels) and at small ragged shapes (F 40 and 36: K padding, F % 8)
+F32_SPLIT_SHAPES = [(32, 56, 56, 7, 56, 256), (32, 56, 56, 3, 56, 256),
+                    (1, 8, 8, 3, 4, 40), (2, 7, 5, 3, 12, 36)]
+
+
+@pytest.mark.parametrize("shape", F32_SPLIT_SHAPES)
+def test_f32_head_bwd_at_split_shapes(dev, shape):
+    """Kernel 4 with float32 features against its plain version at the
+    model split's and small shapes, one counted launch a call, and two
+    calls bitwise equal."""
+    B, H, W, J, D, F = shape
+    g = torch.Generator(device=dev).manual_seed(12)
+    feats = torch.randn(B, H, W, F, device=dev, generator=g)
+    w = 0.3 * torch.randn(J * D, F, device=dev, generator=g)
+    b = torch.randn(J * D, device=dev, generator=g)
+    coords, m, s = fused_head.head_projection_integral_cuda(feats, w, b, J, D)
+    cot = torch.randn(B, J, 3, device=dev, generator=g)
+    before = kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32.launches
+    first = fused_head.head_projection_integral_bwd_cuda(
+        feats, w, b, m, s, coords, cot, J, D)
+    second = fused_head.head_projection_integral_bwd_cuda(
+        feats, w, b, m, s, coords, cot, J, D)
+    torch.cuda.synchronize()
+    assert kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32.launches == before + 2
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    want = fused_head.head_projection_integral_bwd_reference(
+        feats, w, b, m, s, coords, cot, J, D)
+    assert first[0].dtype == torch.float32
+    for gk, wk in zip(first, want):
+        _close(gk, wk, torch.float32, FUSED_GRAD_ABS_SCALE)
 
 
 def _frames(images, frames):
@@ -546,11 +601,14 @@ def test_autograd_functions_take_the_kernels_both_ways(dev):
     launched = {k.symbol: k.launches - c
                 for k, c in zip(kernels.KERNELS, counts)}
     assert launched == {"hipe_softmax_integral_fwd": 1,
-                        "hipe_head_projection_integral_fwd": 1,
+                        "hipe_head_projection_integral_fwd": 0,
                         "hipe_softmax_integral_bwd": 1,
-                        "hipe_head_projection_integral_bwd": 1,
+                        "hipe_head_projection_integral_bwd": 0,
                         "hipe_warp_twopass": 0, "hipe_roi_align_fwd": 0,
-                        "hipe_nms": 0, "hipe_roi_align_bwd": 0}
+                        "hipe_nms": 0, "hipe_roi_align_bwd": 0,
+                        # float32 features: the float32 route's entries
+                        "hipe_head_projection_integral_fwd_f32": 1,
+                        "hipe_head_projection_integral_bwd_f32": 1}
 
     want_hm, = torch.autograd.grad(
         integral.softmax_integral_reference(hm, J, D)[0], hm, cot)
@@ -661,8 +719,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     torch.cuda.synchronize()
     assert [k.launches for k in kernels.KERNELS] == [
         c + (k not in (kernels.WARP_TWOPASS, kernels.ROI_ALIGN_FWD,
-                       kernels.NMS, kernels.ROI_ALIGN_BWD))
-        for k, c in zip(kernels.KERNELS, counts)]
+                       kernels.NMS, kernels.ROI_ALIGN_BWD,
+                       kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32,
+                       kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32))
+        for k, c in zip(kernels.KERNELS, counts)]  # bf16 features
     assert hm.grad.shape == hm.shape and w.grad.shape == w.shape
 
 
@@ -858,11 +918,14 @@ def _training_rois(B, R, H, W, g, dev):
 # (B, H, W, C, R, pooled, sampling ratio): the detector's training shape
 # (4 images x 128 sampled RoIs), ragged maps with an odd RoI count, R = 1,
 # C not a multiple of 4 (the scalar path), sampling ratios 1 and 4,
-# pooled 14 and the largest pooled size, 32
+# pooled 14 (the kernel cuts the map into bands of rows) and the largest
+# pooled size, 32; maps whose 32-channel strip exceeds shared memory
+# (bands of rows, RoIs crossing them), one at 1 000 px with 1 024 channels
 ROI_BWD_CASES = [(4, 38, 38, 1024, 128, 7, 2), (2, 21, 19, 256, 13, 7, 2),
                  (1, 9, 11, 64, 1, 7, 2), (3, 9, 11, 6, 9, 7, 2),
                  (2, 38, 38, 256, 40, 7, 1), (2, 38, 38, 256, 40, 7, 4),
-                 (2, 38, 38, 128, 30, 14, 2), (1, 17, 23, 8, 5, 32, 2)]
+                 (2, 38, 38, 128, 30, 14, 2), (1, 17, 23, 8, 5, 32, 2),
+                 (2, 100, 90, 64, 20, 7, 2), (2, 63, 38, 1024, 64, 7, 2)]
 
 
 @pytest.mark.parametrize("case", ROI_BWD_CASES)
@@ -885,6 +948,24 @@ def test_roi_align_bwd_kernel_matches_plain(dev, case):
     torch.testing.assert_close(got, want, rtol=0,
                                atol=ROI_TOL * float(want.abs().max()))
     assert float(want.abs().max()) > 0
+
+
+def test_roi_align_bwd_image_without_rois(dev):
+    """An image whose RoIs all lie off the map gets a zero gradient, the
+    other images theirs, in a banded launch (100 x 90 map) and in one
+    band."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    for H, W in ((100, 90), (38, 38)):
+        rois = _training_rois(3, 16, H, W, g, dev)
+        rois[1] = torch.tensor([-900.0, -900.0, -500.0, -600.0], device=dev)
+        cot = torch.randn(3, 16, 7, 7, 64, device=dev, generator=g)
+        got = roi_align.roi_align_bwd_cuda(cot, rois, (H, W))
+        torch.cuda.synchronize()
+        want = roi_align.roi_align_bwd_plain(cot, rois, (H, W))
+        assert not bool(got[1].any()) and not bool(want[1].any())
+        assert bool(got[0].any()) and bool(got[2].any())
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=ROI_TOL * float(want.abs().max()))
 
 
 def test_roi_align_bwd_through_autograd_and_refusals(dev):
@@ -1087,13 +1168,13 @@ def _kernel_calls(dev):
         "3": (kernels.HEAD_PROJECTION_INTEGRAL_FWD,
               lambda: fused_head.head_projection_integral_cuda(
                   feats, w, b, J, D)),
-        "3-float32": (kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+        "3-float32": (kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32,
                       lambda: fused_head.head_projection_integral_cuda(
                           feats.float(), w, b, J, D)),
         "4": (kernels.HEAD_PROJECTION_INTEGRAL_BWD,
               lambda: fused_head.head_projection_integral_bwd_cuda(
                   feats, w, b, m3, s3, c3, cot, J, D)),
-        "4-float32": (kernels.HEAD_PROJECTION_INTEGRAL_BWD,
+        "4-float32": (kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32,
                       lambda: fused_head.head_projection_integral_bwd_cuda(
                           feats.float(), w, b, m3, s3, c3, cot, J, D)),
         "5": (kernels.WARP_TWOPASS,

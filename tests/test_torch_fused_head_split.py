@@ -153,3 +153,124 @@ def test_one_part_weight_misses_the_tolerance(D):
     tol = COORD_SCALE * float(np.abs(np.asarray(want[0])).max())
     assert _excess(three, want[0], COORD_SCALE) <= 0
     assert float(np.abs(one.numpy() - np.asarray(want[0])).max()) > 10 * tol
+
+
+# ---- float32 features (compute_dtype="float32"): kernel 4's tensor-core
+# route splits the features into three bf16 parts as well and keeps the
+# part pairs of `fused_head.F32_PART_PAIRS`:
+#   logits  f_hi . W_hi + (sum over the other pairs (i, j) of f_i . W_j)
+#           (6 products, the (hi, hi) pair's and the rest in two sums)
+#   dW      sum over pairs (i, j) of g_i^T f_j                (6 products)
+#   dfeat   g_hi . W_hi + g_hi . W_mid + g_lo . W_hi          (as for bf16)
+# and stores dfeat in float32. The dropped pairs weigh 2^-24 of a product
+# and less, so the same tolerances hold as for the bf16 route.
+
+
+def _inputs32(D, seed):
+    """Features as they come from a float32 model: not rounded to bf16."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(B, H, W, F)).astype(np.float32)
+    w = (rng.normal(size=(J * D, F)) * LOGIT_STD / np.sqrt(F)).astype(
+        np.float32)
+    bias = rng.normal(size=(J * D,)).astype(np.float32)
+    cot = rng.normal(size=(B, J, 3)).astype(np.float32)
+    return feats, w, bias, cot
+
+
+def _pair_products(a, b, spec, pairs=fused_head.F32_PART_PAIRS):
+    """sum over the part pairs (i, j) of a_i . b_j (float32 products of
+    bf16-exact parts); `spec` the einsum of one product."""
+    ap = [p.float() for p in fused_head.bf16_split(a, 3)]
+    bp = [p.float() for p in fused_head.bf16_split(b, 3)]
+    return sum(torch.einsum(spec, ap[i], bp[j]) for i, j in pairs)
+
+
+def _emulated_logits32(feats, w, bias):
+    f = torch.from_numpy(feats).reshape(B, H * W, F)
+    wt = torch.from_numpy(w)
+    pairs = fused_head.F32_PART_PAIRS
+    return (_pair_products(f, wt, "bsf,cf->bsc", pairs[:1])
+            + _pair_products(f, wt, "bsf,cf->bsc", pairs[1:])
+            + torch.from_numpy(bias))
+
+
+def _emulated_backward32(feats, w, bias, m, s, coords, cot, D,
+                         features=None):
+    """dfeat, dW, db of the float32-feature route. `features` replaces
+    the features by another version of them (the bf16 shortcut)."""
+    if features is not None:
+        feats = features
+    x = _emulated_logits32(feats, w, bias)
+    mvec, T, A, Bc = integral.channel_constants(
+        torch.from_numpy(m), torch.from_numpy(s), torch.from_numpy(coords),
+        torch.from_numpy(cot), H, W, D)
+    hw = torch.arange(H * W)
+    col = (hw % W).float()[None, :, None]
+    row = (hw // W).float()[None, :, None]
+    g = (torch.exp(x - mvec[:, None, :])
+         * (T[:, None, :] + A[:, None, :] * col + Bc[:, None, :] * row))
+    g2 = [p.float() for p in fused_head.bf16_split(g, 2)]
+    w2 = [p.float() for p in fused_head.bf16_split(torch.from_numpy(w), 2)]
+    dfeat = (torch.matmul(g2[0], w2[0]) + torch.matmul(g2[0], w2[1])
+             + torch.matmul(g2[1], w2[0]))
+    f = torch.from_numpy(feats).reshape(B, H * W, F)
+    dW = _pair_products(g, f, "bsc,bsf->cf")
+    return dfeat.reshape(B, H, W, F), dW, g.sum(dim=(0, 1))
+
+
+def test_f32_part_pairs_are_the_pairs_down_to_2_to_the_16():
+    """The six pairs are exactly those whose parts' orders (hi 0, mid 8,
+    lo 16 bits down) add up to at most 16 bits, hi x hi first."""
+    want = {(i, j) for i in range(3) for j in range(3) if i + j <= 2}
+    assert set(fused_head.F32_PART_PAIRS) == want
+    assert len(fused_head.F32_PART_PAIRS) == 6
+    assert fused_head.F32_PART_PAIRS[0] == (0, 0)
+
+
+@pytest.mark.parametrize("D", [4, 40])
+def test_emulated_f32_forward_matches_jax(D):
+    """The logits the float32 route recomputes, from unrounded float32
+    features, decode to the JAX forward's coords."""
+    feats, w, bias, _ = _inputs32(D, seed=20 + D)
+    x = _emulated_logits32(feats, w, bias)
+    coords, m, s = integral.softmax_integral_reference(
+        x.reshape(B, H, W, J * D), J, D)
+    want = _jax_forward(feats, w, bias, D)
+    assert _excess(coords, want[0], COORD_SCALE) <= 0
+    np.testing.assert_allclose(m.numpy(), np.asarray(want[1]), rtol=0,
+                               atol=COORD_SCALE * float(np.abs(want[1]).max()))
+    np.testing.assert_allclose(s.numpy(), np.asarray(want[2]), rtol=1e-5)
+
+
+def _jax_backward32(feats, w, bias, cot, D):
+    coords, m, s = (np.array(a) for a in _jax_forward(feats, w, bias, D))
+    res = (jnp.asarray(feats), jnp.asarray(w.T), jnp.asarray(bias),
+           jnp.asarray(m), jnp.asarray(s), jnp.asarray(coords))
+    return (coords, m, s), jfused._hp_bwd(J, D, "xla", False, res,
+                                          jnp.asarray(cot))
+
+
+@pytest.mark.parametrize("D", [4, 40])
+def test_emulated_f32_backward_matches_jax(D):
+    feats, w, bias, cot = _inputs32(D, seed=30 + D)
+    (coords, m, s), want = _jax_backward32(feats, w, bias, cot, D)
+    dfeat, dW, db = _emulated_backward32(feats, w, bias, m, s, coords, cot, D)
+    assert dfeat.dtype == torch.float32
+    assert _excess(dfeat, want[0], DFEAT_SCALE) <= 0
+    assert _excess(dW, np.asarray(want[1]).T, DW_SCALE) <= 0
+    assert _excess(db, want[2], DW_SCALE) <= 0
+
+
+@pytest.mark.parametrize("D", [4, 40])
+def test_bf16_feature_shortcut_misses_the_f32_tolerance(D):
+    """The bf16 route's arithmetic on float32 features (the features
+    rounded once to bf16) moves dW far past the tolerance the float32
+    route is held to."""
+    feats, w, bias, cot = _inputs32(D, seed=30 + D)
+    (coords, m, s), want = _jax_backward32(feats, w, bias, cot, D)
+    rounded = torch.from_numpy(feats).to(torch.bfloat16).float().numpy()
+    _, dW, _ = _emulated_backward32(feats, w, bias, m, s, coords, cot, D,
+                                    features=rounded)
+    want_dW = np.asarray(want[1]).T
+    tol = DW_SCALE * float(np.abs(want_dW).max())
+    assert float(np.abs(dW.numpy() - want_dW).max()) > 10 * tol
