@@ -14,17 +14,20 @@ before the result line.
 2. build: compiles the CUDA kernels from `csrc/` (one nvcc per source, all
    at once) and prints the seconds, then counts the tensor-core product
    instructions (HMMA / HGMMA) in the SASS of the fused head's bf16
-   kernels (kernels 3 and 4) and of kernel 4's float32-feature route, and
-   fails if any has none;
+   kernels (kernels 3 and 4) and of their float32-feature route (3f and
+   4f), and fails if any has none;
 3. kernels: each of the five pose kernels against its plain PyTorch
    version on the card, at the shapes of the two paths and at small ragged
    shapes; kernel 1 also at batch 1 with its planned chunks and with more
    chunks than rows, on `hm[1:]` and on a base off 16 bytes (its generic
    path), and twice at the serving shape for the same bits; kernels 3 and
-   4 with bf16 features (tensor cores) and float32 ones (kernel 3 on CUDA
-   cores, kernel 4 on the tensor cores, counted on their own entry points),
-   and also at the two-stage path's pose batch of 4, kernel 4 twice at the
-   serving shape on both routes for the same bits; kernel 5 bitwise against
+   4 with bf16 features and float32 ones (all on the tensor cores, each
+   feature dtype counted on its own entry points), and also at the
+   two-stage path's pose batch of 4, kernel 3 on float32 features also at
+   the teacher sweep's 168 crops, both twice at the serving shape on both
+   routes (3f also at 168 crops) for the same bits; kernel 3's CUDA-core
+   kernel on float32 features of widths the tensor-core kernels do not
+   take (260 and 38); kernel 5 bitwise against
    its plain version with float32 and uint8 frames, with and without its
    normalising epilogue, and on degenerate maps (singular, an exact
    90-degree turn, a horizon inside the output, positions at +-inf);
@@ -38,7 +41,10 @@ before the result line.
    replays), the replayed coords and Batch fields bitwise against the
    eager ones, the finite metrics and the coords against the plain head,
    times the slice and profiles it (device busy, host issue time), eager
-   against the bare replay and against the whole captured call;
+   against the bare replay and against the whole captured call; then the
+   CUDA-core route's sweep: the fused arm of a float32 pose net whose
+   deconv stack is 260 wide, eager, its launches counted and its coords
+   held to the plain head;
 5. training: `Trainer.fit` at ModelConfig() and batch 32 on
    SyntheticFreiHand(render_joints=True) takes a few eager steps on each
    head arm; it checks the launch counts per step (the warp on both arms,
@@ -59,7 +65,9 @@ before the result line.
    bound, with its chunk plan, its two launches' device time and its
    wrapper's host issue time; kernel 2's device kernels per call (the
    kernel nodes of a captured CUDA graph; it fails unless 1); kernels 3
-   and 4 with both feature dtypes, kernel 3 also at batch 4; kernel 5 on
+   and 4 with both feature dtypes, kernel 3 also at batch 4, 3f also at
+   the teacher sweep's 168 crops and on its CUDA-core kernel at width 260,
+   each beside its bound and its share of it; kernel 5 on
    the training path's call (uint8 frames to the normalised patch) against
    its plain chain, both beside their byte bounds, with the wrapper's host
    issue time and its device kernels per call (it fails unless 1);
@@ -92,7 +100,9 @@ before the result line.
    one launch each) against the plain-backed one, keep sets at a
    threshold between the middle variances, `CascadeRunner`'s keep set
    against the single pass's, ms per batch; then a pseudo-label db over
-   the student's split; (c) the student at ModelConfig() and batch 32,
+   the student's split, and `cli.generate_teacher_labels --teacher-dtype
+   float32` over 16 images (kernel 3f, one launch a batch of 168 crops);
+   (c) the student at ModelConfig() and batch 32,
    fused arm, with the live teacher and the PANet term (lam 0.1), then
    with the db (and the PANet term): `Trainer.fit` eagerly, then
    scan_steps=4 replays against the same Trainer run eagerly under
@@ -116,9 +126,14 @@ before the result line.
    frozen BatchNorm statistics set from one forward pass over the scenes
    (each layer's own input statistics, so the untrained R101's
    activations stay near unit size) and the heads scaled again, twenty
-   SGD steps at the detector's rate with the same draws each step under
-   cuDNN's deterministic algorithms, whose loss must fall (the last below
-   the first, the mean of the last three below that of the first three),
+   steps of the detector's SGD at `DET_LR` (3e-7: at its own 1e-3 the
+   random-weight net's curvature lets rounding part the runs) with the
+   same draws each step and the first step's proposals fed back each step
+   (one fixed objective, `frozen_proposals`) under cuDNN's deterministic
+   algorithms, whose loss must fall (the last below the first, the mean
+   of the last three below that of the first three; by a margin 131 times
+   the spread of 16 runs that differ only in rounding, in
+   `scripts/detector_descent_study.py`),
    each step's backward kernel held to the plain VJP on its own
    cotangent and RoIs, with their launches per step (kernel 7, kernel 6
    and its backward once each), timed back to back and profiled; (d)
@@ -177,8 +192,10 @@ head's 1x1 projections (bf16 features times float32 weights or gradients)
 that carry a float32 operand split into bf16 parts to float32 accuracy;
 with float32 features (both operands float32) 989/6 TFLOP/s, six such
 products (495/3 for 3xTF32). The kernels line has the fused head's
-float32-feature entry points as their own rows (`*_f32`). No single
-PyTorch call computes any of the ten functions (there is no torchvision
+float32-feature entry points as their own rows (`*_f32`), and kernel 3's
+CUDA-core kernel for float32 widths the tensor-core kernels do not take
+(`*_f32_cuda_cores`, the same bound). No single PyTorch call computes any
+of the eleven functions (there is no torchvision
 here for NMS or ROIAlign and its backward), so `library_ms` is null. The
 line before the last is the card's name and power limit; the last line is
 the JSON result.
@@ -281,6 +298,13 @@ PANET_CLOUDS = 5000
 PANET_BATCH = 500
 PANET_STEPS = 200
 SWEEP_BATCH = 8
+# the sweep's crops a batch: SWEEP_BATCH images x the teacher's 21
+# rotations (TrainConfig.teacher_num_rotations), kernel 3's batch there
+SWEEP_CROPS = SWEEP_BATCH * 21
+# float32 feature widths outside the tensor-core kernels' (F % 4 == 0, F
+# <= 256), which the forward runs on its CUDA-core kernel: one past the
+# limit, one not a multiple of 4
+CUDA_CORE_FEATS = (260, 38)
 LAM = 0.1
 # PANet on the card takes float32 inputs and weights where the CPU copy
 # runs float64; the cameras are formed in float64 from the float32
@@ -312,22 +336,32 @@ DET_LOSS_REL = 1e-5
 DET_GRAD_LEAF = 1e-3
 DET_GRAD_TOTAL = 1e-4
 DET_GRAD_BWD = 1e-4
-# SGD steps on one objective (the same draws each step), whose loss must
-# fall: the last below the first, the mean of the last three below that of
-# the first three. The proposals move with the weights, so float32
-# rounding alone turns a trajectory: of 16 runs from one state that differ
-# only in the rounding of the ROIAlign backward (the kernel, its plain VJP
-# in float32 and in float64, every detector op plain, and either times
-# 1 + 1e-7 or 1e-6 N(0, 1)), 4 fell over ten steps on an H100 and all 16
-# over twenty (scripts/detector_descent_study.py).
+# SGD steps on one objective, whose loss must fall: the last below the
+# first, the mean of the last three below that of the first three. The
+# same draws each step and the first step's proposals fed back each step
+# (`frozen_proposals`) hold the sampled RoIs and targets fixed. Left to
+# move with the weights, the proposals let float32 rounding alone turn a
+# trajectory: of 16 runs from one state that differ only in the rounding
+# of the ROIAlign backward (the kernel, its plain VJP in float32 and in
+# float64, every detector op plain, and either times 1 + 1e-7 or 1e-6
+# N(0, 1)), 4 fell over ten steps at the detector's rate of 1e-3 on an
+# H100 and 16 over twenty, 15 over twenty-five
+# (scripts/detector_descent_study.py).
 DET_TRAIN_STEPS = 20
-# The SGD steps' rate: the detector's own (make_detector_optimizer).
-# With unit frozen BatchNorm statistics the untrained R101's activations
-# grow by orders of magnitude through its 33 blocks (5.4e5 mean |x| at the
-# base's output), and steps at 1e-3 and even 1e-7 raised the loss from 3
-# to ~50-1e4 on an H100; so the statistics are first set from the
-# scenes themselves (`calibrate_frozen_batchnorm`).
-DET_LR = 1e-3
+# The SGD steps' rate (make_detector_optimizer's SGD, momentum 0.9, clip
+# 10). With unit frozen BatchNorm statistics the untrained R101's
+# activations grow by orders of magnitude through its 33 blocks (5.4e5
+# mean |x| at the base's output), and steps at 1e-3 and even 1e-7 raised
+# the loss from 3 to ~50-1e4 on an H100; so the statistics are first set
+# from the scenes themselves (`calibrate_frozen_batchnorm`). Even then,
+# and on the fixed objective, the detector's own rate of 1e-3 is past
+# what this random-weight net's curvature allows: the 16 runs' losses
+# parted by 4e-4 after one step and 0.63 over twenty, their smallest drop
+# a third of that spread. Down to 3e-7 the spread shrank faster than the
+# drop: at 3e-7 the loss falls smoothly in all 16 (by 0.0926 to 0.0932 over
+# twenty steps), the smallest drop 131 times their spread (7.1e-4); at
+# 1e-6 44 times, at 1e-5 10 times (the study, on an H100).
+DET_LR = 3e-7
 # the card's published peaks (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -378,9 +412,11 @@ def compare(name, kernel_fn, plain_fn):
     e_m = float((got[1] - want[1]).abs().max())
     e_s = float(((got[2] - want[2]) / want[2]).abs().max())
     ok = e_c <= COORD_TOL and e_m <= COORD_TOL and e_s <= S_REL_TOL
-    print(f"[kernels] {name}: max|d coords| {e_c:.3e} (tol {COORD_TOL:g}), "
-          f"max|d m| {e_m:.3e}, max rel d s {e_s:.3e} (tol {S_REL_TOL:g}) "
-          f"{'ok' if ok else 'FAILED'}", flush=True)
+    print(f"[kernels] {name}: max|d coords| {e_c:.3e} (tol {COORD_TOL:g}: "
+          f"{e_c / COORD_TOL:.3f} of it), max|d m| {e_m:.3e} "
+          f"({e_m / COORD_TOL:.3f}), max rel d s {e_s:.3e} (tol "
+          f"{S_REL_TOL:g}: {e_s / S_REL_TOL:.3f}) {'ok' if ok else 'FAILED'}",
+          flush=True)
     check(ok, f"{name} disagrees with its plain version")
     return e_c
 
@@ -807,6 +843,41 @@ def plain_detector_ops():
         yield
     finally:
         nms_mod._alive_cuda, ra_mod.roi_align_cuda = saved
+
+
+@contextlib.contextmanager
+def frozen_proposals():
+    """Feed every training forward of the detector the proposals of the
+    first one inside the block: the proposal layer still runs each step
+    (kernel 7 launches as before) but its output is replaced by the first
+    call's, detached. With the same draws each step the sampled RoIs, the
+    anchor targets and so the objective stay fixed, and SGD descends one
+    function of the weights."""
+    from hand_integral_pose_estimation_tpu_torch.detect import (
+        faster_rcnn as frcnn,
+    )
+    real = frcnn.proposal_layer
+    first = []
+
+    def fixed(*args, **kwargs):
+        props = real(*args, **kwargs)
+        if not first:
+            first.append(type(props)(*(t.detach().clone() for t in props)))
+        return first[0]
+
+    frcnn.proposal_layer = fixed
+    try:
+        yield
+    finally:
+        frcnn.proposal_layer = real
+
+
+def descent_margin(losses) -> float:
+    """How far a loss trajectory falls, on phase 9c's two conditions: the
+    smaller of first - last and the mean of the first three less that of
+    the last three (> 0: it falls)."""
+    return min(losses[0] - losses[-1],
+               (sum(losses[:3]) - sum(losses[-3:])) / 3)
 
 
 @contextlib.contextmanager
@@ -1502,6 +1573,33 @@ def semi_supervised_phase(dev, g, card, cfg):
           flush=True)
     check(0 < len(filtered) < len(train_data), "the db keeps all or none")
 
+    # the float32 teacher through its CLI (`--teacher-dtype float32`): each
+    # batch's 8 x 21 crops on kernel 3's float32 route, one launch a batch
+    from hand_integral_pose_estimation_tpu_torch.cli import (
+        generate_teacher_labels as gen_cli,
+    )
+    n_cli = 2 * SWEEP_BATCH
+    with tempfile.TemporaryDirectory() as d:
+        reset()
+        db = gen_cli.main(["--synthetic", "--synthetic-size", str(n_cli),
+                           "--batch-size", str(SWEEP_BATCH),
+                           "--teacher-dtype", "float32", "--model-dir",
+                           os.path.join(d, "none"), "--out",
+                           os.path.join(d, "db.npz"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = {k.symbol: k.launches for k in kernels.KERNELS}
+        add(counts)
+    print(f"[semi] cli.generate_teacher_labels --synthetic --teacher-dtype "
+          f"float32 over {n_cli} images: {int(db['keep'].sum())} kept, "
+          f"variances finite {bool(np.isfinite(db['variance']).all())}; "
+          f"launches {counts}", flush=True)
+    check(len(db["keep"]) == n_cli and np.isfinite(db["variance"]).all(),
+          "cli.generate_teacher_labels --teacher-dtype float32")
+    check(counts == {k.symbol: 2 * int(k in (
+        kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32, kernels.WARP_TWOPASS))
+        for k in kernels.KERNELS}, f"the float32 teacher's sweep launched "
+        f"{counts}, expected one of kernels 3f and 5 a batch")
+
     # (c) the student at batch 32, fused arm: a live teacher and the PANet
     # term, then the pseudo-label db (with the PANet term); a few eager
     # steps, then scan_steps=4 replays against the same Trainer eagerly
@@ -1889,11 +1987,11 @@ def detector_training_phase(dev, g, card):
     torch.backends.cudnn.deterministic = True
     reset()
     per_step, losses = [], []
-    with roi_align_backward_held() as bwd_errors:
+    with roi_align_backward_held() as bwd_errors, frozen_proposals():
         for _ in range(DET_TRAIN_STEPS):
             before = counts()
-            # the same anchor and RoI draws each step: one objective,
-            # descended
+            # the same anchor and RoI draws each step and the first
+            # step's proposals: one objective, descended
             sampling.manual_seed(SEED + 2)
             metrics = step(blob, gt, gc, gv, generator=sampling)
             per_step.append({k: v - before[k] for k, v in counts().items()
@@ -1902,14 +2000,15 @@ def detector_training_phase(dev, g, card):
     losses = torch.stack(losses).tolist()
     steps_launches = counts()
     torch.backends.cudnn.deterministic = deterministic
-    falls = (losses[-1] < losses[0]
-             and sum(losses[-3:]) < sum(losses[:3]))
+    margin = descent_margin(losses)
+    falls = margin > 0
     steps_bwd_ok = (len(bwd_errors) == DET_TRAIN_STEPS
                     and max(bwd_errors) <= ROI_BWD_TOL)
     print(f"[detector training] {DET_TRAIN_STEPS} SGD steps at lr "
           f"{DET_LR:g} with the frozen statistics set from the scenes (base "
-          f"features' mean |x| {size:.4g}): losses "
-          f"{[round(v, 4) for v in losses]}, falling {falls}; the backward "
+          f"features' mean |x| {size:.4g}) on the first step's proposals: "
+          f"losses {[round(v, 4) for v in losses]}, falling {falls} (by "
+          f"{margin:.4g}); the backward "
           f"kernel against the plain VJP at each step: max|d| / max "
           f"{max(bwd_errors):.3e} (tol {ROI_BWD_TOL:g}); launches per step "
           f"{per_step}", flush=True)
@@ -3067,8 +3166,8 @@ def main() -> None:
     tensor_core = kernels.tensor_core_instructions()
     tensor_core32 = kernels.tensor_core_instructions(kernels.F32_MMA_KERNELS)
     print(f"[build] tensor-core product instructions (HMMA / HGMMA) in the "
-          f"SASS of the fused head's bf16 kernels: {tensor_core}; of kernel "
-          f"4's float32-feature route: {tensor_core32}", flush=True)
+          f"SASS of the fused head's bf16 kernels: {tensor_core}; of the "
+          f"float32-feature route (3f and 4f): {tensor_core32}", flush=True)
     check(all(n > 0 for n in (*tensor_core.values(),
                               *tensor_core32.values())),
           f"a tensor-core fused-head kernel has no tensor-core product: "
@@ -3085,7 +3184,8 @@ def main() -> None:
         "softmax_integral_fwd", "head_projection_integral_fwd",
         "softmax_integral_bwd", "head_projection_integral_bwd",
         "warp_twopass", "head_projection_integral_fwd_f32",
-        "head_projection_integral_bwd_f32")}
+        "head_projection_integral_bwd_f32",
+        "head_projection_integral_fwd_f32_cuda_cores")}
     shapes = ((BATCH, Ho, Wo, J, D, F), (1, 8, 8, 3, 4, 40),
               (3, 7, 5, 2, 100, 40))
     for (B, H, W, j, d, f) in shapes:
@@ -3143,12 +3243,17 @@ def main() -> None:
     check(same, "the soft-argmax forward is not deterministic")
     del hm, first, again
 
-    # kernels 3 and 4 also at the two-stage path's pose batch, with bf16
-    # features (the tensor-core kernels) and float32 ones (kernel 3 on CUDA
-    # cores, kernel 4 on the tensor cores; their own err keys)
+    # kernels 3 and 4 also at the two-stage path's pose batch and the
+    # teacher sweep's 168 crops (float32, forward only), with bf16
+    # features and float32 ones (both on the tensor cores; their own err
+    # keys), each forward and backward twice at the serving shape for the
+    # same bits
     for (B, H, W, j, d, f), fdt in itertools.product(
-            shapes + ((DET_BATCH, Ho, Wo, J, D, F),),
+            shapes + ((DET_BATCH, Ho, Wo, J, D, F),
+                      (SWEEP_CROPS, Ho, Wo, J, D, F)),
             (torch.bfloat16, torch.float32)):
+        if B == SWEEP_CROPS and fdt == torch.bfloat16:
+            continue
         sfx = "_f32" if fdt == torch.float32 else ""
         feats = torch.randn(B, H, W, f, device=dev, generator=g).to(fdt)
         w = 0.3 * torch.randn(j * d, f, device=dev, generator=g)
@@ -3160,6 +3265,17 @@ def main() -> None:
                                                                d))
         err["head_projection_integral_fwd" + sfx] = max(
             err["head_projection_integral_fwd" + sfx], e)
+        if B in (BATCH, SWEEP_CROPS):
+            first = head_projection_integral_cuda(feats, w, b, j, d)
+            again = head_projection_integral_cuda(feats, w, b, j, d)
+            same = all(torch.equal(x, y) for x, y in zip(first, again))
+            print(f"[kernels] head_projection_integral_fwd {fdt} features "
+                  f"at batch {B} run twice: coords, m and s bitwise equal: "
+                  f"{same}", flush=True)
+            check(same, "the fused-head forward is not deterministic")
+        if B == SWEEP_CROPS:
+            del feats
+            continue
         coords, m, s = head_projection_integral_cuda(feats, w, b, j, d)
         cot = torch.randn(B, j, 3, device=dev, generator=g)
         e = compare_grads(
@@ -3182,6 +3298,25 @@ def main() -> None:
                   f"run twice: dW, db and dfeat bitwise equal: {same}",
                   flush=True)
             check(same, "the fused-head backward is not deterministic")
+    # float32 features of widths the tensor-core kernels do not take: the
+    # forward's CUDA-core kernel, at the serving shape and a ragged one
+    # (forward only: the backward has no kernel at these widths; its
+    # main-path run is phase 4's sweep at deconv_channels 260)
+    for (B, H, W, j, d, f) in ((BATCH, Ho, Wo, J, D, CUDA_CORE_FEATS[0]),
+                               (2, 7, 5, 3, 12, CUDA_CORE_FEATS[1])):
+        wide = torch.randn(B, H, W, f, device=dev, generator=g)
+        w_wide = 0.3 * torch.randn(j * d, f, device=dev, generator=g)
+        b_wide = torch.randn(j * d, device=dev, generator=g)
+        err["head_projection_integral_fwd_f32_cuda_cores"] = max(
+            err["head_projection_integral_fwd_f32_cuda_cores"], compare(
+                f"head_projection_integral_fwd {(B, H, W, f)}x{(j * d, f)} "
+                f"float32/f32 (CUDA cores)",
+                lambda: head_projection_integral_cuda(wide, w_wide, b_wide,
+                                                      j, d),
+                lambda: head_projection_integral_reference(
+                    wide, w_wide, b_wide, j, d)))
+        if B == BATCH:
+            wide_args = (wide, w_wide, b_wide)
     acfg = cfg.augment
     for (B, Hs, Ws, C, Ho2, Wo2) in ((BATCH, IH, IW, 3, IH, IW),
                                      (2, 37, 41, 3, 29, 33)):
@@ -3306,6 +3441,47 @@ def main() -> None:
           f"{d_arms.max():.3e} (tol {ARMS_MAX_TOL:g})", flush=True)
     check(d_arms.mean() <= ARMS_MEAN_TOL and d_arms.max() <= ARMS_MAX_TOL,
           "unfused and fused arms disagree")
+
+    # the CUDA-core route's main-path run: the same sweep (fused arm,
+    # eager) by a pose net whose deconv stack is CUDA_CORE_FEATS[0] wide,
+    # at float32 compute, a width the tensor-core kernels do not take
+    cfg_cc = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, deconv_channels=CUDA_CORE_FEATS[0],
+        compute_dtype="float32"))
+    model_cc = get_pose_net(cfg_cc.model,
+                            generator=torch.Generator().manual_seed(SEED))
+    tester_cc = Tester(cfg_cc, dataset, model_cc, device=dev, fuse_head=True)
+    tester_cc.graphs = None
+    scale_projection(model_cc, probe.image)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    coords_w, _ = tester_cc.run(batch_size=BATCH)
+    torch.cuda.synchronize()
+    wide_launches = {k.symbol: k.launches for k in kernels.KERNELS}
+    print(f"[serving] fused arm at float32 compute, deconv_channels "
+          f"{CUDA_CORE_FEATS[0]}: swept {N_SAMPLES} samples in {n_batches} "
+          f"batches of {BATCH}; launches {wide_launches}", flush=True)
+    check(wide_launches == {k.symbol: n_batches if k is (
+        kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES) else 0
+        for k in kernels.KERNELS}, f"the width-{CUDA_CORE_FEATS[0]} sweep "
+        f"launched {wide_launches}")
+    check(coords_w.shape == (N_SAMPLES, J, 3)
+          and bool(np.isfinite(coords_w).all()),
+          f"width-{CUDA_CORE_FEATS[0]} coords malformed or not finite")
+    with torch.inference_mode():
+        feats = model_cc(probe.image, return_features=True)
+        weight, bias = model_cc.final_projection()
+        want = head_projection_integral_reference(feats, weight, bias, J, D)
+        torch.cuda.synchronize()
+    e_run = float(np.abs(want[0].cpu().numpy() - coords_w[:BATCH]).max())
+    print(f"[serving] width-{CUDA_CORE_FEATS[0]} sweep vs model + plain head "
+          f"on batch 0: max|d coords| {e_run:.3e} (tol {COORD_TOL:g}), coords "
+          f"std {coords_w.std():.4f}", flush=True)
+    check(e_run <= COORD_TOL, f"the width-{CUDA_CORE_FEATS[0]} sweep "
+          f"disagrees with the plain head on its model")
+    for k, v in wide_launches.items():
+        serving_launches[k] += v
+    del tester_cc, model_cc, feats, want
 
     # timing. One batch at a time between CUDA events (the device waits
     # while the host issues the batch's ops), then 20 batches back to back
@@ -3594,13 +3770,32 @@ def main() -> None:
     hm4 = hm[:DET_BATCH].contiguous()
     k4, p4 = time_pair(lambda: softmax_integral_cuda(hm4, J, D),
                        lambda: softmax_integral_reference(hm4, J, D))
-    # kernels 3 and 4 with float32 features (compute_dtype="float32", the
-    # CUDA-core kernels), kernel 3 at the two-stage path's pose batch
+    # kernels 3 and 4 with float32 features (compute_dtype="float32", on
+    # the tensor cores), kernel 3 also at the two-stage path's pose batch
+    # and at the teacher sweep's crops, and on its CUDA-core kernel at a
+    # width the tensor-core kernels do not take
     feats32, feats4 = feats.float(), feats[:DET_BATCH].contiguous()
     c32, m32, s32 = head_projection_integral_cuda(feats32, w, b, J, D)
     times["head_projection_integral_fwd_f32"] = time_pair(
         lambda: head_projection_integral_cuda(feats32, w, b, J, D),
         lambda: head_projection_integral_reference(feats32, w, b, J, D))
+    wide, w_wide, b_wide = wide_args
+    times["head_projection_integral_fwd_f32_cuda_cores"] = time_pair(
+        lambda: head_projection_integral_cuda(wide, w_wide, b_wide, J, D),
+        lambda: head_projection_integral_reference(wide, w_wide, b_wide, J,
+                                                   D), iters=5)
+    feats168 = torch.randn(SWEEP_CROPS, Ho, Wo, F, device=dev, generator=g)
+    t168 = time_pair(
+        lambda: head_projection_integral_cuda(feats168, w, b, J, D),
+        lambda: head_projection_integral_reference(feats168, w, b, J, D),
+        iters=3)
+    b168 = bound(feats168.numel() * 4 + w.numel() * 4,
+                 2.0 * feats168.numel() * w.shape[0], BF16X6_FLOPS)
+    del feats168
+    print(f"[timing] head_projection_integral_fwd_f32 at the teacher "
+          f"sweep's {SWEEP_CROPS} crops: kernel {t168[0]:.4f} ms, plain "
+          f"{t168[1]:.4f} ms, bound {b168[0]:.4f} ms ({b168[1]}), "
+          f"{100 * b168[0] / t168[0]:.1f} % of it, on {card}", flush=True)
     times["head_projection_integral_bwd_f32"] = time_pair(
         lambda: head_projection_integral_bwd_cuda(
             feats32, w, b, m32, s32, c32, cot, J, D),
@@ -3732,6 +3927,10 @@ def main() -> None:
         "head_projection_integral_bwd_f32": bound(
             2 * feats32.numel() * 4 + 2 * w.numel() * 4, 3 * proj_flops,
             BF16X6_FLOPS),
+        # the same function at its own width, F = CUDA_CORE_FEATS[0]
+        "head_projection_integral_fwd_f32_cuda_cores": bound(
+            wide.numel() * 4 + w_wide.numel() * 4,
+            2.0 * wide.numel() * w_wide.shape[0], BF16X6_FLOPS),
         # read the float32 images once and write the warped ones
         "warp_twopass": b32,
     }
@@ -3767,14 +3966,18 @@ def main() -> None:
         "head_projection_integral_bwd": (
             kernels.HEAD_PROJECTION_INTEGRAL_BWD,
             "head_projection_integral_bwd_mma.cu", "fused_head.py:106"),
-        # float32 features: kernel 3 on CUDA cores, kernel 4 on the tensor
-        # cores (the same C file as the bf16 route, its own kernels)
+        # float32 features on the tensor cores (the same C files as the
+        # bf16 route, their own kernels), and kernel 3's CUDA-core kernel
+        # for float32 widths the tensor-core kernels do not take
         "head_projection_integral_fwd_f32": (
             kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32,
-            "head_projection_integral.cu", "fused_head.py:40"),
+            "head_projection_integral_mma.cu", "fused_head.py:40"),
         "head_projection_integral_bwd_f32": (
             kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32,
             "head_projection_integral_bwd_mma.cu", "fused_head.py:106"),
+        "head_projection_integral_fwd_f32_cuda_cores": (
+            kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES,
+            "head_projection_integral.cu", "fused_head.py:40"),
         "warp_twopass": (kernels.WARP_TWOPASS, "warp_twopass.cu",
                          "warp.py:156"),
         "roi_align": (kernels.ROI_ALIGN_FWD, "roi_align.cu",
@@ -3792,11 +3995,14 @@ def main() -> None:
     for name, (k, _, _) in meta.items():
         print(f"[timing] {name}: kernel {times[name][0]:.4f} ms, plain "
               f"{times[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
-              f"({bounds[name][1]}) on {card}", flush=True)
+              f"({bounds[name][1]}), "
+              f"{100 * bounds[name][0] / times[name][0]:.1f} % of it, on "
+              f"{card}", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": pkg + src,
          "replaces": ref + tpu,
-         "launches": (serving_launches[k.symbol] + train_launches[k.symbol]
+         "launches": (serving_launches[k.symbol]
+                      + train_launches[k.symbol]
                       + det_launches[k.symbol] + semi_launches[k.symbol]
                       + dtrain_launches[k.symbol]
                       + int8_launches[k.symbol] + mesh_launches[k.symbol]),

@@ -309,10 +309,11 @@ __device__ __forceinline__ void wgmma_64x32x16(float (&d)[16], uint64_t a,
 }
 
 // d (64 x 32 float32) += a . b^T for a 64 x 16 bf16 fragment in registers
-// and b a 32 x 16 tile read K-major.
+// and b a 32 x 16 tile read K-major; with accumulate 0, d = a . b^T.
 __device__ __forceinline__ void wgmma_64x32x16_rs(float (&d)[16],
                                                   const uint32_t (&a)[4],
-                                                  uint64_t b) {
+                                                  uint64_t b,
+                                                  int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -322,7 +323,8 @@ __device__ __forceinline__ void wgmma_64x32x16_rs(float (&d)[16],
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
 }
 
 __device__ __forceinline__ void wgmma_fence() {

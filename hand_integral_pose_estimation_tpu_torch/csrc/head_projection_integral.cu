@@ -1,7 +1,9 @@
 // Fused 1x1 heatmap projection + soft-argmax forward: the heatmap never
-// reaches device memory. This file holds the CUDA-core kernel, taken for
-// float32 features (compute_dtype="float32"), and the C entry point; bf16
-// features take the tensor-core kernels of head_projection_integral_mma.cu.
+// reaches device memory. This file holds the C entry points and the
+// CUDA-core kernel, which runs float32 features only where the tensor-core
+// kernels of head_projection_integral_mma.cu do not take their width (F %
+// 4 != 0 or F > 256; every configuration of the repository has F = 256):
+// bf16 and float32 features of those widths run on the tensor cores.
 //
 // Replaces the TPU kernel hand_integral_pose_estimation_tpu/ops/fused_head.py:
 // _fwd_kernel (driver _forward_pallas). That kernel multiplies one spatial
@@ -25,12 +27,13 @@
 // (online_softmax.cuh).
 //
 // Bound: arithmetic. The projection is 2 * 3136 * 256 * 1176 = 1.9 GFLOP per
-// image, here on CUDA cores in f32; the feature reads (1.6 MB per image in
-// bf16) are re-read J times, mostly from L2.
+// image, here on CUDA cores in f32; the feature reads (3.2 MB per image in
+// float32) are re-read J times, mostly from L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "f32_planes.cuh"
 #include "online_softmax.cuh"
 
 namespace hipe {
@@ -152,7 +155,7 @@ cudaError_t launch(const T* feats, const float* weight, const float* bias,
 
 }  // namespace
 
-// head_projection_integral_mma.cu: the tensor-core path for bf16 features
+// head_projection_integral_mma.cu: the tensor-core kernels
 cudaError_t head_projection_fwd_mma(const __nv_bfloat16* feats,
                                     const float* weight, const float* bias,
                                     float* coords, float* m, float* s,
@@ -160,18 +163,30 @@ cudaError_t head_projection_fwd_mma(const __nv_bfloat16* feats,
                                     int width, int num_feats, int num_joints,
                                     int depth, int chunks,
                                     cudaStream_t stream);
+cudaError_t head_projection_fwd_mma_f32(const float* feats,
+                                        const float* weight,
+                                        const float* bias, float* coords,
+                                        float* m, float* s, float* ws,
+                                        void* planes, int batch, int height,
+                                        int width, int num_feats,
+                                        int num_joints, int depth, int chunks,
+                                        cudaStream_t stream);
 
 }  // namespace hipe
 
 // One entry point per route, so that each counts its own launches:
-// hipe_head_projection_integral_fwd takes bfloat16 feats (the tensor-core
-// kernels of head_projection_integral_mma.cu),
-// hipe_head_projection_integral_fwd_f32 float32 ones (the CUDA-core
-// kernel above). weight and bias are float32. The caller guarantees
-// contiguity and 1 <= depth <= 128; for bfloat16 that F % 4 == 0, F <= 256
-// and a workspace ws of batch * chunks * J*D * 4 floats, for float32 that
-// the staged weight fits in shared memory. Returns the first launch's CUDA
-// error code.
+// hipe_head_projection_integral_fwd takes bfloat16 feats,
+// hipe_head_projection_integral_fwd_f32 float32 ones (both on the tensor
+// cores, head_projection_integral_mma.cu), and
+// hipe_head_projection_integral_fwd_f32_cuda_cores float32 ones on the
+// CUDA-core kernel above. weight and bias are float32. The caller
+// guarantees contiguity and 1 <= depth <= 128; for the tensor-core routes
+// F % 4 == 0, F <= 256, 16-byte aligned arrays and a workspace ws of batch
+// * chunks * J*D * 4 floats (chunks of tiles of 64 positions for
+// bfloat16, of 32 for float32), for float32 also one of
+// hipe_head_projection_integral_f32_workspace bytes for the split planes
+// (the backward's layout); for the CUDA-core route that the staged weight
+// fits in shared memory. Returns the first launch's CUDA error code.
 extern "C" int hipe_head_projection_integral_fwd(
     const void* feats, const void* weight, const void* bias, void* coords,
     void* m, void* s, void* ws, int batch, int height, int width,
@@ -187,6 +202,19 @@ extern "C" int hipe_head_projection_integral_fwd(
 
 extern "C" int hipe_head_projection_integral_fwd_f32(
     const void* feats, const void* weight, const void* bias, void* coords,
+    void* m, void* s, void* ws, void* planes, int batch, int height,
+    int width, int num_feats, int num_joints, int depth, int chunks,
+    void* stream) {
+  return static_cast<int>(hipe::head_projection_fwd_mma_f32(
+      static_cast<const float*>(feats), static_cast<const float*>(weight),
+      static_cast<const float*>(bias), static_cast<float*>(coords),
+      static_cast<float*>(m), static_cast<float*>(s), static_cast<float*>(ws),
+      planes, batch, height, width, num_feats, num_joints, depth, chunks,
+      static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int hipe_head_projection_integral_fwd_f32_cuda_cores(
+    const void* feats, const void* weight, const void* bias, void* coords,
     void* m, void* s, int batch, int height, int width, int num_feats,
     int num_joints, int depth, void* stream) {
   return static_cast<int>(hipe::launch(
@@ -194,4 +222,13 @@ extern "C" int hipe_head_projection_integral_fwd_f32(
       static_cast<const float*>(bias), static_cast<float*>(coords),
       static_cast<float*>(m), static_cast<float*>(s), batch, height, width,
       num_feats, num_joints, depth, static_cast<cudaStream_t>(stream)));
+}
+
+// Bytes of the workspace of split planes that the float32 tensor-core
+// routes take (forward and backward: one layout).
+extern "C" long long hipe_head_projection_integral_f32_workspace(
+    int batch, int height, int width, int num_feats, int num_joints,
+    int depth) {
+  return hipe::mma::head_projection_f32_planes_bytes(
+      batch, height * width, num_feats, num_joints * depth);
 }

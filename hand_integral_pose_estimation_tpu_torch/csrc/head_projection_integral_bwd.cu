@@ -82,9 +82,6 @@ cudaError_t head_projection_bwd_mma_f32(
     float* dfeat, float* ws, float* ws_db, void* planes, int batch,
     int height, int width, int num_feats, int num_joints, int depth,
     int chunks, cudaStream_t stream);
-long long head_projection_bwd_f32_planes_bytes(int batch, int hw_total,
-                                                int num_feats,
-                                                int channels);
 
 }  // namespace hipe
 
@@ -107,8 +104,8 @@ int reduce_after(cudaError_t err, void* ws, void* ws_db, void* dweight,
 // One entry point per route, so that each counts its own launches:
 // hipe_head_projection_integral_bwd takes bfloat16 feats and dfeat,
 // hipe_head_projection_integral_bwd_f32 float32 ones and a workspace for
-// their split planes (hipe_head_projection_integral_bwd_f32_workspace
-// bytes). Every other array is float32. The caller guarantees contiguity,
+// their split planes (hipe_head_projection_integral_f32_workspace bytes,
+// head_projection_integral.cu). Every other array is float32. The caller guarantees contiguity,
 // 16-byte aligned arrays, F % 4 == 0, F <= 256, 1 <= depth <= 128 and a
 // workspace of batch * chunks_per_image chunks (tiles of 64 positions for
 // bfloat16, of 32 for float32). Returns the first launch error.
@@ -146,11 +143,4 @@ extern "C" int hipe_head_projection_integral_bwd_f32(
       static_cast<cudaStream_t>(stream));
   return reduce_after(err, ws, ws_db, dweight, dbias, batch, num_feats,
                       num_joints, depth, chunks_per_image, stream);
-}
-
-extern "C" long long hipe_head_projection_integral_bwd_f32_workspace(
-    int batch, int height, int width, int num_feats, int num_joints,
-    int depth) {
-  return hipe::head_projection_bwd_f32_planes_bytes(
-      batch, height * width, num_feats, num_joints * depth);
 }

@@ -54,6 +54,7 @@
 #include <cuda_runtime.h>
 
 #include "bf16x3_mma.cuh"
+#include "f32_planes.cuh"
 
 namespace hipe {
 
@@ -437,9 +438,10 @@ __global__ void __launch_bounds__(kGroups * kGroupThreads, 1)
 // feature tile (96 KB) do not fit beside the weight's planes (96 KB) and a
 // staging buffer, and a split in registers or shared memory next to the
 // products leaves them waiting on ALU work, each feature tile re-split
-// once per channel block. So (s) splits the features and the weight once
-// into a workspace of bf16 planes, 32-row tiles laid out as the kernels
-// stage them (contiguous copies, no ALU work), and then:
+// once per channel block. So (s) (f32_planes.cuh, shared with the
+// forward) splits the features and the weight once into a workspace of
+// bf16 planes, 32-row tiles laid out as the kernels stage them
+// (contiguous copies, no ALU work), and then:
 //   (a) dfeat: one CTA per 64-position tile (both planes of it, 96 KB)
 //       with the block's weight planes (96 KB): 193 KB. Its two warpgroups
 //       take the halves of each 64-channel block (N = 32 logits), each
@@ -473,19 +475,6 @@ __global__ void __launch_bounds__(kGroups * kGroupThreads, 1)
 // the 3 float32 products of the recorded bound (989/6 TFLOP/s). What holds
 // it back: the logits' N = 32 products, the narrowest of the port.
 
-// Products of two float32 operands, each split into three bf16 parts
-// (hi, mid, lo: parts 0, 1, 2), kept to float32 accuracy: the pairs of
-// parts whose orders add up to at most 2^-16 of the product, q = 0 .. 5:
-// (0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1). The dropped pairs weigh
-// 2^-24 and less.
-constexpr int kPairs = 6;
-__host__ __device__ constexpr int pair_first(int q) {
-  return q == 2 || q == 5 ? 1 : q == 4 ? 2 : 0;
-}
-__host__ __device__ constexpr int pair_second(int q) {
-  return q == 1 || q == 5 ? 1 : q == 3 ? 2 : 0;
-}
-
 // x, xs (64 positions x 32 channels) += f . W^T over k-step k0 .. k0 + 15:
 // the (hi, hi) pair into x, the five smaller pairs into xs (see Accuracy
 // above); f's three parts in registers, W's three planes (K-major, 32
@@ -505,62 +494,6 @@ __device__ __forceinline__ void f32_logit_products(float (&x)[16],
                                     k0 * 16,
                                 kpad));
   wgmma_commit();
-}
-
-// Copy `bytes` (a multiple of 16) from global to shared memory by threads
-// tid = 0 .. nthreads - 1, 16 bytes a cp.async; the caller commits.
-__device__ __forceinline__ void copy_async(void* dst, const void* src,
-                                           int bytes, int tid, int nthreads) {
-  for (int i = 16 * tid; i < bytes; i += 16 * nthreads)
-    cp_async<16>(smem_addr(static_cast<char*>(dst) + i),
-                 static_cast<const char*>(src) + i, true);
-}
-
-// (s) The float32 operands split once into three bf16 planes, in tiles of
-// 32 rows laid out as (a) and (b) stage them: tile i is 3 planes of 32 x
-// kpad core-matrix bf16 (3 x 32 x kpad elements at i x that), rows past
-// `rows` and columns past F zero. Group blockIdx.y (an image's features,
-// or the weight) has `rows` rows at src + blockIdx.y * rows * F and its
-// tiles at gridDim.x * blockIdx.y. Each thread takes 8 columns of a row,
-// so that neighbouring threads write neighbouring 16-byte rows of a core
-// matrix.
-template <int kBF>
-__global__ void __launch_bounds__(256)
-    hp_split_f32_kernel(const float* __restrict__ src, int rows,
-                        int num_feats, __nv_bfloat16* __restrict__ out) {
-  constexpr int kpad = 64 * kBF;
-  constexpr int kRows = 32;
-  const float* g = src + (long long)blockIdx.y * rows * num_feats;
-  const int r0 = blockIdx.x * kRows;
-  __nv_bfloat16* o =
-      out + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * 3 * kRows *
-                kpad;
-  for (int idx = threadIdx.x; idx < kRows * kpad / 8; idx += blockDim.x) {
-    const int r = idx % kRows;
-    const int c = 8 * (idx / kRows);
-    float x[8];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + r < rows && c + 4 * h < num_feats)
-        v = __ldg(reinterpret_cast<const float4*>(
-            g + (long long)(r0 + r) * num_feats + c + 4 * h));
-      x[4 * h] = v.x;
-      x[4 * h + 1] = v.y;
-      x[4 * h + 2] = v.z;
-      x[4 * h + 3] = v.w;
-    }
-    __nv_bfloat16 part[3][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      split3(x[i], part[0][i], part[1][i], part[2][i]);
-    const int off = core_offset(r, c, kpad);
-#pragma unroll
-    for (int p = 0; p < 3; ++p)
-      *reinterpret_cast<uint4*>(o + p * kRows * kpad + off) = make_uint4(
-          pack(part[p][0], part[p][1]), pack(part[p][2], part[p][3]),
-          pack(part[p][4], part[p][5]), pack(part[p][6], part[p][7]));
-  }
 }
 
 // (a) dfeat with float32 features. One CTA per tile of 64 positions (two
@@ -960,12 +893,6 @@ __global__ void __launch_bounds__(kGroupThreads, 1)
   }
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 }  // namespace
 
 // Launches (a) and (b); the caller runs (c). ws holds batch * chunks
@@ -1009,27 +936,6 @@ cudaError_t head_projection_bwd_mma(
 
 namespace {
 
-// The float32 route's workspace: (s)'s tiles of the features (an even
-// number per image: whole 64-row tiles for (a)) and of the weight (two per
-// channel block), in elements.
-struct F32Planes {
-  int kpad, tiles64, image_tiles, blocks;
-  F32Planes(int batch, int hw_total, int num_feats, int channels)
-      : kpad((num_feats + 63) / 64 * 64),
-        tiles64((hw_total + kTileP - 1) / kTileP),
-        image_tiles(2 * tiles64),
-        blocks((channels + kBlockC - 1) / kBlockC),
-        batch_(batch) {}
-  long long tile_elems() const { return 3LL * 32 * kpad; }
-  long long feature_elems() const {
-    return (long long)batch_ * image_tiles * tile_elems();
-  }
-  long long elems() const {
-    return feature_elems() + 2LL * blocks * tile_elems();
-  }
-  int batch_;
-};
-
 template <int kBF>
 cudaError_t launch_f32(const float* feats, const float* weight,
                        const float* bias, const float* m, const float* t,
@@ -1042,17 +948,12 @@ cudaError_t launch_f32(const float* feats, const float* weight,
   const F32Planes pl(batch, hw_total, num_feats, channels);
   __nv_bfloat16* fplanes = planes;
   __nv_bfloat16* wplanes = planes + pl.feature_elems();
-  const int tiles32 = (hw_total + 31) / 32;
+  const int tiles32 = (hw_total + kRows32 - 1) / kRows32;
   const int per_chunk = (tiles32 + chunks - 1) / chunks;
   const size_t planes_w = (size_t)3 * kBlockC * kpad * sizeof(__nv_bfloat16);
 
-  hp_split_f32_kernel<kBF><<<dim3(pl.image_tiles, batch), 256, 0, stream>>>(
-      feats, hw_total, num_feats, fplanes);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  hp_split_f32_kernel<kBF><<<dim3(2 * pl.blocks, 1), 256, 0, stream>>>(
-      weight, channels, num_feats, wplanes);
-  err = cudaGetLastError();
+  cudaError_t err = split_f32_planes<kBF>(feats, weight, pl, hw_total,
+                                          num_feats, channels, planes, stream);
   if (err != cudaSuccess) return err;
 
   const size_t smem_a = planes_w +
@@ -1080,45 +981,21 @@ cudaError_t launch_f32(const float* feats, const float* weight,
 
 }  // namespace
 
-// Bytes of the float32 route's workspace of split planes.
-long long head_projection_bwd_f32_planes_bytes(int batch, int hw_total,
-                                                int num_feats,
-                                                int channels) {
-  return F32Planes(batch, hw_total, num_feats, channels).elems() *
-         (long long)sizeof(__nv_bfloat16);
-}
-
 // The float32-feature route: (s), (a) and (b) above; the caller runs (c).
 // ws holds batch * chunks partial (J*D, F) blocks over tiles of 32
-// positions, planes head_projection_bwd_f32_planes_bytes bytes.
+// positions, planes head_projection_f32_planes_bytes bytes (f32_planes.cuh).
 cudaError_t head_projection_bwd_mma_f32(
     const float* feats, const float* weight, const float* bias,
     const float* m, const float* t, const float* a, const float* bc,
     float* dfeat, float* ws, float* ws_db, void* planes, int batch,
     int height, int width, int num_feats, int num_joints, int depth,
     int chunks, cudaStream_t stream) {
-  const int channels = num_joints * depth;
-  auto pp = static_cast<__nv_bfloat16*>(planes);
-  switch ((num_feats + 63) / 64) {
-    case 1:
-      return launch_f32<1>(feats, weight, bias, m, t, a, bc, dfeat, ws, ws_db,
-                           pp, batch, height, width, num_feats, channels,
-                           chunks, stream);
-    case 2:
-      return launch_f32<2>(feats, weight, bias, m, t, a, bc, dfeat, ws, ws_db,
-                           pp, batch, height, width, num_feats, channels,
-                           chunks, stream);
-    case 3:
-      return launch_f32<3>(feats, weight, bias, m, t, a, bc, dfeat, ws, ws_db,
-                           pp, batch, height, width, num_feats, channels,
-                           chunks, stream);
-    case 4:
-      return launch_f32<4>(feats, weight, bias, m, t, a, bc, dfeat, ws, ws_db,
-                           pp, batch, height, width, num_feats, channels,
-                           chunks, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return with_feature_blocks(num_feats, [&](auto bf) {
+    return launch_f32<decltype(bf)::value>(
+        feats, weight, bias, m, t, a, bc, dfeat, ws, ws_db,
+        static_cast<__nv_bfloat16*>(planes), batch, height, width, num_feats,
+        num_joints * depth, chunks, stream);
+  });
 }
 
 }  // namespace hipe

@@ -8,19 +8,22 @@ of convention: the projection is passed as torch's (out, in) matrix,
 function takes its transpose (F, J*D). The bias is (J*D,).
 
 `head_projection_integral` is a `torch.autograd.Function`. For CUDA
-tensors its forward launches kernel 3 (`csrc/head_projection_integral.cu`)
-and its backward kernel 4 (`csrc/head_projection_integral_bwd.cu`), which
-recomputes the logits per tile and contracts the soft-argmax cotangent into
-dfeat, dW and db without writing the heatmap or its gradient; for CPU
-tensors both take the plain versions. bf16 features, the main path's, go to
-the tensor-core kernels (`csrc/*_mma.cu`): each float32 operand is split
-into bf16 parts (`bf16_split`) and multiplied part by part, which keeps
-float32 accuracy. float32 features (`compute_dtype="float32"`) take the
-same route in the backward, the features split into three parts as well
-and the part pairs kept to float32 accuracy (`F32_PART_PAIRS`); their
-forward is kernel 3's CUDA-core kernel. Each route counts its launches on
-its own entry point (`kernels.HEAD_PROJECTION_INTEGRAL_*_F32` for float32
-features).
+tensors its forward launches kernel 3 (`csrc/head_projection_integral_mma.cu`)
+and its backward kernel 4 (`csrc/head_projection_integral_bwd_mma.cu`),
+which recomputes the logits per tile and contracts the soft-argmax
+cotangent into dfeat, dW and db without writing the heatmap or its
+gradient; for CPU tensors both take the plain versions. Both run on the
+tensor cores: each float32 operand is split into bf16 parts (`bf16_split`)
+and multiplied part by part, which keeps float32 accuracy. bf16 features,
+the main path's, are exact in bf16; float32 features
+(`compute_dtype="float32"`) are split into three parts as well, and the
+part pairs kept to float32 accuracy (`F32_PART_PAIRS`). Each route counts
+its launches on its own entry point (`forward_route`;
+`kernels.HEAD_PROJECTION_INTEGRAL_*_F32` for float32 features). float32
+features of a width the tensor-core kernels do not take (F % 4 != 0 or
+F > 256) run the forward on a CUDA-core kernel
+(`csrc/head_projection_integral.cu`, its own entry point) and have no
+backward kernel.
 """
 
 from __future__ import annotations
@@ -39,17 +42,18 @@ from hand_integral_pose_estimation_tpu_torch.ops.integral import (
 # the backward's entry point for each feature dtype's route
 _BWD = {torch.bfloat16: kernels.HEAD_PROJECTION_INTEGRAL_BWD,
         torch.float32: kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32}
-# float32 features: the CUDA-core forward stages a joint's (F, D rounded up
-# to 8) float32 weight slice plus a (64, 65) float32 feature slice in one
-# CTA's shared memory
+# float32 features outside the tensor-core kernels' widths: the CUDA-core
+# forward stages a joint's (F, D rounded up to 8) float32 weight slice plus
+# a (64, 65) float32 feature slice in one CTA's shared memory
 _SMEM_BYTES = 232448 - 1024
-# at most 256 features (F % 4 == 0): the backward on both routes and the
-# bf16 forward. Their shared memory grows with F rounded up to 64, and at
-# F = 256 the largest (the bf16 dfeat kernel, 231 936 bytes; the float32
-# route's two take 197 888 and 196 608) still fits a CTA's 232 448
-_BWD_MAX_FEATS = 256
+# the tensor-core kernels take at most 256 features (F % 4 == 0). Their
+# shared memory grows with F rounded up to 64, and at F = 256 the largest
+# (the bf16 dfeat kernel, 231 936 bytes; the float32 route's take 199 168,
+# 197 888 and 196 608) still fits a CTA's 232 448
+_MMA_MAX_FEATS = 256
 # the tensor-core kernels' blocks of 64 channels and their tiles of
-# positions in the dW partials: 64 for bf16 features, 32 for float32 ones
+# positions in the forward's chunks and the dW partials: 64 for bf16
+# features, 32 for float32 ones
 _MMA_BLOCK_C = 64
 _DW_TILE = {torch.bfloat16: 64, torch.float32: 32}
 # float32 features: the (feature part, weight part) pairs the tensor-core
@@ -75,11 +79,11 @@ def bf16_split(x: torch.Tensor, parts: int) -> list[torch.Tensor]:
 
 
 def _mma_chunks(feats: torch.Tensor, num_channels: int) -> int:
-    """Chunks per image of the tensor-core dW grids, which have one CTA per
-    (image, chunk of its tiles of positions, block of 64 channels) and one
-    CTA per SM: the count that least waves x (tiles per chunk + 1, the
-    weight staging's share) take, so the last wave is nearly full at any
-    batch. Tiles are the dtype's `_DW_TILE` positions."""
+    """Chunks per image of the tensor-core forward and dW grids, which have
+    one CTA per (image, chunk of its tiles of positions, block of 64
+    channels) and one CTA per SM: the count that least waves x (tiles per
+    chunk + 1, the weight staging's share) take, so the last wave is nearly
+    full at any batch. Tiles are the dtype's `_DW_TILE` positions."""
     B, H, W, _ = feats.shape
     tiles = -(-(H * W) // _DW_TILE[feats.dtype])
     ctas = B * -(-num_channels // _MMA_BLOCK_C)
@@ -102,6 +106,26 @@ def head_projection_integral_reference(feats: torch.Tensor,
     return softmax_integral_reference(hm, num_joints, depth)
 
 
+def _on_tensor_cores(num_feats: int) -> bool:
+    return num_feats % 4 == 0 and num_feats <= _MMA_MAX_FEATS
+
+
+def forward_route(dtype: torch.dtype, num_feats: int) -> kernels.Kernel:
+    """The entry point that runs kernel 3 on CUDA features of `dtype` and
+    width F = `num_feats`: the tensor-core kernels where F % 4 == 0 and F
+    <= 256 (bf16 features take no other width), the CUDA-core kernel for
+    float32 features of any other width. A route is chosen by shape alone;
+    no route falls back to another or to the plain version."""
+    if _on_tensor_cores(num_feats):
+        return (kernels.HEAD_PROJECTION_INTEGRAL_FWD
+                if dtype == torch.bfloat16
+                else kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32)
+    if dtype == torch.float32:
+        return kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES
+    raise ValueError(f"the forward kernel takes {dtype} features with F a "
+                     f"multiple of 4 up to {_MMA_MAX_FEATS}, got {num_feats}")
+
+
 def _check_feats(feats: torch.Tensor, weight: torch.Tensor, depth: int,
                  direction: str) -> None:
     F = feats.shape[-1]
@@ -110,21 +134,19 @@ def _check_feats(feats: torch.Tensor, weight: torch.Tensor, depth: int,
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if not 1 <= depth <= MAX_DEPTH:
         raise ValueError(f"depth {depth} outside 1..{MAX_DEPTH}")
-    if ((feats.dtype == torch.bfloat16 or direction == "backward")
-            and (F % 4 or F > _BWD_MAX_FEATS)):
-        raise ValueError(f"the {direction} kernel takes {feats.dtype} "
+    if direction == "backward" and not _on_tensor_cores(F):
+        raise ValueError(f"the backward kernel takes {feats.dtype} "
                          f"features with F a multiple of 4 up to "
-                         f"{_BWD_MAX_FEATS}, got {F}")
+                         f"{_MMA_MAX_FEATS}, got {F}")
 
 
 def head_projection_integral_cuda(feats: torch.Tensor, weight: torch.Tensor,
                                   bias: torch.Tensor, num_joints: int,
                                   depth: int):
     """Launch the fused kernel. feats: contiguous CUDA (B, H, W, F) bfloat16
-    (the tensor-core kernels: F % 4 == 0, F <= 256) or float32 (the
-    CUDA-core kernel, counted on `HEAD_PROJECTION_INTEGRAL_FWD_F32`);
-    weight: contiguous float32 (J*D, F); bias: float32 (J*D,). Returns
-    (coords, m, s) in float32."""
+    (F % 4 == 0, F <= 256) or float32, on the route `forward_route`
+    chooses; weight: contiguous float32 (J*D, F); bias: float32 (J*D,).
+    Returns (coords, m, s) in float32."""
     for name, t in (("feats", feats), ("weight", weight), ("bias", bias)):
         if t.device.type != "cuda" or t.device != feats.device:
             raise ValueError(f"{name} must be on the CUDA device of feats, "
@@ -143,9 +165,10 @@ def head_projection_integral_cuda(feats: torch.Tensor, weight: torch.Tensor,
     if tuple(weight.shape) != (C, F) or tuple(bias.shape) != (C,):
         raise ValueError(f"weight {tuple(weight.shape)} / bias "
                          f"{tuple(bias.shape)} do not match ({C}, {F})")
+    route = forward_route(feats.dtype, F)
     _check_feats(feats, weight, depth, "forward")
     depth_pad = -(-depth // 8) * 8
-    if (feats.dtype == torch.float32
+    if (route is kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES
             and 4 * (F * depth_pad + 64 * 65) > _SMEM_BYTES):
         raise ValueError(f"F = {F} at depth {depth} does not fit the kernel's "
                          f"shared memory")
@@ -159,16 +182,21 @@ def head_projection_integral_cuda(feats: torch.Tensor, weight: torch.Tensor,
         outs = (feats.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                 coords.data_ptr(), m.data_ptr(), s.data_ptr())
         stream = torch.cuda.current_stream().cuda_stream
-        if feats.dtype == torch.bfloat16:
-            # per-(image, chunk, channel) partial states (m, s, sx, sy)
-            chunks = _mma_chunks(feats, C)
-            ws = torch.empty(B * chunks * C * 4, **f32)
-            kernels.HEAD_PROJECTION_INTEGRAL_FWD(
-                *outs, ws.data_ptr(), B, H, W, F, num_joints, depth, chunks,
-                stream)
-        else:
-            kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32(
-                *outs, B, H, W, F, num_joints, depth, stream)
+        if route is kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES:
+            route(*outs, B, H, W, F, num_joints, depth, stream)
+            return coords, m, s
+        # per-(image, chunk, channel) partial states (m, s, sx, sy)
+        chunks = _mma_chunks(feats, C)
+        ws = torch.empty(B * chunks * C * 4, **f32)
+        planes = ()
+        if feats.dtype == torch.float32:  # their split bf16 planes
+            ws_planes = torch.empty(
+                kernels.head_projection_f32_workspace(
+                    B, H, W, F, num_joints, depth),
+                dtype=torch.uint8, device=feats.device)
+            planes = (ws_planes.data_ptr(),)
+        route(*outs, ws.data_ptr(), *planes, B, H, W, F, num_joints, depth,
+              chunks, stream)
     return coords, m, s
 
 
@@ -213,7 +241,8 @@ def head_projection_integral_bwd_cuda(feats: torch.Tensor,
     """Launch the fused-head backward (`csrc/head_projection_integral_bwd.cu`,
     three launches: dfeat, per-chunk dW/db partials, their fixed-order sum;
     on the tensor cores for both feature dtypes, `*_bwd_mma.cu`; float32
-    features counted on `HEAD_PROJECTION_INTEGRAL_BWD_F32`). Operands as
+    features split first, and counted on
+    `HEAD_PROJECTION_INTEGRAL_BWD_F32`). Operands as
     `head_projection_integral_cuda` takes them (F % 4 == 0, F <= 256),
     plus the forward's m, s (B, J), coords and the cotangent (B, J, 3).
     Returns (dfeat in the features' dtype, dW (J*D, F) float32, db (J*D,)
@@ -258,7 +287,7 @@ def head_projection_integral_bwd_cuda(feats: torch.Tensor,
         planes = ()
         if feats.dtype == torch.float32:  # their split bf16 planes
             ws_planes = torch.empty(
-                kernels.head_projection_bwd_f32_workspace(
+                kernels.head_projection_f32_workspace(
                     B, H, W, F, num_joints, depth),
                 dtype=torch.uint8, device=feats.device)
             planes = (ws_planes.data_ptr(),)

@@ -108,8 +108,9 @@ def build() -> Path:
 #: the tensor-core kernels of the fused head (kernels 3 and 4, bf16 path)
 MMA_KERNELS = ("hp_fwd_mma_kernel", "hp_bwd_dfeat_mma_kernel",
                "hp_bwd_dweight_mma_kernel")
-#: kernel 4's float32-feature route on the tensor cores
-F32_MMA_KERNELS = ("hp_bwd_dfeat_f32_kernel", "hp_bwd_dweight_f32_kernel")
+#: the float32-feature route of kernels 3 and 4 on the tensor cores
+F32_MMA_KERNELS = ("hp_fwd_f32_kernel", "hp_bwd_dfeat_f32_kernel",
+                   "hp_bwd_dweight_f32_kernel")
 
 
 def tensor_core_instructions(names=MMA_KERNELS) -> dict[str, int]:
@@ -228,18 +229,17 @@ def softmax_integral_fwd_chunks(hm: int, dtype: int, batch: int, rows: int,
 
 @functools.lru_cache(maxsize=None)
 def _f32_planes_entry():
-    fn = library().hipe_head_projection_integral_bwd_f32_workspace
+    fn = library().hipe_head_projection_integral_f32_workspace
     fn.argtypes = [_I, _I, _I, _I, _I, _I]
     fn.restype = ctypes.c_longlong
     return fn
 
 
-def head_projection_bwd_f32_workspace(batch: int, height: int, width: int,
-                                      feats: int, joints: int,
-                                      depth: int) -> int:
-    """Bytes of the workspace kernel 4's float32-feature route takes (the
-    features and the weight split into bf16 planes); the C library owns
-    the layout. It launches nothing."""
+def head_projection_f32_workspace(batch: int, height: int, width: int,
+                                  feats: int, joints: int, depth: int) -> int:
+    """Bytes of the workspace the float32-feature routes of kernels 3 and
+    4 take (the features and the weight split into bf16 planes, one layout
+    for both); the C library owns the layout. It launches nothing."""
     return int(_f32_planes_entry()(batch, height, width, feats, joints,
                                    depth))
 
@@ -271,10 +271,18 @@ HEAD_PROJECTION_INTEGRAL_FWD = Kernel(
     "hipe_head_projection_integral_fwd",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     ("hp_fwd_mma_kernel",))
-#: (feats, weight, bias, coords, m, s, B, H, W, F, J, D, stream): float32
-#: features, the CUDA-core kernel
+#: float32 features on the tensor cores: the same arguments plus, after
+#: ws (chunks of tiles of 32 positions), the workspace of their split
+#: planes (`head_projection_f32_workspace` bytes)
 HEAD_PROJECTION_INTEGRAL_FWD_F32 = Kernel(
     "hipe_head_projection_integral_fwd_f32",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ("hp_fwd_f32_kernel",))
+#: (feats, weight, bias, coords, m, s, B, H, W, F, J, D, stream): float32
+#: features of widths the tensor-core kernels do not take (F % 4 != 0 or
+#: F > 256), the CUDA-core kernel
+HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES = Kernel(
+    "hipe_head_projection_integral_fwd_f32_cuda_cores",
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ("head_projection_integral_fwd_kernel",))
 
@@ -292,7 +300,7 @@ HEAD_PROJECTION_INTEGRAL_BWD = Kernel(
     ("hp_bwd_dfeat_mma_kernel",))
 #: float32 features, on the tensor cores as well: the same arguments plus,
 #: after ws_db, the workspace of their split planes
-#: (`head_projection_bwd_f32_workspace` bytes)
+#: (`head_projection_f32_workspace` bytes)
 HEAD_PROJECTION_INTEGRAL_BWD_F32 = Kernel(
     "hipe_head_projection_integral_bwd_f32",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -323,7 +331,8 @@ NMS = Kernel("hipe_nms", [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
 KERNELS = (SOFTMAX_INTEGRAL_FWD, HEAD_PROJECTION_INTEGRAL_FWD,
            SOFTMAX_INTEGRAL_BWD, HEAD_PROJECTION_INTEGRAL_BWD, WARP_TWOPASS,
            ROI_ALIGN_FWD, NMS, ROI_ALIGN_BWD, HEAD_PROJECTION_INTEGRAL_FWD_F32,
-           HEAD_PROJECTION_INTEGRAL_BWD_F32)
+           HEAD_PROJECTION_INTEGRAL_BWD_F32,
+           HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES)
 
 
 class _KernelNodeParams(ctypes.Structure):

@@ -384,13 +384,64 @@ def test_bf16_fused_head_runs_on_tensor_cores(dev):
 
 
 def test_f32_fused_head_bwd_runs_on_tensor_cores(dev):
-    """Kernel 4's float32-feature route (both its launches) holds
-    tensor-core products (HMMA / HGMMA) in its SASS."""
+    """The float32-feature route of kernels 3 and 4 (the forward and both
+    backward launches) holds tensor-core products (HMMA / HGMMA) in its
+    SASS."""
     if kernels.cuda_tool("cuobjdump") is None:
         pytest.skip("needs cuobjdump")
     counts = kernels.tensor_core_instructions(kernels.F32_MMA_KERNELS)
     assert set(counts) == set(kernels.F32_MMA_KERNELS)
     assert all(n > 0 for n in counts.values()), counts
+
+
+# kernel 3 on float32 features at the serving batch, the two-stage path's
+# pose batch and the teacher sweep's 8 x 21 crops, at 21, 7 and 3 joints
+# (1 176, 392 and 168 channels: the model split's)
+F32_FWD_SHAPES = [(B, 56, 56, J, 56, 256) for B in (32, 4, 168)
+                  for J in (21, 7, 3)]
+
+
+@pytest.mark.parametrize("shape", F32_FWD_SHAPES)
+def test_f32_head_fwd_at_path_shapes(dev, shape):
+    """Kernel 3 with float32 features on the tensor cores against its
+    plain version (coords and m within COORD_TOL, s within S_REL_TOL), one
+    counted launch a call, and two calls bitwise equal."""
+    B, H, W, J, D, F = shape
+    g = torch.Generator(device=dev).manual_seed(13)
+    feats = torch.randn(B, H, W, F, device=dev, generator=g)
+    w = 0.3 * torch.randn(J * D, F, device=dev, generator=g)
+    b = torch.randn(J * D, device=dev, generator=g)
+    kernel = kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32
+    before = kernel.launches
+    first = fused_head.head_projection_integral_cuda(feats, w, b, J, D)
+    second = fused_head.head_projection_integral_cuda(feats, w, b, J, D)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    _check(first, fused_head.head_projection_integral_reference(feats, w, b,
+                                                                J, D))
+
+
+@pytest.mark.parametrize("num_feats", [260, 38, 258])
+def test_f32_head_fwd_cuda_core_route(dev, num_feats):
+    """float32 features of widths the tensor-core kernels do not take run
+    the CUDA-core kernel, counted on its own entry point, against the
+    plain version; no other kernel launches."""
+    B, H, W, J, D = 2, 9, 7, 3, 24
+    g = torch.Generator(device=dev).manual_seed(14)
+    feats = torch.randn(B, H, W, num_feats, device=dev, generator=g)
+    w = 0.3 * torch.randn(J * D, num_feats, device=dev, generator=g)
+    b = torch.randn(J * D, device=dev, generator=g)
+    counts = [k.launches for k in kernels.KERNELS]
+    got = fused_head.head_projection_integral(feats, w, b, J, D)
+    torch.cuda.synchronize()
+    assert [k.launches - c for k, c in zip(kernels.KERNELS, counts)] == [
+        int(k is kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES)
+        for k in kernels.KERNELS]
+    want = fused_head.head_projection_integral_reference(feats, w, b, J, D)
+    torch.testing.assert_close(got, want[0], rtol=0, atol=COORD_TOL)
+    _check(fused_head.head_projection_integral_cuda(feats, w, b, J, D), want)
 
 
 # float32 features at the model split's channel counts (7 joints: 392
@@ -608,7 +659,9 @@ def test_autograd_functions_take_the_kernels_both_ways(dev):
                         "hipe_nms": 0, "hipe_roi_align_bwd": 0,
                         # float32 features: the float32 route's entries
                         "hipe_head_projection_integral_fwd_f32": 1,
-                        "hipe_head_projection_integral_bwd_f32": 1}
+                        "hipe_head_projection_integral_bwd_f32": 1,
+                        "hipe_head_projection_integral_fwd_f32_cuda_cores":
+                            0}
 
     want_hm, = torch.autograd.grad(
         integral.softmax_integral_reference(hm, J, D)[0], hm, cot)
@@ -721,7 +774,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         c + (k not in (kernels.WARP_TWOPASS, kernels.ROI_ALIGN_FWD,
                        kernels.NMS, kernels.ROI_ALIGN_BWD,
                        kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32,
-                       kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32))
+                       kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32,
+                       kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES))
         for k, c in zip(kernels.KERNELS, counts)]  # bf16 features
     assert hm.grad.shape == hm.shape and w.grad.shape == w.shape
 

@@ -1,6 +1,6 @@
-"""The arithmetic of the fused head's tensor-core kernels (kernels 3 and 4
-on bf16 features), emulated in float32 on the CPU and held against the JAX
-package.
+"""The arithmetic of the fused head's tensor-core kernels (kernels 3 and 4,
+on bf16 and on float32 features), emulated in float32 on the CPU and held
+against the JAX package; and which route each feature width takes.
 
 The kernels multiply bf16 operands on the tensor cores with float32
 accumulation. A float32 operand is first split into bf16 parts
@@ -21,7 +21,11 @@ import pytest
 import torch
 
 from hand_integral_pose_estimation_tpu.ops import fused_head as jfused
-from hand_integral_pose_estimation_tpu_torch.ops import fused_head, integral
+from hand_integral_pose_estimation_tpu_torch.ops import (
+    fused_head,
+    integral,
+    kernels,
+)
 
 B, H, W, J, F = 2, 8, 8, 3, 40
 # coords and dW to 1e-5 of their largest entry: the three-part products
@@ -274,3 +278,164 @@ def test_bf16_feature_shortcut_misses_the_f32_tolerance(D):
     want_dW = np.asarray(want[1]).T
     tol = DW_SCALE * float(np.abs(want_dW).max())
     assert float(np.abs(dW.numpy() - want_dW).max()) > 10 * tol
+
+
+# ---- kernel 3 on float32 features (`csrc/head_projection_integral_mma.cu`,
+# `hp_fwd_f32_kernel`): the features and the weight split into three parts,
+# the six pairs multiplied 16 features (a k-step) at a time with float32
+# accumulation, the (hi, hi) pair into one accumulator and the five smaller
+# pairs into another, added once the k-steps are done; then bias, and an
+# online soft-argmax state per (image, chunk of tiles of 32 positions,
+# channel), the two warpgroups taking alternate tiles and merged in order,
+# the chunks merged in order, then each joint's channels.
+K_STEP = 16
+TILE32 = 32
+
+
+def _kstep_logits32(feats, w, bias):
+    """(B, HW, C) logits as the kernel's two accumulators form them."""
+    f = [p.float() for p in
+         fused_head.bf16_split(torch.from_numpy(feats).reshape(B, H * W, F),
+                               3)]
+    wp = [p.float() for p in fused_head.bf16_split(torch.from_numpy(w), 3)]
+    x = torch.zeros(B, H * W, w.shape[0])
+    xs = torch.zeros_like(x)
+    for k0 in range(0, F, K_STEP):
+        ks = slice(k0, k0 + K_STEP)
+        for q, (i, j) in enumerate(fused_head.F32_PART_PAIRS):
+            prod = torch.einsum("bsf,cf->bsc", f[i][..., ks], wp[j][:, ks])
+            if q == 0:
+                x = x + prod
+            else:
+                xs = xs + prod
+    return (x + xs) + torch.from_numpy(bias)
+
+
+def _online_states(logits, chunks):
+    """Per-(image, chunk, channel) states (m, s, sum e col, sum e row) of
+    (B, HW, C) float32 logits over tiles of 32 positions, each warpgroup's
+    tiles folded in order and the two merged."""
+    hw = torch.arange(H * W)
+    col, row = (hw % W).float(), (hw // W).float()
+    tiles = -(-H * W // TILE32)
+    per = -(-tiles // chunks)
+
+    def fold(st, t):
+        v = logits[:, t * TILE32:(t + 1) * TILE32]
+        c = col[t * TILE32:(t + 1) * TILE32, None]
+        r = row[t * TILE32:(t + 1) * TILE32, None]
+        m = torch.maximum(st[0], v.amax(dim=1))
+        e = torch.exp(v - m[:, None])
+        scale = torch.exp(st[0] - m)
+        return (m, st[1] * scale + e.sum(1), st[2] * scale + (e * c).sum(1),
+                st[3] * scale + (e * r).sum(1))
+
+    def merge(a, b):
+        m = torch.maximum(a[0], b[0])
+        ca, cb = torch.exp(a[0] - m), torch.exp(b[0] - m)
+        return (m, *(x * ca + y * cb for x, y in zip(a[1:], b[1:])))
+
+    empty = (torch.full(logits.shape[::2], -torch.inf),
+             *(torch.zeros(logits.shape[::2]) for _ in range(3)))
+    out = []
+    for q in range(chunks):
+        groups = []
+        for g in range(2):
+            st = empty
+            for t in range(q * per + g, min(tiles, (q + 1) * per), 2):
+                st = fold(st, t)
+            groups.append(st)
+        out.append(merge(*groups))
+    return out
+
+
+def _merged_decode(states, D):
+    """The chunk merge: each channel's chunks in order, then the joint's
+    channels with their depth slots; coords, m, s as the kernel writes
+    them."""
+    st = states[0]
+    for nxt in states[1:]:
+        m = torch.maximum(st[0], nxt[0])
+        ca, cb = torch.exp(st[0] - m), torch.exp(nxt[0] - m)
+        st = (m, *(x * ca + y * cb for x, y in zip(st[1:], nxt[1:])))
+    m, s, sx, sy = (t.reshape(B, J, D) for t in st)
+    mj = m.amax(dim=2)
+    scale = torch.exp(m - mj[..., None])
+    sz = s * torch.arange(D, dtype=torch.float32)
+    sj, sxj, syj, szj = ((t * scale).sum(2) for t in (s, sx, sy, sz))
+    coords = torch.stack([sxj / sj / W - 0.5, syj / sj / H - 0.5,
+                          szj / sj / D - 0.5], dim=-1)
+    return coords, mj, sj
+
+
+@pytest.mark.parametrize("D", [4, 40])
+def test_emulated_f32_forward_kernel_plan_matches_jax(D):
+    """3f's plan on unrounded float32 features (k-step accumulators, tiles
+    of 32 positions, one and two chunks an image) decodes to the JAX
+    forward's coords, m and s."""
+    feats, w, bias, _ = _inputs32(D, seed=40 + D)
+    want = _jax_forward(feats, w, bias, D)
+    logits = _kstep_logits32(feats, w, bias)
+    for chunks in (1, 2):
+        coords, m, s = _merged_decode(_online_states(logits, chunks), D)
+        assert _excess(coords, want[0], COORD_SCALE) <= 0
+        np.testing.assert_allclose(
+            m.numpy(), np.asarray(want[1]), rtol=0,
+            atol=COORD_SCALE * float(np.abs(want[1]).max()))
+        np.testing.assert_allclose(s.numpy(), np.asarray(want[2]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("D", [4, 40])
+def test_f32_hi_pair_alone_misses_the_tolerance(D):
+    """The (hi, hi) pair alone (the features and the weight each rounded
+    once to bf16) moves the coords far past the tolerance the float32
+    route is held to: the five smaller pairs carry it."""
+    feats, w, bias, _ = _inputs32(D, seed=40 + D)
+    want = _jax_forward(feats, w, bias, D)
+    f = torch.from_numpy(feats).reshape(B, H * W, F)
+    hi = (_pair_products(f, torch.from_numpy(w), "bsf,cf->bsc",
+                         fused_head.F32_PART_PAIRS[:1])
+          + torch.from_numpy(bias))
+    coords = integral.softmax_integral_reference(
+        hi.reshape(B, H, W, -1), J, D)[0]
+    tol = COORD_SCALE * float(np.abs(np.asarray(want[0])).max())
+    assert float(np.abs(coords.numpy() - np.asarray(want[0])).max()) > 10 * tol
+
+
+# feature widths and the forward's route: the tensor-core kernels take F %
+# 4 == 0 up to 256 for both dtypes; float32 features of other widths take
+# the CUDA-core kernel (its own entry point), never the plain version;
+# bf16 features of other widths are refused
+F32_ROUTES = [(f, "HEAD_PROJECTION_INTEGRAL_FWD_F32")
+              for f in (4, 36, 40, 64, 128, 192, 252, 256)] + [
+    (f, "HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES")
+    for f in (1, 6, 38, 254, 258, 260, 512)]
+
+
+@pytest.mark.parametrize("num_feats,entry", F32_ROUTES)
+def test_f32_forward_route_by_width(num_feats, entry):
+    route = fused_head.forward_route(torch.float32, num_feats)
+    assert route is getattr(kernels, entry)
+    assert route in kernels.KERNELS
+    assert route.symbol == "hipe_" + entry.lower()
+    # the backward has the tensor-core route only
+    feats = torch.zeros(1, 2, 2, num_feats)
+    weight = torch.zeros(3, num_feats)
+    if entry.endswith("_CUDA_CORES"):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            fused_head._check_feats(feats, weight, 1, "backward")
+    else:
+        fused_head._check_feats(feats, weight, 1, "backward")
+
+
+def test_bf16_forward_route_by_width():
+    for f in (4, 40, 256):
+        assert (fused_head.forward_route(torch.bfloat16, f)
+                is kernels.HEAD_PROJECTION_INTEGRAL_FWD)
+    for f in (38, 258):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            fused_head.forward_route(torch.bfloat16, f)
+    # each route has an entry point of its own, counted apart
+    symbols = [k.symbol for k in kernels.KERNELS]
+    assert len(set(symbols)) == len(symbols)
+    assert "hp_fwd_f32_kernel" in kernels.F32_MMA_KERNELS
