@@ -1,11 +1,11 @@
 """Smoke test of the PyTorch / CUDA port on one GPU: the pose-serving path,
 the pose-training path, the two-stage (detector -> pose) serving path, the
-semi-supervised path, detector training, the input path's device half and
-int8 serving.
+semi-supervised path, detector training, the input path's device half,
+int8 serving, the device mesh and the runner utilities.
 
     python3 chip_smoke.py
 
-Eleven phases, each printing what it found; any failure exits non-zero
+Twelve phases, each printing what it found; any failure exits non-zero
 before the result line.
 
 1. device: requires CUDA (there is no CPU fallback), prints the card, its
@@ -179,7 +179,24 @@ before the result line.
    `TwoStagePipeline(mesh)` over two ranks at phase 7's width, float and
    int8, against one rank. The ranks are `parallel/_smoke_worker.py`;
    a rank that fails fails the phase. Times of (b) and (d) are
-   time-shared on one card, not a scaling figure.
+   time-shared on one card, not a scaling figure;
+12. the utilities: (a) `entry()` (R50, 8 x 224^2, its projection scaled
+   to a peaked softmax on seeded images) within COORD_TOL of the plain
+   head on the same features, kernel 3 launched once; (b) a torchvision-
+   shaped R50 ImageNet state dict from a seed, then `Trainer(
+   imagenet_init=..., log_dir=..., scan_steps=2)` at batch 32 through one
+   epoch of three chunks (the eager warm-up, the capture, a replay) with
+   `profile_dir` and without (cuDNN deterministic): after the init the
+   backbone is the file's bitwise and the rest a fresh Trainer's; losses
+   and training state bitwise equal; the trace names kernels 3, 4 and 5 in
+   every step (replays included); train_logs.txt holds the epoch lines with
+   `h/epoch`; each chunk's time on the Trainer's timer, profiled and not;
+   (c) `cli.find_mean_std --synthetic --device cuda` within 1e-12 of
+   numpy's exact float64 statistics (integer sums) of the same samples;
+   (e) `dryrun_multichip(2)` on the card (two processes sharing it over
+   gloo, R18 at 32^2): both arms' losses and PA-MPJPE finite, and rank 0's
+   launches name the fused head's float32 forward and backward and the
+   warp.
 
 Each path's launch counts start from 0 just before the path runs and are
 read just after it; the launches in the kernels line are their sum. The
@@ -2549,44 +2566,25 @@ MESH_PARAM_STEP = 2.5
 MESH_STEP_LOSS_REL = 1e-4
 
 
-def spawn_ranks(job: str, world: int, case: dict, out_dir: str,
-                timeout: float = 600) -> list[dict]:
-    """`world` processes of the mesh phase's worker on this card, with
-    torchrun's environment on a free localhost port; fails the run (after
-    stopping every rank) if any rank fails or the group outlives
-    `timeout`. Returns each rank's results."""
-    import socket
+def run_mesh_job(job: str, world: int, case: dict, out_dir: str,
+                 timeout: float = 600) -> list[dict]:
+    """`world` processes of the mesh phase's worker on this card
+    (`parallel.spawn_ranks`: torchrun's environment on a free localhost
+    port); fails the run (after stopping every rank) if any rank fails or
+    the group outlives `timeout`. Returns each rank's results."""
+    from hand_integral_pose_estimation_tpu_torch.parallel import spawn_ranks
 
     case_path = os.path.join(out_dir, f"{job}_case.pt")
     torch.save(case, case_path)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    root = os.path.dirname(os.path.abspath(__file__))
-    procs = [subprocess.Popen(
-        [sys.executable, "-m",
-         "hand_integral_pose_estimation_tpu_torch.parallel._smoke_worker",
-         job, case_path, out_dir],
-        env=dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                 RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
-                 LOCAL_WORLD_SIZE=str(world)),
-        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(world)]
-    logs = []
     try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    except subprocess.TimeoutExpired:
-        logs.append("timed out")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        print("\n".join(log[-3000:] for log in logs), flush=True)
-        fail(f"mesh phase: ranks {bad} of the {job!r} group failed")
+        spawn_ranks(
+            [sys.executable, "-m",
+             "hand_integral_pose_estimation_tpu_torch.parallel._smoke_worker",
+             job, case_path, out_dir], world,
+            cwd=os.path.dirname(os.path.abspath(__file__)), timeout=timeout)
+    except RuntimeError as e:
+        print(e, flush=True)
+        fail(f"mesh phase: the {job!r} group failed")
     return [torch.load(os.path.join(out_dir, f"{job}_rank{r}.pt"),
                        weights_only=False) for r in range(world)]
 
@@ -2927,7 +2925,7 @@ def mesh_phase(dev, g, card, cfg):
     set_projection(pose, weight.cpu())
     pcfg = cfg.replace(detector=det_cfg)
     out_dir = tempfile.mkdtemp()
-    pair = spawn_ranks("pair", 2, {
+    pair = run_mesh_job("pair", 2, {
         "cfg": cfg, "seed": SEED, "n_train": 2 * BATCH,
         "steps": MESH_PAIR_STEPS, "final_weight": weight.cpu(),
         "n_test": MESH_TEST_N, "test_batch": BATCH,
@@ -3048,7 +3046,7 @@ def mesh_phase(dev, g, card, cfg):
                            ("image", "joint_cam", "K")), None,
                          torch.from_numpy(eh["ref_bone_len"]).to(dev),
                          cfg.augment, cfg.model.input_shape)
-    model3 = spawn_ranks("model3", 3, {
+    model3 = run_mesh_job("model3", 3, {
         "cfg": ccfg, "seed": SEED, "final_weight": weight.cpu(),
         "eval_batch": type(eb)(*[None if v is None else v.cpu() for v in eb]),
         "train_batch": type(tb)(*[None if v is None else v.cpu()
@@ -3099,6 +3097,268 @@ def mesh_phase(dev, g, card, cfg):
     dist.destroy_process_group()
     torch.cuda.empty_cache()
     return launches, err
+
+
+# The utilities phase (12): the ImageNet-initialised, profiled Trainer runs
+# one epoch of UTIL_CHUNKS chunks of UTIL_SCAN steps at batch 32: the
+# eager warm-up, the capture (and first replay) and a replay, the JAX
+# Trainer's profiler window (itr >= 2 * scan_steps).
+UTIL_SCAN = 2
+UTIL_CHUNKS = 3
+# the hand-written kernels a bf16 train step launches, by device function:
+# kernel 3's, kernel 4's two and kernel 5's
+UTIL_TRACE_KERNELS = ("hp_fwd_mma_kernel", "hp_bwd_dfeat_mma_kernel",
+                      "hp_bwd_dweight_mma_kernel", "warp_kernel")
+
+
+def imagenet_state_dict(resnet_type: int, seed: int) -> dict:
+    """A torchvision-shaped ImageNet ResNet state dict drawn from `seed`:
+    torchvision's names and shapes (the backbone's, which keeps them) with
+    its fc head; convs He-scaled normal, BN scale U(0.5, 1.5), bias and
+    running mean N(0, 0.1), running var U(0.5, 1.5), counters 0."""
+    from hand_integral_pose_estimation_tpu_torch.models.resnet import (
+        ResNetBackbone,
+    )
+
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in ResNetBackbone(resnet_type).state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            out[k] = torch.zeros_like(v)
+        elif v.dim() == 4:
+            fan_in = v.shape[1] * v.shape[2] * v.shape[3]
+            out[k] = torch.randn(v.shape, generator=g) * (2.0 / fan_in) ** 0.5
+        elif k.endswith(("weight", "running_var")):
+            out[k] = torch.rand(v.shape, generator=g) + 0.5
+        else:
+            out[k] = torch.randn(v.shape, generator=g) * 0.1
+    width = 512 * (4 if resnet_type >= 50 else 1)
+    out["fc.weight"] = torch.randn(1000, width, generator=g) * 0.01
+    out["fc.bias"] = torch.zeros(1000)
+    return out
+
+
+def trace_kernels(path: str) -> collections.Counter:
+    """Device kernel events of a Chrome trace by name."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return collections.Counter(e.get("name", "") for e in events
+                               if e.get("cat") == "kernel")
+
+
+def utilities_phase(dev, g, card, cfg):
+    """Phase 12: the utilities on the card. Returns the launches of the
+    phase's main runs (`entry()`, the ImageNet-initialised profiled
+    `Trainer.fit`, `cli.find_mean_std`) by kernel symbol; the dry run's
+    ranks are processes of their own, and their launches are checked
+    from rank 0's lines, not added."""
+    from hand_integral_pose_estimation_tpu_torch.cli import (
+        find_mean_std as mean_std_cli,
+    )
+    from hand_integral_pose_estimation_tpu_torch.data import SyntheticFreiHand
+    from hand_integral_pose_estimation_tpu_torch.entry import (
+        dryrun_multichip,
+        entry,
+    )
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
+    from hand_integral_pose_estimation_tpu_torch.ops.fused_head import (
+        head_projection_integral_reference,
+    )
+    from hand_integral_pose_estimation_tpu_torch.training import Trainer
+    from hand_integral_pose_estimation_tpu_torch.utils import Timer
+
+    t_phase = time.perf_counter()
+    launches = {k.symbol: 0 for k in kernels.KERNELS}
+
+    def reset():
+        for k in kernels.KERNELS:
+            k.launches = 0
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # ---- a. entry(): the R50 pose net at 8 x 224^2, decoded by kernel 3,
+    # its projection scaled to a peaked softmax on seeded images
+    fn, (model, example) = entry()
+    check(example.device.type == "cuda" and next(
+        model.parameters()).device.type == "cuda",
+        "entry() did not place its model and images on the card")
+    images = torch.rand(example.shape, generator=g, device=dev)
+    scale_projection(model, images)
+    reset()
+    coords = fn(model, images)
+    torch.cuda.synchronize()
+    counts = path_launches()
+    add(counts)
+    with torch.no_grad():
+        feats = model(images, return_features=True)
+        w, b = model.final_projection()
+        want = head_projection_integral_reference(
+            feats, w, b, model.cfg.num_joints, model.cfg.depth_dim)[0]
+    e_entry = float((coords - want).abs().max())
+    n3 = counts[kernels.HEAD_PROJECTION_INTEGRAL_FWD.symbol]
+    print(f"[utils] entry(): coords {tuple(coords.shape)} {coords.dtype}, "
+          f"max|d| from the plain head on the same features {e_entry:.3e} "
+          f"(tol {COORD_TOL:g}), kernel 3 launches {n3}, on {card}",
+          flush=True)
+    check(tuple(coords.shape) == (8, 21, 3) and bool(coords.isfinite().all())
+          and e_entry <= COORD_TOL and n3 == 1,
+          "phase 12a: entry() disagrees with the plain head or did not "
+          "launch kernel 3 once")
+    del fn, model, example, images, feats, coords, want
+
+    # ---- b. an ImageNet-initialised Trainer, profiled and not, one epoch
+    # of three chunks, in turns (cuDNN deterministic: the runs bitwise);
+    # the first profiled run is the counted one
+    steps = UTIL_SCAN * UTIL_CHUNKS
+    data = SyntheticFreiHand(n=2 * BATCH, render_joints=True, seed=SEED)
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resnet50-imagenet.pth")
+        sd = imagenet_state_dict(cfg.model.resnet_type, SEED)
+        torch.save(sd, path)
+        fresh = Trainer(cfg, data, model_dir=os.path.join(tmp, "fresh"),
+                        seed=SEED, device=dev).model.state_dict()
+        for name in ("plain", "profiled", "profiled again", "plain again"):
+            run_dir = os.path.join(tmp, name.replace(" ", "_"))
+            t = Trainer(cfg, data, model_dir=run_dir, seed=SEED, device=dev,
+                        scan_steps=UTIL_SCAN, imagenet_init=path,
+                        log_dir=os.path.join(run_dir, "log"),
+                        metrics_dir=os.path.join(run_dir, "metrics"),
+                        profile_dir=(os.path.join(run_dir, "profile")
+                                     if name.startswith("profiled")
+                                     else None))
+            state = t.model.state_dict()
+            own = [k for k in state if k.startswith("backbone.")
+                   and not k.endswith("num_batches_tracked")]
+            init_ok = (len(own) == len(sd) - 2 - sum(
+                k.endswith("num_batches_tracked") for k in sd) and all(
+                torch.equal(state[k].cpu(), sd[k[len("backbone."):]])
+                for k in own) and all(
+                torch.equal(state[k], fresh[k]) for k in state
+                if k not in own))
+            check(init_ok, f"phase 12b ({name}): after init the backbone "
+                  f"is not the file's or the rest not a fresh Trainer's")
+            chunk_s = []
+
+            class Recording(Timer):
+                def toc(self, average=True):
+                    out = super().toc(average)
+                    chunk_s.append(self.diff)
+                    return out
+
+            t.total_timer = Recording()
+            reset()
+            t0 = time.perf_counter()
+            t.fit(end_epoch=1, steps_per_epoch=steps)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            counts = path_launches(t.graphs)
+            with open(os.path.join(run_dir, "metrics", "events.jsonl")) as f:
+                losses = [json.loads(line)["train/loss"] for line in f]
+            with open(os.path.join(run_dir, "log", "train_logs.txt")) as f:
+                log = f.read()
+            runs[name] = dict(counts=counts, losses=losses, chunk_s=chunk_s,
+                              fit_s=fit_s, log=log,
+                              state=training_state(t))
+            if name == "profiled":
+                add(counts)
+                trace_path = os.path.join(run_dir, "profile",
+                                          "trace_rank0.json")
+                check(os.path.exists(trace_path),
+                      "phase 12b: the profiler wrote no trace_rank0.json")
+                trace_mb = os.path.getsize(trace_path) / 1e6
+                traced = trace_kernels(trace_path)
+            del t
+    torch.backends.cudnn.deterministic = False
+
+    prof, plain = runs["profiled"], runs["plain"]
+    others = [runs[k] for k in ("profiled again", "plain again")]
+    want_counts = {k.symbol: (steps if k in (
+        kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+        kernels.HEAD_PROJECTION_INTEGRAL_BWD, kernels.WARP_TWOPASS) else 0)
+        for k in kernels.KERNELS}
+    in_trace = {name: sum(n for key, n in traced.items() if name in key)
+                for name in UTIL_TRACE_KERNELS}
+    differ = [k for k in plain["state"] if not all(
+        torch.equal(plain["state"][k], r["state"][k])
+        for r in (prof, *others))]
+    log_lines = [line for line in prof["log"].splitlines() if "itr " in line]
+    print(f"[utils] ImageNet-initialised Trainer.fit, R50 at batch {BATCH}, "
+          f"scan_steps={UTIL_SCAN}, {UTIL_CHUNKS} chunks (eager warm-up, "
+          f"capture, replay) with profile_dir against without, twice in "
+          f"turns: losses {prof['losses']} and {plain['losses']}, the four "
+          f"runs' state: "
+          f"{len(plain['state']) - len(differ)} of {len(plain['state'])} "
+          f"tensors bitwise equal; launches {prof['counts']}; the trace "
+          f"({trace_mb:.1f} MB) names {in_trace} (the graph's replays and "
+          f"the eager chunk); {len(log_lines)} epoch lines in "
+          f"train_logs.txt, the first: {log_lines[:1]}", flush=True)
+    for name, r in runs.items():
+        print(f"[utils] {name}: per-chunk time (the Trainer's total timer, "
+              f"host clock) {['%.4f' % x for x in r['chunk_s']]} s, fit "
+              f"{r['fit_s']:.3f} s (snapshot and any trace export "
+              f"included), on {card}", flush=True)
+    check(all(r["losses"] == plain["losses"] for r in (prof, *others))
+          and not differ, f"phase 12b: a profiled run differs from the "
+          f"unprofiled one ({len(differ)} tensors)")
+    check(all(r["counts"] == want_counts for r in runs.values()),
+          f"phase 12b: launches {prof['counts']}, expected {want_counts}")
+    check(all(n >= steps for n in in_trace.values()),
+          f"phase 12b: the trace does not name kernels 3, 4 and 5 in every "
+          f"step: {in_trace}")
+    check(len(log_lines) >= 1 and all("h/epoch" in line
+                                      for line in log_lines)
+          and "backbone initialised from ImageNet weights" in prof["log"]
+          and "profiler trace written" in prof["log"],
+          "phase 12b: train_logs.txt lacks the epoch's lines")
+
+    # ---- c. cli.find_mean_std on the card, against numpy's exact float64
+    # statistics of the same samples (integer sums)
+    t0 = time.perf_counter()
+    mean, std = mean_std_cli.main(["--synthetic", "--device", "cuda"])
+    mean_s = time.perf_counter() - t0
+    n = 256
+    pixels = SyntheticFreiHand(n=n).host_batch(
+        np.arange(n))["image"].reshape(-1, 3).astype(np.int64)
+    ex_mean = pixels.sum(0) / (255.0 * pixels.shape[0])
+    ex_std = np.sqrt((pixels ** 2).sum(0) / (255.0 ** 2 * pixels.shape[0])
+                     - ex_mean ** 2)
+    e_ms = max(float(np.abs(mean - ex_mean).max()),
+               float(np.abs(std - ex_std).max()))
+    print(f"[utils] cli.find_mean_std --synthetic --device cuda ({n} x "
+          f"224^2): max|d| from numpy's exact float64 statistics {e_ms:.3e} "
+          f"(tol 1e-12), {mean_s:.2f} s on {card}", flush=True)
+    check(e_ms <= 1e-12, "phase 12c: find_mean_std disagrees with numpy")
+
+    # ---- e. dryrun_multichip(2) on the card: two ranks share it over gloo
+    # (eager chunks); each arm's line must be finite and name the fused
+    # head's forward and backward and the warp among rank 0's launches
+    t0 = time.perf_counter()
+    lines = dryrun_multichip(2).splitlines()
+    dry_s = time.perf_counter() - t0
+    print(f"[utils] dryrun_multichip(2) on the card: {dry_s:.1f} s (two "
+          f"processes started, the kernel library loaded in each), on "
+          f"{card}", flush=True)
+    need = {kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32.symbol,
+            kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32.symbol,
+            kernels.WARP_TWOPASS.symbol}
+    dry_ok = len(lines) == 2
+    for line in lines:
+        fields = dict(f.split("=", 1) for f in line.split()
+                      if f.startswith(("loss=", "eval_pa_mpjpe=",
+                                       "launches=")))
+        ran = {kv.split(":")[0] for kv in fields.get("launches",
+                                                     "").split(",")}
+        dry_ok &= (len(fields) == 3 and need <= ran and all(
+            math.isfinite(float(fields[k]))
+            for k in ("loss", "eval_pa_mpjpe")))
+    check(dry_ok, f"phase 12e: dryrun_multichip(2) on the card: {lines}")
+    print(f"[utils] phase 12 took {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -3952,6 +4212,10 @@ def main() -> None:
     for name, e in mesh_err.items():
         err[name] = max(err[name], e)
 
+    # ---- 12. the utilities: entry(), the ImageNet init, the profiler, the
+    # log file, find_mean_std
+    util_launches = utilities_phase(dev, g, card, cfg)
+
     pkg = "hand_integral_pose_estimation_tpu_torch/csrc/"
     ref = "hand_integral_pose_estimation_tpu/ops/"
     meta = {
@@ -4005,7 +4269,8 @@ def main() -> None:
                       + train_launches[k.symbol]
                       + det_launches[k.symbol] + semi_launches[k.symbol]
                       + dtrain_launches[k.symbol]
-                      + int8_launches[k.symbol] + mesh_launches[k.symbol]),
+                      + int8_launches[k.symbol] + mesh_launches[k.symbol]
+                      + util_launches[k.symbol]),
          "max_abs_err": err[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}

@@ -44,7 +44,11 @@ the ranks of a `torchrun` launch, one GPU each, or CPU ranks over gloo:
 `auto` is a data-parallel mesh over every rank (none in a single process,
 which trains exactly as without the flag); `data=N[,model=M]` an explicit
 layout (`model` splits the final projection); `none` no mesh. Rank 0
-writes the snapshots. The ImageNet init comes with a later port.
+writes the snapshots and the log, `--log-dir/train_logs.txt`.
+
+`--imagenet-init resnet50.pth` initialises the pose backbone from a
+torchvision ImageNet ResNet state dict (the reference's model-zoo init,
+common/nets/resnet.py:70-76) before training; `--continue` wins over it.
 """
 
 from __future__ import annotations
@@ -64,6 +68,8 @@ def build_argparser():
                    help="override cfg.train.training_size (partial "
                         "downloads, mini fixtures)")
     p.add_argument("--model-dir", default="output/model_dump")
+    p.add_argument("--log-dir", default="output/log",
+                   help="directory of train_logs.txt")
     p.add_argument("--epochs", type=int, default=None,
                    help="end epoch (default: cfg.train.end_epoch)")
     p.add_argument("--steps-per-epoch", type=int, default=None)
@@ -118,6 +124,10 @@ def build_argparser():
                    help="must match the checkpoint: 'batch' (reference "
                         "parity) or 'group' (cli.train_detector's default)")
     p.add_argument("--detector-resnet", type=int, default=None)
+    p.add_argument("--imagenet-init", default=None,
+                   help="torchvision ImageNet ResNet .pth to initialise "
+                        "the pose backbone from (common/nets/"
+                        "resnet.py:70-76 model-zoo init)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--unfused-head", action="store_true",
                    help="decode the materialised heatmap (kernels 1 and 2) "
@@ -181,6 +191,8 @@ def main(argv=None):
     )
     from hand_integral_pose_estimation_tpu_torch.training import Trainer
 
+    # the other modules' loggers; the Trainer's own logger
+    # (utils.color_logger) does not propagate, so its lines print once
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args.device = join_launcher(args.device)
     mesh, model_par, auto_mesh = None, 1, False
@@ -262,6 +274,7 @@ def main(argv=None):
               f"(lambda = {cfg.train.lam})")
 
     trainer = Trainer(cfg=cfg, dataset=dataset, model_dir=args.model_dir,
+                      log_dir=args.log_dir, imagenet_init=args.imagenet_init,
                       continue_train=args.continue_train, seed=args.seed,
                       test_dataset=test_dataset, device=args.device,
                       fuse_head=not args.unfused_head,

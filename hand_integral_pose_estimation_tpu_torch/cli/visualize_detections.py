@@ -7,8 +7,13 @@ the detected hand boxes, their scores and the padded crop box over images.
     python -m hand_integral_pose_estimation_tpu_torch.cli.visualize_detections \
         --synthetic --num-images 2 --detector-resnet 18 --detector-scale 64 \
         --device cpu
+    python -m hand_integral_pose_estimation_tpu_torch.cli.visualize_detections \
+        --data-dir /path/to/FreiHAND --num-images 4 --device cuda
 
 Port of hand_integral_pose_estimation_tpu/cli/visualize_detections.py.
+`--data-dir` draws on the first images of the FreiHAND tree's evaluation
+split (the frames the reference's main/eval_eval.py detects on) instead of
+SyntheticFreiHand; the JAX CLI accepts the flag and never reads it.
 matplotlib is imported when the CLI runs, not with the module.
 """
 
@@ -20,8 +25,12 @@ import argparse
 def build_argparser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--data-dir", default=None,
+                   help="FreiHAND root: draw on its evaluation split's "
+                        "images instead of SyntheticFreiHand's")
     p.add_argument("--synthetic", action="store_true",
-                   help="draw on SyntheticFreiHand images (the default)")
+                   help="draw on SyntheticFreiHand images (the default "
+                        "without --data-dir)")
     p.add_argument("--out-dir", default="output/vis")
     p.add_argument("--num-images", type=int, default=4)
     p.add_argument("--detector-ckpt", default=None,
@@ -54,7 +63,10 @@ def main(argv=None):
     import torch
 
     from hand_integral_pose_estimation_tpu_torch.config import DetectorConfig
-    from hand_integral_pose_estimation_tpu_torch.data import SyntheticFreiHand
+    from hand_integral_pose_estimation_tpu_torch.data import (
+        FreiHandDataset,
+        SyntheticFreiHand,
+    )
     from hand_integral_pose_estimation_tpu_torch.detect import (
         build_detector,
         default_resnet_style,
@@ -77,8 +89,12 @@ def main(argv=None):
     model = build_detector(cfg, args.detector_ckpt,
                            generator=torch.Generator().manual_seed(args.seed)
                            ).to(args.device)
-    ds = SyntheticFreiHand(n=args.num_images)
-    host = ds.host_batch(np.arange(args.num_images))
+    if args.data_dir and not args.synthetic:
+        ds = FreiHandDataset(args.data_dir, "evaluation")
+    else:
+        ds = SyntheticFreiHand(n=args.num_images)
+    num_images = min(args.num_images, len(ds))
+    host = ds.host_batch(np.arange(num_images))
     imgs = torch.from_numpy(np.ascontiguousarray(host["image"])).to(
         args.device)
     det = detect(model, imgs, cfg)
@@ -87,7 +103,7 @@ def main(argv=None):
     valid = det.valid.cpu().numpy()
 
     os.makedirs(args.out_dir, exist_ok=True)
-    for i in range(args.num_images):
+    for i in range(num_images):
         fig, ax = plt.subplots()
         ax.imshow(host["image"][i])
         for b, s, v in zip(boxes[i], scores[i], valid[i]):
@@ -105,7 +121,7 @@ def main(argv=None):
         fig.savefig(os.path.join(args.out_dir, f"det_{i}.jpg"),
                     bbox_inches="tight", dpi=110)
         plt.close(fig)
-    print(f"wrote {args.num_images} visualisations -> {args.out_dir}")
+    print(f"wrote {num_images} visualisations -> {args.out_dir}")
 
 
 if __name__ == "__main__":

@@ -7,6 +7,7 @@ from hand_integral_pose_estimation_tpu_torch.interop.jax_params import (  # noqa
     quantized_from_jax,
 )
 from hand_integral_pose_estimation_tpu_torch.interop.snapshot import (  # noqa: F401
+    imagenet_init_backbone,
     load_pose_snapshot,
     load_state_dict_file,
 )

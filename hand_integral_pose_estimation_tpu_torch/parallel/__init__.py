@@ -4,6 +4,7 @@ parallel)."""
 
 from hand_integral_pose_estimation_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
+    free_port,
     init_distributed,
     is_writer,
     make_mesh,
@@ -12,6 +13,7 @@ from hand_integral_pose_estimation_tpu_torch.parallel.mesh import (  # noqa: F40
     place_state,
     process_batch_size,
     shard_host_batch,
+    spawn_ranks,
     split_params,
     world_size,
 )

@@ -30,6 +30,7 @@ import dataclasses
 import itertools
 import os
 import socket
+import subprocess
 from typing import Optional, Sequence
 
 import numpy as np
@@ -42,10 +43,64 @@ AXES = ("data", "model")
 FINAL_PROJECTION = "head.final_layer"
 
 
-def _free_port() -> int:
+#: the directory that holds the port's package: put on a spawned rank's
+#: PYTHONPATH so that `python -m` finds the package from any cwd
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def free_port() -> int:
+    """A TCP port on localhost that no socket holds now."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def spawn_ranks(command: Sequence[str], world: int, cwd: str,
+                timeout: float = 600,
+                env: Optional[dict] = None) -> list[str]:
+    """Run `world` processes of `command` in `cwd`, each with torchrun's
+    environment (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE,
+    MASTER_ADDR / MASTER_PORT on a free localhost port) over
+    this one's, plus `env`, and wait for all of them. Every rank still
+    running when the group fails or outlives `timeout` seconds is killed.
+    Raises RuntimeError with the failing ranks' output tails if any rank
+    exits non-zero; returns each rank's output (stdout and stderr)."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        rank_env = dict(os.environ, MASTER_ADDR="localhost",
+                        MASTER_PORT=str(port), RANK=str(rank),
+                        WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                        LOCAL_WORLD_SIZE=str(world),
+                        PYTHONPATH=os.pathsep.join(
+                            p for p in (_ROOT, os.environ.get("PYTHONPATH"))
+                            if p))
+        rank_env.update(env or {})
+        procs.append(subprocess.Popen(
+            list(command), env=rank_env, cwd=cwd, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs, timed_out = [], False
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        timed_out = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    # what the ranks not yet read wrote before they ended or were killed
+    logs += [p.communicate()[0] for p in procs[len(logs):]]
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError(
+            f"ranks {bad} of {world} failed"
+            + (f" (the group outlived {timeout} s)" if timed_out else "")
+            + "\n" + "\n".join(f"--- rank {r}\n{logs[r][-4000:]}"
+                                 for r in bad))
+    return logs
 
 
 def init_distributed(device: str | torch.device = "cuda") -> torch.device:
@@ -78,7 +133,7 @@ def init_distributed(device: str | torch.device = "cuda") -> torch.device:
     if "MASTER_ADDR" in os.environ:
         init_method = "env://"
     else:
-        init_method = f"tcp://localhost:{_free_port()}"
+        init_method = f"tcp://localhost:{free_port()}"
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world,
                             device_id=device if backend == "nccl" else None)

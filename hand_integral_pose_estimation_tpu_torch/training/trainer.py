@@ -26,8 +26,7 @@ with sync-BN, the model-split head and the gradient all-reduce
 rank's slice of a batch and gathers the coords and geometry over the data
 axis. Only rank 0 writes logs, metrics and snapshots. A step that holds
 NCCL collectives is captured like any other; a gloo group cannot be
-captured, so over gloo on the card the chunks run eagerly. The profiler of
-the JAX runners waits for a later port.
+captured, so over gloo on the card the chunks run eagerly.
 """
 
 from __future__ import annotations
@@ -36,7 +35,6 @@ import dataclasses
 import itertools
 import logging
 import os
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -54,6 +52,10 @@ from hand_integral_pose_estimation_tpu_torch.data.freihand import (
 )
 from hand_integral_pose_estimation_tpu_torch.data.native_loader import (
     NativeLoader,
+)
+from hand_integral_pose_estimation_tpu_torch.interop.snapshot import (
+    imagenet_init_backbone,
+    load_state_dict_file,
 )
 from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
 from hand_integral_pose_estimation_tpu_torch.ops.yuv import yuv420_to_rgb
@@ -85,9 +87,11 @@ from hand_integral_pose_estimation_tpu_torch.training.train_step import (
     make_eval_step,
     make_train_step,
 )
+from hand_integral_pose_estimation_tpu_torch.utils.logger import color_logger
 from hand_integral_pose_estimation_tpu_torch.utils.metrics_writer import (
     MetricsWriter,
 )
+from hand_integral_pose_estimation_tpu_torch.utils.timers import Timer
 
 logger = logging.getLogger(__name__)
 
@@ -189,6 +193,25 @@ class Trainer:
     (main/train.py:140-163). `metrics_dir`, when given, receives
     `events.jsonl` (and TensorBoard events when tensorboardX imports):
     train/* and train/lr after each chunk, test/loss after each sweep.
+    `log_dir`, when given, receives `train_logs.txt`, the log lines of this
+    Trainer alone (`utils.color_logger`, keyed by the file's path), whatever
+    logging the caller has set up. The `read`, `step` and `total` timers
+    (`utils.Timer`, warm-up 10) time every chunk of the Trainer's life; the
+    log line gives their averages per step and the hours an epoch takes.
+
+    `imagenet_init`, a torchvision ImageNet ResNet `.pth`, overwrites the
+    backbone once the model is built (`interop.imagenet_init_backbone`),
+    before a mesh lays it out (its first rank's weights are broadcast) and
+    before the `continue_train` resume, which wins over it.
+
+    `profile_dir`, when given, gets a `torch.profiler` Chrome trace
+    (`trace_rank{r}.json`, one per rank) of the first epoch that `fit` runs:
+    from its first chunk through the chunk at `itr >= 2 * scan_steps` (three
+    chunks), or to the epoch's end, as the JAX Trainer's trace. On the card
+    those chunks are the eager warm-up, the capture of the chunk's CUDA
+    graph and its first replay. The profiler only records: a profiled run
+    computes what the same run without it computes, and a failure under it
+    raises.
 
     The semi-supervised terms: `teacher_apply`, a frozen teacher
     (`training.teacher`) whose predictions on each augmented batch replace
@@ -228,10 +251,16 @@ class Trainer:
     #: the auto-built mesh's model axis (splits the final projection)
     model_parallelism: int = 1
     auto_mesh: bool = False
+    #: torchvision ImageNet ResNet .pth for the backbone's init
+    #: (common/nets/resnet.py:70-76); a `continue_train` resume wins over it
+    imagenet_init: Optional[str] = None
+    #: write a torch.profiler trace of the first chunks of the first epoch
+    profile_dir: Optional[str] = None
 
     def __post_init__(self):
         self.device = torch.device(self.device)
         self.writer = is_writer()
+        self.logger = color_logger(self.log_dir if self.writer else None)
         self._resolve_mesh()
         mesh = self.mesh
         # this rank's rows of each global batch
@@ -240,13 +269,6 @@ class Trainer:
         self.loader = (_loader(self.local_batch, self.yuv_transport)
                        if _uses_loader(self.dataset, self.native_prefetch,
                                        self.yuv_transport) else None)
-        if self.log_dir and self.writer:
-            os.makedirs(self.log_dir, exist_ok=True)
-            path = os.path.abspath(os.path.join(self.log_dir,
-                                                "train_logs.txt"))
-            if not any(getattr(h, "baseFilename", None) == path
-                       for h in logger.handlers):
-                logger.addHandler(logging.FileHandler(path))
         tcfg = self.cfg.train
         self.batch_size = tcfg.batch_size
         self.steps_per_epoch = max(1, len(self.dataset) // self.batch_size)
@@ -254,6 +276,12 @@ class Trainer:
             self.cfg.model,
             generator=torch.Generator().manual_seed(self.seed)).to(
                 self.device)
+        if self.imagenet_init:
+            imagenet_init_backbone(self.model,
+                                   load_state_dict_file(self.imagenet_init),
+                                   self.cfg.model.resnet_type)
+            self._log("backbone initialised from ImageNet weights (%s)",
+                      self.imagenet_init)
         if self.active and mesh is not None:
             place_state(mesh, convert_sync_batchnorm(self.model, mesh))
         self.optimizer = make_optimizer(self.model.parameters(), tcfg)
@@ -288,6 +316,9 @@ class Trainer:
                       "eagerly")
         self.metrics = (MetricsWriter(self.metrics_dir)
                         if self.metrics_dir and self.writer else None)
+        self.read_timer = Timer()
+        self.step_timer = Timer()
+        self.total_timer = Timer()
 
     @property
     def active(self) -> bool:
@@ -296,7 +327,7 @@ class Trainer:
 
     def _log(self, *args) -> None:
         if self.writer:
-            logger.info(*args)
+            self.logger.info(*args)
 
     def _resolve_mesh(self) -> None:
         """The JAX Trainer's mesh rules (trainer.py:141-199) over the ranks
@@ -395,7 +426,13 @@ class Trainer:
         same records, and the global batch would be copies of one slice).
         The ranks of a model row share a data index, and so their rows.
         The augmentation noise is drawn for the global batch from the one
-        generator and each rank takes its rows."""
+        generator and each rank takes its rows.
+
+        The log line's times are the Trainer's timers' running averages
+        over chunks, per step, and the hours of an epoch at that rate (the
+        JAX Trainer's line gives them per chunk, and multiplies a chunk's
+        time by the epoch's steps). In the first epoch that `fit` runs,
+        `profile_dir` traces the chunks up to `itr >= 2 * scan_steps`."""
         if not self.active:
             return {}
         num_steps = num_steps or self.steps_per_epoch
@@ -404,42 +441,76 @@ class Trainer:
                                     + 1000003 * rank)
         self.generator.manual_seed(self.seed * 131 + epoch)
         k = max(1, self.scan_steps)
-        read_s = step_s = 0.0
+        chunks = -(-num_steps // k)
         last = {}
         batches = self.host_batches(rng, num_steps)
-        for itr in range(0, num_steps, k):
-            t0 = time.perf_counter()
-            hosts = list(itertools.islice(batches, min(k, num_steps - itr)))
-            chunk = {key: None if hosts[0][key] is None
-                     else np.stack([h[key] for h in hosts])
-                     for key in hosts[0]}
-            t1 = time.perf_counter()
-            if self.graphs is not None:
-                out = self.graphs(chunk)
-            else:
-                out = self.train_chunk(_to_device(chunk, self.device))
-            # the one synchronisation of the chunk, where the JAX Trainer
-            # blocks on the loss (trainer.py:357)
-            last = dict(zip(METRICS, out.cpu().tolist()))
-            t2 = time.perf_counter()
-            self.global_step += len(hosts)
-            read_s += t1 - t0
-            step_s += t2 - t1
-            if self.metrics is not None:
-                self.metrics.write(self.global_step, {
-                    **last, "lr": self.lr_at(self.global_step)},
-                    prefix="train")
-            if itr % log_every == 0:
-                n = itr + len(hosts)
-                self._log(
-                    "epoch %d itr %d/%d loss %.5f (sup %.4f unsup %.4f) "
-                    "s_mpjpe %.4f t_mpjpe %.4f lr %.2e | %.3fs/itr "
-                    "(read %.3f step %.3f)", epoch, itr, num_steps,
-                    last["loss"], last["loss_supervised"],
-                    last["loss_unsupervised"], last["student_mpjpe"],
-                    last["teacher_mpjpe"], self.lr_at(self.global_step),
-                    (read_s + step_s) / n, read_s / n, step_s / n)
+        prof = (self._start_profiler()
+                if self.profile_dir and epoch == self.start_epoch else None)
+        try:
+            for itr in range(0, num_steps, k):
+                self.total_timer.tic()
+                self.read_timer.tic()
+                hosts = list(itertools.islice(batches,
+                                              min(k, num_steps - itr)))
+                chunk = {key: None if hosts[0][key] is None
+                         else np.stack([h[key] for h in hosts])
+                         for key in hosts[0]}
+                self.read_timer.toc()
+                self.step_timer.tic()
+                if self.graphs is not None:
+                    out = self.graphs(chunk)
+                else:
+                    out = self.train_chunk(_to_device(chunk, self.device))
+                # the one synchronisation of the chunk, where the JAX
+                # Trainer blocks on the loss (trainer.py:357)
+                last = dict(zip(METRICS, out.cpu().tolist()))
+                self.step_timer.toc()
+                self.total_timer.toc()
+                if prof is not None and itr >= 2 * k:
+                    self._stop_profiler(prof)
+                    prof = None
+                self.global_step += len(hosts)
+                if self.metrics is not None:
+                    self.metrics.write(self.global_step, {
+                        **last, "lr": self.lr_at(self.global_step)},
+                        prefix="train")
+                if itr % log_every == 0:
+                    per_step = self.total_timer.average_time / k
+                    self._log(
+                        "epoch %d itr %d/%d loss %.5f (sup %.4f unsup %.4f) "
+                        "s_mpjpe %.4f t_mpjpe %.4f lr %.2e | %.3fs/itr "
+                        "(read %.3f step %.3f) %.2fh/epoch", epoch, itr,
+                        num_steps, last["loss"], last["loss_supervised"],
+                        last["loss_unsupervised"], last["student_mpjpe"],
+                        last["teacher_mpjpe"], self.lr_at(self.global_step),
+                        per_step, self.read_timer.average_time / k,
+                        self.step_timer.average_time / k,
+                        self.total_timer.average_time * chunks / 3600.0)
+        finally:
+            if prof is not None:
+                self._stop_profiler(prof)
         return last
+
+    def _start_profiler(self) -> torch.profiler.profile:
+        """A started `torch.profiler` recording host operators and, on the
+        card, device activity (CUPTI, kernels inside graph replays
+        included)."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof: torch.profiler.profile) -> None:
+        """Stop `prof` and write its Chrome trace to
+        `profile_dir/trace_rank{r}.json`."""
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        path = os.path.join(self.profile_dir, f"trace_rank{rank}.json")
+        prof.export_chrome_trace(path)
+        self._log("profiler trace written to %s", path)
 
     def fit(self, end_epoch: Optional[int] = None,
             steps_per_epoch: Optional[int] = None,

@@ -140,7 +140,8 @@ def test_train_cli_use_hand_detector_bbox_db(tmp_path, monkeypatch):
              "--steps-per-epoch", "1", "--batch-size", "2",
              "--pose-resnet", "18", "--pose-input", "64", "--device", "cpu",
              "--use-hand-detector", "--bbox-db", db,
-             "--detector-resnet", "18", "--detector-norm", "group"]
+             "--detector-resnet", "18", "--detector-norm", "group",
+             "--log-dir", str(tmp_path / "log")]
     trainer = cli_train.main(flags + ["--model-dir", str(tmp_path / "a")])
     names, boxes = detector_db.load_bbox_db(db)
     assert boxes.shape == (4, 4) and np.isfinite(boxes).all()

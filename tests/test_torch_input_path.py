@@ -209,7 +209,8 @@ def test_cli_train_yuv_transport(library, tmp_path):
 
     argv = ["--data-dir", FIXTURE, "--training-size", "6", "--epochs", "1",
             "--steps-per-epoch", "2", "--batch-size", "4", "--device", "cpu",
-            "--pose-resnet", "18", "--pose-input", "64"]
+            "--pose-resnet", "18", "--pose-input", "64",
+            "--log-dir", str(tmp_path / "log")]
     yuv = cli.main([*argv, "--yuv-transport", "--model-dir",
                     str(tmp_path / "yuv")])
     rgb = cli.main([*argv, "--model-dir", str(tmp_path / "rgb")])

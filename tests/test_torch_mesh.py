@@ -147,7 +147,8 @@ def test_cli_without_launcher_runs_without_a_mesh(tmp_path):
     for spec in ("auto", "none"):
         trainer = cli_train.main(sizing + [
             "--epochs", "1", "--steps-per-epoch", "1", "--batch-size", "4",
-            "--model-dir", str(tmp_path / spec), "--mesh", spec])
+            "--model-dir", str(tmp_path / spec), "--mesh", spec,
+            "--log-dir", str(tmp_path / "log")])
         assert trainer.mesh is None
         states.append(trainer.model.state_dict())
     for s in states[1:]:

@@ -168,7 +168,8 @@ def test_semi_supervised_cli_pipeline(tmp_path):
     )
 
     small = ["--synthetic", "--synthetic-size", "8", "--epochs", "1",
-             "--batch-size", "4", "--steps-per-epoch", "1", *SMALL]
+             "--batch-size", "4", "--steps-per-epoch", "1", *SMALL,
+             "--log-dir", str(tmp_path / "log")]
     teacher_dir = str(tmp_path / "teacher")
     train.main(small + ["--model-dir", teacher_dir])
     data_dir = str(tmp_path / "pd")
@@ -261,14 +262,16 @@ def test_filtered_db_pipeline_on_the_fixture(tmp_path):
                           "--steps-per-epoch", "1", "--batch-size", "4",
                           "--model-dir", str(tmp_path / "m"),
                           "--teacher-ckpt", str(tmp_path / "ignored"),
-                          *SMALL])
+                          "--log-dir", str(tmp_path / "log"), *SMALL])
     assert len(trainer.dataset) == 24
     assert trainer.teacher_apply is None
     assert all(r.teacher_cam_normalized is not None
                for r in trainer.dataset.records)
     assert checkpoint.latest_epoch(str(tmp_path / "m")) == 0
     with pytest.raises(SystemExit, match="record-backed"):
-        train.main(["--synthetic", "--filtered-db", db, *SMALL])
+        train.main(["--synthetic", "--filtered-db", db, *SMALL,
+                    "--log-dir", str(tmp_path / "log")])
     with pytest.raises(ValueError, match="different record set"):
         train.main(["--data-dir", FIXTURE, "--training-size", "5",
-                    "--filtered-db", db, *SMALL])
+                    "--filtered-db", db, *SMALL,
+                    "--log-dir", str(tmp_path / "log")])

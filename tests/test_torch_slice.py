@@ -216,7 +216,7 @@ NO_JAX_SCRIPT = textwrap.dedent("""
     cli_train.main(["--synthetic", "--synthetic-size", "4", "--epochs", "1",
                     "--steps-per-epoch", "1", "--batch-size", "2",
                     "--device", "cpu", "--model-dir", sys.argv[1] + "/m",
-                    *sizing])
+                    "--log-dir", sys.argv[1] + "/log", *sizing])
     assert checkpoint.latest_epoch(sys.argv[1] + "/m") == 0
     cli_test.main(["--synthetic", "--synthetic-size", "2", "--batch-size",
                    "2", "--device", "cpu", "--model-dir", sys.argv[1] + "/m",

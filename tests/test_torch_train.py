@@ -760,7 +760,8 @@ def test_cli_train_then_test(tmp_path, capsys):
     trainer = cli_train.main(["--synthetic", "--synthetic-size", "8",
                               "--epochs", "1", "--steps-per-epoch", "2",
                               "--batch-size", "4", "--device", "cpu",
-                              "--model-dir", model_dir, *sizing])
+                              "--model-dir", model_dir, "--log-dir",
+                              str(tmp_path / "log"), *sizing])
     assert os.listdir(model_dir) == ["snapshot_0.pth.tar"]
     summary = cli_test.main(["--synthetic", "--synthetic-size", "3",
                              "--batch-size", "2", "--model-dir", model_dir,

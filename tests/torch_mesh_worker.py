@@ -4,7 +4,10 @@ The tests/test_torch_mesh_*.py files each start one group of these on the
 CPU (a free localhost port, `spawn` below) and compare what every rank
 wrote with a one-process run and with the JAX package:
 
-    python tests/torch_mesh_worker.py <job> <port> <rank> <world> <dir>
+    python tests/torch_mesh_worker.py <job> <dir>
+
+with the environment `torchrun` sets (RANK, WORLD_SIZE, MASTER_ADDR /
+MASTER_PORT), which `spawn` gives each rank.
 
 Jobs: `train` (2 ranks: sync-BN, the train step from bridged weights, the
 Trainer, snapshots across layouts, the Tester sweep), `model` (4 ranks,
@@ -16,51 +19,23 @@ The worker imports torch and the port only.
 """
 
 import os
-import socket
-import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def spawn(job: str, world: int, out_dir, timeout: float = 600,
-          command=None, port=None):
+          command=None):
     """Start `world` ranks of `command` (default: this worker's `job`) with
-    torchrun's environment on a free localhost port; wait for all and fail
-    with the logs if any rank fails. Returns the logs."""
-    port = port or free_port()
-    procs = []
-    for rank in range(world):
-        env = dict(os.environ, MASTER_ADDR="localhost",
-                   MASTER_PORT=str(port), RANK=str(rank),
-                   WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                   LOCAL_WORLD_SIZE=str(world), OMP_NUM_THREADS="1",
-                   PYTHONPATH=REPO)
-        cmd = command or [sys.executable, os.path.abspath(__file__), job,
-                          str(port), str(rank), str(world), str(out_dir)]
-        procs.append(subprocess.Popen(
-            cmd, env=env, cwd=str(out_dir), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    bad = [i for i, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        raise AssertionError("mesh ranks %s failed:\n%s" % (
-            bad, "\n".join(logs[i][-4000:] for i in bad)))
-    return logs
+    torchrun's environment on a free localhost port
+    (`parallel.spawn_ranks`); wait for all and fail with the logs if any
+    rank fails. Returns the logs."""
+    from hand_integral_pose_estimation_tpu_torch.parallel import spawn_ranks
+
+    cmd = command or [sys.executable, os.path.abspath(__file__), job,
+                      str(out_dir)]
+    return spawn_ranks(cmd, world, cwd=str(out_dir), timeout=timeout,
+                       env={"OMP_NUM_THREADS": "1"})
 
 
 # ---------------------------------------------------------------- jobs
@@ -311,8 +286,8 @@ def job_serve(out_dir, rank, world):
 
 
 def main():
-    job, port, rank, world, out_dir = sys.argv[1:6]
-    rank, world = int(rank), int(world)
+    job, out_dir = sys.argv[1:3]
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
