@@ -14,8 +14,9 @@ before the result line.
 2. build: compiles the CUDA kernels from `csrc/` (one nvcc per source, all
    at once) and prints the seconds, then counts the tensor-core product
    instructions (HMMA / HGMMA) in the SASS of the fused head's bf16
-   kernels (kernels 3 and 4) and of their float32-feature route (3f and
-   4f), and fails if any has none;
+   kernels (kernels 3 and 4), of their float32-feature route (3f and 4f)
+   and of the kernels both routes take past 256 features, and fails if any
+   has none;
 3. kernels: each of the five pose kernels against its plain PyTorch
    version on the card, at the shapes of the two paths and at small ragged
    shapes; kernel 1 also at batch 1 with its planned chunks and with more
@@ -25,9 +26,10 @@ before the result line.
    feature dtype counted on its own entry points), and also at the
    two-stage path's pose batch of 4, kernel 3 on float32 features also at
    the teacher sweep's 168 crops, both twice at the serving shape on both
-   routes (3f also at 168 crops) for the same bits; kernel 3's CUDA-core
-   kernel on float32 features of widths the tensor-core kernels do not
-   take (260 and 38); kernel 5 bitwise against
+   routes (3f also at 168 crops) for the same bits; kernels 3/3f and 4/4f
+   at every kind of width and depth the JAX head takes (F = 7, 38, 259,
+   260 and 512, D = 160), each twice for the same bits, and kernels 1 and 2 at D =
+   160; kernel 5 bitwise against
    its plain version with float32 and uint8 frames, with and without its
    normalising epilogue, and on degenerate maps (singular, an exact
    90-degree turn, a horizon inside the output, positions at +-inf);
@@ -42,9 +44,12 @@ before the result line.
    eager ones, the finite metrics and the coords against the plain head,
    times the slice and profiles it (device busy, host issue time), eager
    against the bare replay and against the whole captured call; then the
-   CUDA-core route's sweep: the fused arm of a float32 pose net whose
-   deconv stack is 260 wide, eager, its launches counted and its coords
-   held to the plain head;
+   wide heads' sweeps: the fused arm of a float32 pose net whose deconv
+   stack is 260 wide and of a bf16 one 512 wide
+   (ModelConfig(deconv_channels=512)), eager, their launches counted, the
+   device kernels they ran read from a profiler's trace (the kernels that
+   walk F in slices, none of the resident ones) and their coords held to
+   the plain head;
 5. training: `Trainer.fit` at ModelConfig() and batch 32 on
    SyntheticFreiHand(render_joints=True) takes a few eager steps on each
    head arm; it checks the launch counts per step (the warp on both arms,
@@ -53,7 +58,10 @@ before the result line.
    kernel-backed step's gradients against a plain-backed step's from the
    same state, at bf16 and at float32 compute; the fused arm at float32
    compute also takes a few counted steps of `Trainer.fit` (kernels 3 and
-   4 on float32 features); then `Trainer.fit` with scan_steps=4 as graph
+   4 on float32 features), and so does ModelConfig(deconv_channels=512)
+   in bf16 and at float32 compute, each after its own gradient check and
+   with its device kernels read from a profiler's trace, as in phase 4;
+   then `Trainer.fit` with scan_steps=4 as graph
    replays (one
    eager warm-up chunk, then one replay a chunk) against the same Trainer
    run eagerly under cuDNN's deterministic algorithms: launch counts from
@@ -66,8 +74,8 @@ before the result line.
    wrapper's host issue time; kernel 2's device kernels per call (the
    kernel nodes of a captured CUDA graph; it fails unless 1); kernels 3
    and 4 with both feature dtypes, kernel 3 also at batch 4, 3f also at
-   the teacher sweep's 168 crops and on its CUDA-core kernel at width 260,
-   each beside its bound and its share of it; kernel 5 on
+   the teacher sweep's 168 crops, all four also at F = 260 and 512, each
+   beside its bound and its share of it; kernel 5 on
    the training path's call (uint8 frames to the normalised patch) against
    its plain chain, both beside their byte bounds, with the wrapper's host
    issue time and its device kernels per call (it fails unless 1);
@@ -209,10 +217,11 @@ head's 1x1 projections (bf16 features times float32 weights or gradients)
 that carry a float32 operand split into bf16 parts to float32 accuracy;
 with float32 features (both operands float32) 989/6 TFLOP/s, six such
 products (495/3 for 3xTF32). The kernels line has the fused head's
-float32-feature entry points as their own rows (`*_f32`), and kernel 3's
-CUDA-core kernel for float32 widths the tensor-core kernels do not take
-(`*_f32_cuda_cores`, the same bound). No single PyTorch call computes any
-of the eleven functions (there is no torchvision
+float32-feature entry points as their own rows (`*_f32`), and the
+kernels both routes take past 256 features (`*_slices`, timed at F =
+512, their launches those of the main paths' runs at F > 256, which the
+other rows leave out). No single PyTorch call computes any
+of the fourteen functions (there is no torchvision
 here for NMS or ROIAlign and its backward), so `library_ms` is null. The
 line before the last is the card's name and power limit; the last line is
 the JSON result.
@@ -227,6 +236,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -318,10 +328,19 @@ SWEEP_BATCH = 8
 # the sweep's crops a batch: SWEEP_BATCH images x the teacher's 21
 # rotations (TrainConfig.teacher_num_rotations), kernel 3's batch there
 SWEEP_CROPS = SWEEP_BATCH * 21
-# float32 feature widths outside the tensor-core kernels' (F % 4 == 0, F
-# <= 256), which the forward runs on its CUDA-core kernel: one past the
-# limit, one not a multiple of 4
-CUDA_CORE_FEATS = (260, 38)
+# fused-head widths past the kernels that keep a block's weight planes at
+# the whole F (F <= 256): one slice past them and two passes of the N = F
+# products; the wide sweeps' (float32 at 260, bf16 at 512), the wide
+# training run's (512, both dtypes) and phase 6's; and a depth past 128
+WIDE_FEATS = (260, 512)
+WIDE_DEPTH = 160
+WIDE_TRAIN_STEPS = 2
+# the kernels line's rows of the kernels both routes take past 256
+# features: kernel 3, 4, 3f and 4f there
+WIDE_ROWS = ("head_projection_integral_fwd_slices",
+             "head_projection_integral_bwd_slices",
+             "head_projection_integral_fwd_f32_slices",
+             "head_projection_integral_bwd_f32_slices")
 LAM = 0.1
 # PANet on the card takes float32 inputs and weights where the CPU copy
 # runs float64; the cameras are formed in float64 from the float32
@@ -3146,6 +3165,33 @@ def trace_kernels(path: str) -> collections.Counter:
                                if e.get("cat") == "kernel")
 
 
+def head_kernels_traced(fn):
+    """`fn()` run under torch.profiler: its result and the launches of each
+    of the fused head's device kernels (`kernels.MMA_KERNELS`,
+    `F32_MMA_KERNELS`, `SLICE_MMA_KERNELS`; "name<k>" for a template's
+    instantiation at k) among the trace's kernel events, by name. The
+    entry points' counts say how often an entry was called; this says
+    which of its device kernels ran."""
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
+    names = (kernels.MMA_KERNELS + kernels.F32_MMA_KERNELS
+             + kernels.SLICE_MMA_KERNELS)
+    # demangled ("name<3>(") or mangled ("20nameILi3E") kernel names
+    pattern = re.compile("(" + "|".join(names) + r")(?:<(\d+)>|ILi(\d+)E)?")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    found = collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = pattern.search(e.name)
+        if m:
+            arg = m.group(2) or m.group(3)
+            found[m.group(1) + (f"<{arg}>" if arg else "")] += 1
+    return out, found
+
+
 def utilities_phase(dev, g, card, cfg):
     """Phase 12: the utilities on the card. Returns the launches of the
     phase's main runs (`entry()`, the ImageNet-initialised profiled
@@ -3425,13 +3471,18 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     tensor_core = kernels.tensor_core_instructions()
     tensor_core32 = kernels.tensor_core_instructions(kernels.F32_MMA_KERNELS)
+    tensor_core_wide = kernels.tensor_core_instructions(
+        kernels.SLICE_MMA_KERNELS)
     print(f"[build] tensor-core product instructions (HMMA / HGMMA) in the "
           f"SASS of the fused head's bf16 kernels: {tensor_core}; of the "
-          f"float32-feature route (3f and 4f): {tensor_core32}", flush=True)
+          f"float32-feature route (3f and 4f): {tensor_core32}; of both "
+          f"routes' kernels past 256 features: {tensor_core_wide}",
+          flush=True)
     check(all(n > 0 for n in (*tensor_core.values(),
-                              *tensor_core32.values())),
+                              *tensor_core32.values(),
+                              *tensor_core_wide.values())),
           f"a tensor-core fused-head kernel has no tensor-core product: "
-          f"{tensor_core}, {tensor_core32}")
+          f"{tensor_core}, {tensor_core32}, {tensor_core_wide}")
 
     # ---- 3. kernels against their plain versions
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -3444,10 +3495,9 @@ def main() -> None:
         "softmax_integral_fwd", "head_projection_integral_fwd",
         "softmax_integral_bwd", "head_projection_integral_bwd",
         "warp_twopass", "head_projection_integral_fwd_f32",
-        "head_projection_integral_bwd_f32",
-        "head_projection_integral_fwd_f32_cuda_cores")}
+        "head_projection_integral_bwd_f32", *WIDE_ROWS)}
     shapes = ((BATCH, Ho, Wo, J, D, F), (1, 8, 8, 3, 4, 40),
-              (3, 7, 5, 2, 100, 40))
+              (3, 7, 5, 2, 100, 40), (2, 7, 5, 3, WIDE_DEPTH, 40))
     for (B, H, W, j, d, f) in shapes:
         for dt in (torch.float32, torch.bfloat16):
             hm = (3 * torch.randn(B, H, W, j * d, device=dev,
@@ -3558,25 +3608,53 @@ def main() -> None:
                   f"run twice: dW, db and dfeat bitwise equal: {same}",
                   flush=True)
             check(same, "the fused-head backward is not deterministic")
-    # float32 features of widths the tensor-core kernels do not take: the
-    # forward's CUDA-core kernel, at the serving shape and a ragged one
-    # (forward only: the backward has no kernel at these widths; its
-    # main-path run is phase 4's sweep at deconv_channels 260)
-    for (B, H, W, j, d, f) in ((BATCH, Ho, Wo, J, D, CUDA_CORE_FEATS[0]),
-                               (2, 7, 5, 3, 12, CUDA_CORE_FEATS[1])):
-        wide = torch.randn(B, H, W, f, device=dev, generator=g)
-        w_wide = 0.3 * torch.randn(j * d, f, device=dev, generator=g)
-        b_wide = torch.randn(j * d, device=dev, generator=g)
-        err["head_projection_integral_fwd_f32_cuda_cores"] = max(
-            err["head_projection_integral_fwd_f32_cuda_cores"], compare(
-                f"head_projection_integral_fwd {(B, H, W, f)}x{(j * d, f)} "
-                f"float32/f32 (CUDA cores)",
-                lambda: head_projection_integral_cuda(wide, w_wide, b_wide,
-                                                      j, d),
-                lambda: head_projection_integral_reference(
-                    wide, w_wide, b_wide, j, d)))
-        if B == BATCH:
-            wide_args = (wide, w_wide, b_wide)
+    # every kind of width and depth the JAX head takes, on the tensor cores
+    # in both directions: F = 7 (odd: 2-byte copies, single stores), 38
+    # (not a multiple of 8), 259 (odd, past 256), 260 (one slice past the
+    # kernels that keep a block's weight planes at the whole F) and 512
+    # (two passes of the N = F products) at the serving shape, D = 160 at F
+    # = 256 and 512; each forward and backward twice for the same bits.
+    # Their errors go to the `*_slices` rows past 256 features.
+    for (B, H, W, j, d, f), fdt in itertools.product(
+            ((BATCH, Ho, Wo, J, D, WIDE_FEATS[0]),
+             (BATCH, Ho, Wo, J, D, WIDE_FEATS[1]), (2, 7, 5, 3, 12, 38),
+             (2, 7, 5, 3, 12, 7), (2, 9, 7, 3, 24, 259),
+             (2, 9, 7, 3, WIDE_DEPTH, 256),
+             (2, 9, 7, 2, WIDE_DEPTH, WIDE_FEATS[1])),
+            (torch.bfloat16, torch.float32)):
+        sfx = ("_f32" if fdt == torch.float32 else "") + (
+            "_slices" if f > 256 else "")
+        feats = torch.randn(B, H, W, f, device=dev, generator=g).to(fdt)
+        w = (0.3 * 16 / math.sqrt(f)) * torch.randn(j * d, f, device=dev,
+                                                     generator=g)
+        b = torch.randn(j * d, device=dev, generator=g)
+        cot = torch.randn(B, j, 3, device=dev, generator=g)
+        name = f"{(B, H, W, f)}x{(j * d, f)} {fdt}/f32"
+        fwd_key = "head_projection_integral_fwd" + sfx
+        err[fwd_key] = max(err[fwd_key], compare(
+            f"head_projection_integral_fwd {name}",
+            lambda: head_projection_integral_cuda(feats, w, b, j, d),
+            lambda: head_projection_integral_reference(feats, w, b, j, d)))
+        first = head_projection_integral_cuda(feats, w, b, j, d)
+        again = head_projection_integral_cuda(feats, w, b, j, d)
+        coords, m, s = first
+        bwd_key = "head_projection_integral_bwd" + sfx
+        err[bwd_key] = max(err[bwd_key], compare_grads(
+            f"head_projection_integral_bwd {name}",
+            lambda: head_projection_integral_bwd_cuda(feats, w, b, m, s,
+                                                      coords, cot, j, d),
+            lambda: head_projection_integral_bwd_reference(
+                feats, w, b, m, s, coords, cot, j, d),
+            GRAD_ABS_SCALE["head_projection_integral_bwd"]))
+        grads = [head_projection_integral_bwd_cuda(
+            feats, w, b, m, s, coords, cot, j, d) for _ in range(2)]
+        same = all(torch.equal(x, y) for x, y in zip(first + grads[0],
+                                                     again + grads[1]))
+        print(f"[kernels] head_projection_integral {name} run twice: "
+              f"coords, m, s, dfeat, dW and db bitwise equal: {same}",
+              flush=True)
+        check(same, f"the fused head at {name} is not deterministic")
+        del feats, first, again, grads
     acfg = cfg.augment
     for (B, Hs, Ws, C, Ho2, Wo2) in ((BATCH, IH, IW, 3, IH, IW),
                                      (2, 37, 41, 3, 29, 33)):
@@ -3702,46 +3780,59 @@ def main() -> None:
     check(d_arms.mean() <= ARMS_MEAN_TOL and d_arms.max() <= ARMS_MAX_TOL,
           "unfused and fused arms disagree")
 
-    # the CUDA-core route's main-path run: the same sweep (fused arm,
-    # eager) by a pose net whose deconv stack is CUDA_CORE_FEATS[0] wide,
-    # at float32 compute, a width the tensor-core kernels do not take
-    cfg_cc = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, deconv_channels=CUDA_CORE_FEATS[0],
-        compute_dtype="float32"))
-    model_cc = get_pose_net(cfg_cc.model,
-                            generator=torch.Generator().manual_seed(SEED))
-    tester_cc = Tester(cfg_cc, dataset, model_cc, device=dev, fuse_head=True)
-    tester_cc.graphs = None
-    scale_projection(model_cc, probe.image)
-    for k in kernels.KERNELS:
-        k.launches = 0
-    coords_w, _ = tester_cc.run(batch_size=BATCH)
-    torch.cuda.synchronize()
-    wide_launches = {k.symbol: k.launches for k in kernels.KERNELS}
-    print(f"[serving] fused arm at float32 compute, deconv_channels "
-          f"{CUDA_CORE_FEATS[0]}: swept {N_SAMPLES} samples in {n_batches} "
-          f"batches of {BATCH}; launches {wide_launches}", flush=True)
-    check(wide_launches == {k.symbol: n_batches if k is (
-        kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES) else 0
-        for k in kernels.KERNELS}, f"the width-{CUDA_CORE_FEATS[0]} sweep "
-        f"launched {wide_launches}")
-    check(coords_w.shape == (N_SAMPLES, J, 3)
-          and bool(np.isfinite(coords_w).all()),
-          f"width-{CUDA_CORE_FEATS[0]} coords malformed or not finite")
-    with torch.inference_mode():
-        feats = model_cc(probe.image, return_features=True)
-        weight, bias = model_cc.final_projection()
-        want = head_projection_integral_reference(feats, weight, bias, J, D)
-        torch.cuda.synchronize()
-    e_run = float(np.abs(want[0].cpu().numpy() - coords_w[:BATCH]).max())
-    print(f"[serving] width-{CUDA_CORE_FEATS[0]} sweep vs model + plain head "
-          f"on batch 0: max|d coords| {e_run:.3e} (tol {COORD_TOL:g}), coords "
-          f"std {coords_w.std():.4f}", flush=True)
-    check(e_run <= COORD_TOL, f"the width-{CUDA_CORE_FEATS[0]} sweep "
-          f"disagrees with the plain head on its model")
-    for k, v in wide_launches.items():
-        serving_launches[k] += v
-    del tester_cc, model_cc, feats, want
+    # the wide heads' main-path runs: the same sweep (fused arm, eager) by
+    # a pose net whose deconv stack is WIDE_FEATS[0] wide at float32
+    # compute and by ModelConfig(deconv_channels=WIDE_FEATS[1]) in bf16,
+    # both past 256 features: their launches go to the `*_slices` rows
+    wide_launches = {k.symbol: 0 for k in kernels.KERNELS}
+    for f, dtype_name, entry in (
+            (WIDE_FEATS[0], "float32",
+             kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32),
+            (WIDE_FEATS[1], "bfloat16",
+             kernels.HEAD_PROJECTION_INTEGRAL_FWD)):
+        cfg_w = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, deconv_channels=f, compute_dtype=dtype_name))
+        model_w = get_pose_net(cfg_w.model,
+                               generator=torch.Generator().manual_seed(SEED))
+        tester_w = Tester(cfg_w, dataset, model_w, device=dev,
+                          fuse_head=True)
+        tester_w.graphs = None
+        scale_projection(model_w, probe.image)
+        for k in kernels.KERNELS:
+            k.launches = 0
+        (coords_w, _), traced = head_kernels_traced(
+            lambda: tester_w.run(batch_size=BATCH))
+        counts = {k.symbol: k.launches for k in kernels.KERNELS}
+        parts = 1 if dtype_name == "bfloat16" else 3
+        print(f"[serving] fused arm at {dtype_name} compute, deconv_channels "
+              f"{f}: swept {N_SAMPLES} samples in {n_batches} batches of "
+              f"{BATCH}; launches {counts}; the head's device kernels in "
+              f"the trace {dict(traced)}", flush=True)
+        check(counts == {k.symbol: n_batches if k is entry else 0
+                         for k in kernels.KERNELS},
+              f"the width-{f} sweep launched {counts}")
+        check(traced == {f"hp_fwd_slices_kernel<{parts}>": n_batches},
+              f"the width-{f} sweep ran the head's device kernels "
+              f"{dict(traced)}")
+        check(coords_w.shape == (N_SAMPLES, J, 3)
+              and bool(np.isfinite(coords_w).all()),
+              f"width-{f} coords malformed or not finite")
+        with torch.inference_mode():
+            feats = model_w(probe.image, return_features=True)
+            weight, bias = model_w.final_projection()
+            want = head_projection_integral_reference(feats, weight, bias, J,
+                                                      D)
+            torch.cuda.synchronize()
+        e_run = float(np.abs(want[0].cpu().numpy() - coords_w[:BATCH]).max())
+        print(f"[serving] width-{f} {dtype_name} sweep vs model + plain head "
+              f"on batch 0: max|d coords| {e_run:.3e} (tol {COORD_TOL:g}), "
+              f"coords std {coords_w.std():.4f}", flush=True)
+        check(e_run <= COORD_TOL, f"the width-{f} sweep disagrees with the "
+              f"plain head on its model")
+        for k, v in counts.items():
+            wide_launches[k] += v
+        del tester_w, model_w, feats, want
+    torch.cuda.empty_cache()
 
     # timing. One batch at a time between CUDA events (the device waits
     # while the host issues the batch's ops), then 20 batches back to back
@@ -3992,6 +4083,57 @@ def main() -> None:
             del trainer, gtrainer, graph, batch, probe_images
             torch.cuda.empty_cache()
 
+    # the wide head's training runs: ModelConfig(deconv_channels=512) in
+    # bf16 and at float32 compute, each with the gradient check against a
+    # plain-backed step from the same state, then WIDE_TRAIN_STEPS counted
+    # steps of Trainer.fit (kernels 3 and 4, or 3f and 4f, past 256
+    # features: their launches go to the `*_slices` rows)
+    for dtype_name, leaf_tol, total_tol, fwd, bwd in (
+            ("bfloat16", GRAD_LEAF_REL_BF16, GRAD_TOTAL_REL_BF16,
+             kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+             kernels.HEAD_PROJECTION_INTEGRAL_BWD),
+            ("float32", GRAD_LEAF_REL_F32, GRAD_TOTAL_REL_F32,
+             kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32,
+             kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32)):
+        arm = f"fused width-{WIDE_FEATS[1]} {dtype_name}"
+        cfg_w = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, deconv_channels=WIDE_FEATS[1],
+            compute_dtype=dtype_name))
+        with tempfile.TemporaryDirectory() as model_dir:
+            trainer = Trainer(cfg_w, train_data, model_dir=model_dir,
+                              seed=SEED, device=dev, fuse_head=True)
+            trainer.graphs = None   # eager steps
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            batch = trainer.preprocess(
+                gen, train_data.host_batch(np.arange(BATCH)))
+            scale_projection(trainer.model, batch.image)
+            gradient_check(arm, trainer, batch, True, leaf_tol, total_tol)
+            for k in kernels.KERNELS:
+                k.launches = 0
+            _, traced = head_kernels_traced(lambda: trainer.fit(
+                end_epoch=1, steps_per_epoch=WIDE_TRAIN_STEPS))
+            counts = {k.symbol: k.launches for k in kernels.KERNELS}
+            want_counts = {k.symbol: (WIDE_TRAIN_STEPS if k in (
+                fwd, bwd, kernels.WARP_TWOPASS) else 0)
+                for k in kernels.KERNELS}
+            parts = 1 if dtype_name == "bfloat16" else 3
+            want_traced = {f"{name}<{parts}>": WIDE_TRAIN_STEPS
+                           for name in kernels.SLICE_MMA_KERNELS}
+            print(f"[training] {arm} arm: Trainer.fit took "
+                  f"{WIDE_TRAIN_STEPS} steps at batch {BATCH}, launches "
+                  f"{counts}; the head's device kernels in the trace "
+                  f"{dict(traced)}", flush=True)
+            check(counts == want_counts, f"{arm}: launches {counts}, "
+                  f"expected {want_counts}")
+            check(traced == want_traced, f"{arm}: the head's device kernels "
+                  f"{dict(traced)}, expected {want_traced}")
+            for k in kernels.KERNELS:
+                head = k in (fwd, bwd)
+                (wide_launches if head else train_launches)[k.symbol] += (
+                    counts[k.symbol])
+            del trainer, batch
+            torch.cuda.empty_cache()
+
     # ---- 6. kernel timings at the paths' shapes
     hm = (3 * torch.randn(BATCH, Ho, Wo, J * D, device=dev,
                           generator=g)).to(torch.bfloat16)
@@ -4032,18 +4174,12 @@ def main() -> None:
                        lambda: softmax_integral_reference(hm4, J, D))
     # kernels 3 and 4 with float32 features (compute_dtype="float32", on
     # the tensor cores), kernel 3 also at the two-stage path's pose batch
-    # and at the teacher sweep's crops, and on its CUDA-core kernel at a
-    # width the tensor-core kernels do not take
+    # and at the teacher sweep's crops
     feats32, feats4 = feats.float(), feats[:DET_BATCH].contiguous()
     c32, m32, s32 = head_projection_integral_cuda(feats32, w, b, J, D)
     times["head_projection_integral_fwd_f32"] = time_pair(
         lambda: head_projection_integral_cuda(feats32, w, b, J, D),
         lambda: head_projection_integral_reference(feats32, w, b, J, D))
-    wide, w_wide, b_wide = wide_args
-    times["head_projection_integral_fwd_f32_cuda_cores"] = time_pair(
-        lambda: head_projection_integral_cuda(wide, w_wide, b_wide, J, D),
-        lambda: head_projection_integral_reference(wide, w_wide, b_wide, J,
-                                                   D), iters=5)
     feats168 = torch.randn(SWEEP_CROPS, Ho, Wo, F, device=dev, generator=g)
     t168 = time_pair(
         lambda: head_projection_integral_cuda(feats168, w, b, J, D),
@@ -4061,6 +4197,46 @@ def main() -> None:
             feats32, w, b, m32, s32, c32, cot, J, D),
         lambda: head_projection_integral_bwd_reference(
             feats32, w, b, m32, s32, c32, cot, J, D), iters=5)
+    # kernels 3, 4, 3f and 4f past 256 features (the slice-walking
+    # kernels) at the serving shape, F = 260 and 512, each beside its bound
+    # (as F = 256's below: the projections' operations at the dtype's
+    # tensor-core rate, or the bytes of features, weight and dfeat); the
+    # `*_slices` rows take F = 512
+    wide_times, wide_bounds = {}, {}
+    for f in WIDE_FEATS:
+        feats_w = torch.randn(BATCH, Ho, Wo, f, device=dev, generator=g)
+        w_w = (0.1 * 16 / math.sqrt(f)) * torch.randn(J * D, f, device=dev,
+                                                      generator=g)
+        for fdt, sfx, rate in ((torch.bfloat16, "", BF16X3_FLOPS),
+                               (torch.float32, "_f32", BF16X6_FLOPS)):
+            x = feats_w.to(fdt)
+            cw, mw, sw = head_projection_integral_cuda(x, w_w, b, J, D)
+            flops = 2.0 * x.numel() * w_w.shape[0]
+            fbytes = x.numel() * x.element_size() + w_w.numel() * 4
+            for direction, t, bd in (
+                    ("fwd", time_pair(
+                        lambda: head_projection_integral_cuda(x, w_w, b, J,
+                                                              D),
+                        lambda: head_projection_integral_reference(
+                            x, w_w, b, J, D)), bound(fbytes, flops, rate)),
+                    ("bwd", time_pair(
+                        lambda: head_projection_integral_bwd_cuda(
+                            x, w_w, b, mw, sw, cw, cot, J, D),
+                        lambda: head_projection_integral_bwd_reference(
+                            x, w_w, b, mw, sw, cw, cot, J, D), iters=3),
+                     bound(2 * fbytes, 3 * flops, rate))):
+                name = f"head_projection_integral_{direction}{sfx}"
+                print(f"[timing] {name} at F = {f}, {tuple(x.shape)}: kernel "
+                      f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, bound "
+                      f"{bd[0]:.4f} ms ({bd[1]}), "
+                      f"{100 * bd[0] / t[0]:.1f} % of it, on {card}",
+                      flush=True)
+                if f == WIDE_FEATS[1]:
+                    wide_times[name + "_slices"] = t
+                    wide_bounds[name + "_slices"] = bd
+            del x, cw, mw, sw
+        del feats_w, w_w
+    torch.cuda.empty_cache()
     more = {
         f"head_projection_integral_fwd at batch {DET_BATCH}": time_pair(
             lambda: head_projection_integral_cuda(feats4, w, b, J, D),
@@ -4187,13 +4363,12 @@ def main() -> None:
         "head_projection_integral_bwd_f32": bound(
             2 * feats32.numel() * 4 + 2 * w.numel() * 4, 3 * proj_flops,
             BF16X6_FLOPS),
-        # the same function at its own width, F = CUDA_CORE_FEATS[0]
-        "head_projection_integral_fwd_f32_cuda_cores": bound(
-            wide.numel() * 4 + w_wide.numel() * 4,
-            2.0 * wide.numel() * w_wide.shape[0], BF16X6_FLOPS),
         # read the float32 images once and write the warped ones
         "warp_twopass": b32,
+        # kernels 3, 4, 3f and 4f past 256 features, at F = 512
+        **wide_bounds,
     }
+    times.update(wide_times)
 
     # ---- 7. the two-stage (detector -> pose) serving path
     det_launches, det = detection_phase(dev, g, card, cfg)
@@ -4231,17 +4406,28 @@ def main() -> None:
             kernels.HEAD_PROJECTION_INTEGRAL_BWD,
             "head_projection_integral_bwd_mma.cu", "fused_head.py:106"),
         # float32 features on the tensor cores (the same C files as the
-        # bf16 route, their own kernels), and kernel 3's CUDA-core kernel
-        # for float32 widths the tensor-core kernels do not take
+        # bf16 route, their own kernels)
         "head_projection_integral_fwd_f32": (
             kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32,
             "head_projection_integral_mma.cu", "fused_head.py:40"),
         "head_projection_integral_bwd_f32": (
             kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32,
             "head_projection_integral_bwd_mma.cu", "fused_head.py:106"),
-        "head_projection_integral_fwd_f32_cuda_cores": (
-            kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES,
-            "head_projection_integral.cu", "fused_head.py:40"),
+        # past 256 features, both feature dtypes: the kernels that walk F
+        # in slices (the same entry points; launched by the main paths'
+        # runs at F > 256 alone)
+        "head_projection_integral_fwd_slices": (
+            kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+            "head_projection_integral_mma.cu", "fused_head.py:40"),
+        "head_projection_integral_bwd_slices": (
+            kernels.HEAD_PROJECTION_INTEGRAL_BWD,
+            "head_projection_integral_bwd_mma.cu", "fused_head.py:106"),
+        "head_projection_integral_fwd_f32_slices": (
+            kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32,
+            "head_projection_integral_mma.cu", "fused_head.py:40"),
+        "head_projection_integral_bwd_f32_slices": (
+            kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32,
+            "head_projection_integral_bwd_mma.cu", "fused_head.py:106"),
         "warp_twopass": (kernels.WARP_TWOPASS, "warp_twopass.cu",
                          "warp.py:156"),
         "roi_align": (kernels.ROI_ALIGN_FWD, "roi_align.cu",
@@ -4265,7 +4451,8 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": pkg + src,
          "replaces": ref + tpu,
-         "launches": (serving_launches[k.symbol]
+         "launches": (wide_launches[k.symbol] if name in WIDE_ROWS else
+                      serving_launches[k.symbol]
                       + train_launches[k.symbol]
                       + det_launches[k.symbol] + semi_launches[k.symbol]
                       + dtrain_launches[k.symbol]

@@ -12,19 +12,21 @@
 // (hi, mid) keep 16 bits, enough where the other operand is split too.
 //
 // Tiles. An R x kpad tile (kpad: F rounded up to a multiple of 64, which
-// split_weight's 8-chunk swizzle and the 64-wide products along F need) is
-// stored as 8 x 8 core
-// matrices of 128 contiguous bytes (8 rows of 16 bytes): (r, k) at element
-// (r / 8) * 8 kpad + (k / 8) * 64 + (r % 8) * 8 + k % 8, wgmma's layout
-// without swizzle. Read K-major (K along the 16-byte rows) the core
-// matrices are 128 bytes apart along K and 16 kpad bytes apart along the
-// rows; read MN-major, as the B operand of a product whose K runs along
-// the tile's rows, the same two strides swap roles.
+// split_weight's 8-chunk swizzle and the 64-wide products along F need;
+// or 64, one slice of F, in the kernels that walk F in slices) is stored
+// as 8 x 8 core matrices of 128 contiguous bytes (8 rows of 16 bytes):
+// (r, k) at element (r / 8) * 8 kpad + (k / 8) * 64 + (r % 8) * 8 + k % 8,
+// wgmma's layout without swizzle. Read K-major (K along the 16-byte rows)
+// the core matrices are 128 bytes apart along K and 16 kpad bytes apart
+// along the rows; read MN-major, as the B operand of a product whose K
+// runs along the tile's rows, the same two strides swap roles.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hipe {
 namespace mma {
@@ -64,8 +66,8 @@ __device__ __forceinline__ int core_offset(int r, int k, int kpad) {
 
 // ---- asynchronous copies and barriers
 
-// cp.async of kBytes (8 or 16) from global to shared memory; valid false
-// fills the destination with zeros.
+// cp.async of kBytes (4, 8 or 16) from global to shared memory; valid
+// false fills the destination with zeros.
 template <int kBytes>
 __device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
                                          bool valid) {
@@ -100,14 +102,39 @@ __device__ __forceinline__ void fence_async_smem() {
 
 // ---- staging
 
+// fetch_weight where F % 4 != 0: one 4-byte copy a float, the last
+// chunk's columns past F zero-filled. Not inlined, so that the loops that
+// fetch a block of the weight at each step keep only the 16-byte path.
+static __device__ __noinline__ void fetch_weight_ragged(
+    const float* __restrict__ weight, int channels, int num_feats, int kpad,
+    int c0, float* raw) {
+  for (int j = threadIdx.x >> 3; j < (num_feats + 3) / 4;
+       j += blockDim.x >> 3)
+    for (int r = threadIdx.x & 7; r < kBlockC; r += 8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = c0 + r < channels && 4 * j + e < num_feats;
+        cp_async<4>(smem_addr(raw + r * kpad + 4 * (j ^ (r & 7)) + e),
+                    weight + (valid ? (long long)(c0 + r) * num_feats +
+                                          4 * j + e
+                                    : 0),
+                    valid);
+      }
+}
+
 // Copy weight rows c0 .. c0 + kBlockC - 1 (float32, (C, F) row-major) into
 // `raw` (kBlockC rows of kpad floats), row r's 16-byte chunk j at chunk
 // j ^ (r % 8), so that split_weight's reads of eight rows at one chunk hit
 // eight bank groups; rows past C are zero-filled, columns past F are left
-// alone. The caller commits the copies.
+// alone. 16-byte copies where F % 4 == 0 (rows 16-byte aligned), else
+// fetch_weight_ragged. The caller commits the copies.
 __device__ __forceinline__ void fetch_weight(const float* __restrict__ weight,
                                              int channels, int num_feats,
                                              int kpad, int c0, float* raw) {
+  if (num_feats % 4 != 0) {
+    fetch_weight_ragged(weight, channels, num_feats, kpad, c0, raw);
+    return;
+  }
   for (int j = threadIdx.x >> 3; j < num_feats / 4; j += blockDim.x >> 3)
     for (int r = threadIdx.x & 7; r < kBlockC; r += 8) {
       const bool valid = c0 + r < channels;
@@ -171,36 +198,99 @@ __device__ __forceinline__ void zero_pad(__nv_bfloat16* tile, int rows,
   }
 }
 
-// Issue the cp.async copies of positions hw0 .. hw0 + kTileP - 1 of one
-// image's bf16 features (HW, F) into a tile, by threads tid = 0 .. nthreads
-// - 1, and commit them as one group; rows past hw_total are zero-filled.
-// 16-byte copies where F % 8 == 0, else 8-byte ones; eight neighbouring
-// threads fill one core matrix, with no division per copy.
-template <int kBytes>
+// Issue the copies of columns f0 .. f1 - 1 of positions hw0 .. hw0 +
+// kTileP - 1 of one image's bf16 features (HW, F) into columns 0 .. f1 -
+// f0 - 1 of a tile with kpad columns, by threads tid = 0 .. nthreads - 1;
+// rows past hw_total are zero-filled, and with kPastF (f1 > F: a slice
+// of F's last 64) so are columns past F. kBytes is the widest copy the
+// rows' alignment allows (F % 8 == 0: 16, F % 4 == 0: 8, F even: 4, else
+// 2), and f0, f1 are multiples of its width; 2-byte copies are plain loads
+// and stores (cp.async has none), which the caller's fence_async_smem
+// orders like the rest. Eight neighbouring threads fill one core matrix,
+// with no division per copy.
+template <int kBytes, bool kPastF>
 __device__ __forceinline__ void copy_features(
     const __nv_bfloat16* __restrict__ image, int hw0, int hw_total,
-    int num_feats, int kpad, __nv_bfloat16* tile, int tid, int nthreads) {
+    int num_feats, int f0, int f1, int kpad, __nv_bfloat16* tile, int tid,
+    int nthreads) {
   constexpr int kVec = kBytes / 2;
-  for (int f = (tid >> 3) * kVec; f < num_feats; f += (nthreads >> 3) * kVec)
+  for (int f = f0 + (tid >> 3) * kVec; f < f1; f += (nthreads >> 3) * kVec)
     for (int p = tid & 7; p < kTileP; p += 8) {
       const int hw = hw0 + p;
-      const bool valid = hw < hw_total;
-      cp_async<kBytes>(
-          smem_addr(tile + core_offset(p, f, kpad)),
-          image + (long long)(valid ? hw : 0) * num_feats + f, valid);
+      const bool valid = hw < hw_total && (!kPastF || f < num_feats);
+      const __nv_bfloat16* src = image +
+                                 (long long)(valid ? hw : 0) * num_feats +
+                                 (kPastF && !valid ? 0 : f);
+      __nv_bfloat16* dst = tile + core_offset(p, f - f0, kpad);
+      if constexpr (kBytes >= 4)
+        cp_async<kBytes>(smem_addr(dst), src, valid);
+      else
+        *dst = valid ? *src : __float2bfloat16_rn(0.f);
     }
 }
 
+// copy_features at the widest copy F allows, committed as one group.
+template <bool kPastF>
+__device__ __forceinline__ void stage_feature_cols(
+    const __nv_bfloat16* __restrict__ image, int hw0, int hw_total,
+    int num_feats, int f0, int f1, int kpad, __nv_bfloat16* tile, int tid,
+    int nthreads) {
+  if (num_feats % 8 == 0)
+    copy_features<16, kPastF>(image, hw0, hw_total, num_feats, f0, f1, kpad,
+                              tile, tid, nthreads);
+  else if (num_feats % 4 == 0)
+    copy_features<8, kPastF>(image, hw0, hw_total, num_feats, f0, f1, kpad,
+                             tile, tid, nthreads);
+  else if (num_feats % 2 == 0)
+    copy_features<4, kPastF>(image, hw0, hw_total, num_feats, f0, f1, kpad,
+                             tile, tid, nthreads);
+  else
+    copy_features<2, kPastF>(image, hw0, hw_total, num_feats, f0, f1, kpad,
+                             tile, tid, nthreads);
+  cp_async_commit();
+}
+
+// All F columns of a tile whose padding past F zero_pad has zeroed.
 __device__ __forceinline__ void stage_features(
     const __nv_bfloat16* __restrict__ image, int hw0, int hw_total,
     int num_feats, int kpad, __nv_bfloat16* tile, int tid, int nthreads) {
-  if (num_feats % 8 == 0)
-    copy_features<16>(image, hw0, hw_total, num_feats, kpad, tile, tid,
-                      nthreads);
+  stage_feature_cols<false>(image, hw0, hw_total, num_feats, 0, num_feats,
+                            kpad, tile, tid, nthreads);
+}
+
+// Store two neighbouring outputs, columns f and f + 1 of a row of F
+// columns (f even): one paired store where F is even (kEven: then f < F
+// implies f + 1 < F, and the pair is aligned), else one store each, in
+// bounds. An epilogue picks kEven once (with_parity), not per store.
+template <bool kEven>
+__device__ __forceinline__ void store_pair(float* row, int f, int num_feats,
+                                           float a, float b) {
+  if constexpr (kEven) {
+    if (f < num_feats) *reinterpret_cast<float2*>(row + f) = make_float2(a, b);
+  } else {
+    if (f < num_feats) row[f] = a;
+    if (f + 1 < num_feats) row[f + 1] = b;
+  }
+}
+template <bool kEven>
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int f,
+                                           int num_feats, float a, float b) {
+  if constexpr (kEven) {
+    if (f < num_feats)
+      *reinterpret_cast<__nv_bfloat162*>(row + f) = __floats2bfloat162_rn(a, b);
+  } else {
+    if (f < num_feats) row[f] = __float2bfloat16_rn(a);
+    if (f + 1 < num_feats) row[f + 1] = __float2bfloat16_rn(b);
+  }
+}
+
+// fn(std::true_type()) where F is even, else fn(std::false_type()).
+template <typename Fn>
+__device__ __forceinline__ void with_parity(int num_feats, Fn&& fn) {
+  if (num_feats % 2 == 0)
+    fn(std::true_type());
   else
-    copy_features<8>(image, hw0, hw_total, num_feats, kpad, tile, tid,
-                     nthreads);
-  cp_async_commit();
+    fn(std::false_type());
 }
 
 // The register operand (the mma.sync m16n8k16 A layout over warp wq's 16
@@ -247,9 +337,11 @@ __device__ __forceinline__ uint64_t core_desc_mn(uint32_t addr, int kpad) {
 // d (64 x 64 float32, the warpgroup's fragment) += a . b^T for a 64 x 16
 // and b 64 x 16 bf16 tiles read K-major. Warp w of the warpgroup holds
 // rows 16 w + l / 4 and 16 w + l / 4 + 8 (lane l), columns 8 i + 2 (l % 4)
-// + e: d[4 i + e] and d[4 i + 2 + e].
+// + e: d[4 i + e] and d[4 i + 2 + e]. With accumulate 0, d = a . b^T (its
+// old value unread).
 __device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t a,
-                                               uint64_t b) {
+                                               uint64_t b,
+                                               int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -264,7 +356,7 @@ __device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // d (64 x 64 float32) += a . b for a 64 x 16 bf16 fragment in registers

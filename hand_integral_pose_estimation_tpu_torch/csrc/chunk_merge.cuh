@@ -17,10 +17,12 @@ namespace hipe {
 // beside a full one scales by exp(-inf) = 0.
 namespace {
 
-constexpr int kMergeThreads = 128;  // one thread per depth slot, D <= 128
+constexpr int kMergeThreads = 128;
 
-// One CTA per (image, joint): thread d merges channel j * D + d's chunk
-// states in chunk order, then the CTA merges the joint's channels.
+// One CTA per (image, joint): thread i merges the chunk states of channels
+// j * D + d, d = i, i + 128, ..., each in chunk order and the channels in
+// that order, then the CTA merges its threads' states in thread order:
+// one fixed order for any depth D.
 __global__ void __launch_bounds__(kMergeThreads)
     merge_chunks_kernel(const float4* __restrict__ ws, int chunks,
                         int num_joints, int height, int width, int depth,

@@ -4,7 +4,8 @@
 // float32 x float32 product to float32 accuracy, and (s), the split of the
 // float32 features and weight into bf16 planes, once a call, into a
 // workspace laid out as the kernels stage it (contiguous copies, no ALU
-// work in the kernels that multiply).
+// work in the kernels that multiply). The bf16 route's kernels wider than
+// 256 features take the weight's planes from (s) too.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +44,11 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src,
                  static_cast<const char*>(src) + i, true);
 }
 
+// F up to kResidentBlocks x 64 = 256: the kernels keep the block's weight
+// planes at the whole padded F in shared memory; wider F is walked in
+// slices of 64 (k_slices.cuh).
+constexpr int kResidentBlocks = 4;
+
 // (s) The float32 operands split once into three bf16 planes, in tiles of
 // 32 rows laid out as the kernels stage them: tile i is 3 planes of 32 x
 // kpad core-matrix bf16 (3 x 32 x kpad elements at i x that), rows past
@@ -50,32 +56,40 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src,
 // or the weight) has `rows` rows at src + blockIdx.y * rows * F and its
 // tiles at gridDim.x * blockIdx.y. Each thread takes 8 columns of a row,
 // so that neighbouring threads write neighbouring 16-byte rows of a core
-// matrix.
-template <int kBF>
+// matrix; it reads them as two float4 where F % 4 == 0 (the rows 16-byte
+// aligned), else one float at a time.
 __global__ void __launch_bounds__(256)
     hp_split_f32_kernel(const float* __restrict__ src, int rows,
-                        int num_feats, __nv_bfloat16* __restrict__ out) {
-  constexpr int kpad = 64 * kBF;
+                        int num_feats, int kpad,
+                        __nv_bfloat16* __restrict__ out) {
   constexpr int kRows = kRows32;
   const float* g = src + (long long)blockIdx.y * rows * num_feats;
   const int r0 = blockIdx.x * kRows;
+  const bool vec = num_feats % 4 == 0;
   __nv_bfloat16* o =
       out + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * 3 * kRows *
                 kpad;
   for (int idx = threadIdx.x; idx < kRows * kpad / 8; idx += blockDim.x) {
     const int r = idx % kRows;
     const int c = 8 * (idx / kRows);
+    const float* row = g + (long long)(r0 + r) * num_feats;
+    const bool in = r0 + r < rows;
     float x[8];
+    if (vec) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + r < rows && c + 4 * h < num_feats)
-        v = __ldg(reinterpret_cast<const float4*>(
-            g + (long long)(r0 + r) * num_feats + c + 4 * h));
-      x[4 * h] = v.x;
-      x[4 * h + 1] = v.y;
-      x[4 * h + 2] = v.z;
-      x[4 * h + 3] = v.w;
+      for (int h = 0; h < 2; ++h) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (in && c + 4 * h < num_feats)
+          v = __ldg(reinterpret_cast<const float4*>(row + c + 4 * h));
+        x[4 * h] = v.x;
+        x[4 * h + 1] = v.y;
+        x[4 * h + 2] = v.z;
+        x[4 * h + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        x[i] = in && c + i < num_feats ? __ldg(row + c + i) : 0.f;
     }
     __nv_bfloat16 part[3][8];
 #pragma unroll
@@ -91,8 +105,10 @@ __global__ void __launch_bounds__(256)
 }
 
 // The workspace: (s)'s tiles of the features (an even number per image:
-// whole 64-row tiles for the backward's dfeat) and of the weight (two per
-// channel block of 64), in elements.
+// whole 64-row tiles for the backward's dfeat and the slice-walking
+// kernels) and of the weight (two per channel block of 64), in elements.
+// The float32 routes hold both, the features' first; the bf16 route at F
+// > 256 holds the weight's alone.
 struct F32Planes {
   int batch, kpad, tiles64, image_tiles, blocks;
   F32Planes(int batch, int hw_total, int num_feats, int channels)
@@ -105,39 +121,58 @@ struct F32Planes {
   long long feature_elems() const {
     return (long long)batch * image_tiles * tile_elems();
   }
-  long long elems() const {
-    return feature_elems() + 2LL * blocks * tile_elems();
-  }
+  long long weight_elems() const { return 2LL * blocks * tile_elems(); }
+  long long elems() const { return feature_elems() + weight_elems(); }
 };
 
-// Bytes of the float32 routes' workspace of split planes (the forward's
-// and the backward's: one layout).
-inline long long head_projection_f32_planes_bytes(int batch, int hw_total,
-                                                  int num_feats,
-                                                  int channels) {
-  return F32Planes(batch, hw_total, num_feats, channels).elems() *
-         (long long)sizeof(__nv_bfloat16);
+// Bytes of a route's workspace of split planes (the forward's and the
+// backward's: one layout): the features' and the weight's for float32
+// features, the weight's for bf16 ones wider than the resident kernels
+// take, else none. Past those widths the backward's workspace holds its
+// dfeat partial after the planes: batch x hw_total rows of kpad floats.
+inline long long head_projection_planes_bytes(bool f32_features,
+                                              bool backward, int batch,
+                                              int hw_total, int num_feats,
+                                              int channels) {
+  const F32Planes pl(batch, hw_total, num_feats, channels);
+  if (pl.kpad <= kResidentBlocks * 64)
+    return f32_features ? pl.elems() * (long long)sizeof(__nv_bfloat16) : 0;
+  const long long planes = f32_features ? pl.elems() : pl.weight_elems();
+  return planes * (long long)sizeof(__nv_bfloat16) +
+         (backward ? (long long)batch * hw_total * pl.kpad * sizeof(float)
+                   : 0);
+}
+
+// Launch (s) over the weight (C, F) into `wplanes`.
+inline cudaError_t split_weight_planes(const float* weight,
+                                       const F32Planes& pl, int num_feats,
+                                       int channels, __nv_bfloat16* wplanes,
+                                       cudaStream_t stream) {
+  hp_split_f32_kernel<<<dim3(2 * pl.blocks, 1), 256, 0, stream>>>(
+      weight, channels, num_feats, pl.kpad, wplanes);
+  return cudaGetLastError();
 }
 
 // Launch (s) over the features (B, hw_total, F) and the weight (C, F):
 // the features' planes at `planes`, the weight's after them.
-template <int kBF>
-cudaError_t split_f32_planes(const float* feats, const float* weight,
-                             const F32Planes& pl, int hw_total,
-                             int num_feats, int channels,
-                             __nv_bfloat16* planes, cudaStream_t stream) {
-  hp_split_f32_kernel<kBF><<<dim3(pl.image_tiles, pl.batch), 256, 0,
-                             stream>>>(feats, hw_total, num_feats, planes);
+inline cudaError_t split_f32_planes(const float* feats, const float* weight,
+                                    const F32Planes& pl, int hw_total,
+                                    int num_feats, int channels,
+                                    __nv_bfloat16* planes,
+                                    cudaStream_t stream) {
+  hp_split_f32_kernel<<<dim3(pl.image_tiles, pl.batch), 256, 0, stream>>>(
+      feats, hw_total, num_feats, pl.kpad, planes);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  hp_split_f32_kernel<kBF><<<dim3(2 * pl.blocks, 1), 256, 0, stream>>>(
-      weight, channels, num_feats, planes + pl.feature_elems());
-  return cudaGetLastError();
+  return split_weight_planes(weight, pl, num_feats, channels,
+                             planes + pl.feature_elems(), stream);
 }
 
 // fn(std::integral_constant<int, kBF>()) for F padded to kBF x 64, kBF
-// 1 .. 4: the kernels take kBF as a template argument, so that no product
-// sits under a runtime branch (ptxas serialises wgmma there).
+// 1 .. kResidentBlocks: those kernels take kBF as a template argument, so
+// that no product sits under a runtime branch (ptxas serialises wgmma
+// there). Wider F gets kBF = 0: the kernels that walk F in slices of 64,
+// a loop at run time, one instantiation for every width.
 template <typename Fn>
 cudaError_t with_feature_blocks(int num_feats, Fn&& fn) {
   switch ((num_feats + 63) / 64) {
@@ -150,7 +185,7 @@ cudaError_t with_feature_blocks(int num_feats, Fn&& fn) {
     case 4:
       return fn(std::integral_constant<int, 4>());
     default:
-      return cudaErrorInvalidValue;
+      return fn(std::integral_constant<int, 0>());
   }
 }
 

@@ -18,13 +18,16 @@
 //       planes, in a workspace;
 //   (a) dfeat, one CTA per tile (or two) of positions;
 //   (b) dW, db partials, one CTA per (channel block, image, chunk of the
-//       image's tiles), written to a workspace;
-//   (c) here: a reduction adds the chunks' partials in chunk order.
+//       image's tiles; at F > 256 also per pass of 256 features), written
+//       to a workspace;
+//   (c) here: a reduction adds the chunks' partials in chunk order, one
+//       thread per element of dW and db, so it takes any F.
 //
 // Layout: feats and dfeat (B, H*W, F) in the features' dtype; weight
 // (J*D, F) float32 (the final 1x1 conv's weight viewed as a matrix), bias
 // (J*D,); the constants (B, J*D) float32; dW (J*D, F) and db (J*D,)
-// float32; workspace (chunks, J*D, F) and (chunks, J*D) float32.
+// float32; workspace (chunks, J*D, kpad) and (chunks, J*D) float32, kpad F
+// rounded up to a multiple of 64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,9 +47,12 @@ __global__ void __launch_bounds__(kThreads)
                          long long channels, int num_feats) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n = channels * num_feats;
+  const int kpad = (num_feats + 63) / 64 * 64;
   if (idx < n) {
+    const long long c = idx / num_feats;
+    const float* w = ws + c * kpad + (idx - c * num_feats);
     float acc = 0.f;
-    for (int k = 0; k < chunks; ++k) acc += ws[(long long)k * n + idx];
+    for (int k = 0; k < chunks; ++k) acc += w[(long long)k * channels * kpad];
     dweight[idx] = acc;
   } else if (idx < n + channels) {
     const long long c = idx - n;
@@ -73,9 +79,9 @@ cudaError_t reduce(const float* ws, const float* ws_db, float* dweight,
 cudaError_t head_projection_bwd_mma(
     const __nv_bfloat16* feats, const float* weight, const float* bias,
     const float* m, const float* t, const float* a, const float* bc,
-    __nv_bfloat16* dfeat, float* ws, float* ws_db, int batch, int height,
-    int width, int num_feats, int num_joints, int depth, int chunks,
-    cudaStream_t stream);
+    __nv_bfloat16* dfeat, float* ws, float* ws_db, __nv_bfloat16* planes,
+    int batch, int height, int width, int num_feats, int num_joints,
+    int depth, int chunks, cudaStream_t stream);
 cudaError_t head_projection_bwd_mma_f32(
     const float* feats, const float* weight, const float* bias,
     const float* m, const float* t, const float* a, const float* bc,
@@ -103,26 +109,28 @@ int reduce_after(cudaError_t err, void* ws, void* ws_db, void* dweight,
 
 // One entry point per route, so that each counts its own launches:
 // hipe_head_projection_integral_bwd takes bfloat16 feats and dfeat,
-// hipe_head_projection_integral_bwd_f32 float32 ones and a workspace for
-// their split planes (hipe_head_projection_integral_f32_workspace bytes,
-// head_projection_integral.cu). Every other array is float32. The caller guarantees contiguity,
-// 16-byte aligned arrays, F % 4 == 0, F <= 256, 1 <= depth <= 128 and a
-// workspace of batch * chunks_per_image chunks (tiles of 64 positions for
-// bfloat16, of 32 for float32). Returns the first launch error.
+// hipe_head_projection_integral_bwd_f32 float32 ones. Every other array
+// is float32. The caller guarantees contiguity, 16-byte aligned arrays,
+// depth >= 1, a workspace of batch * chunks_per_image chunks (tiles of 64
+// positions, or of 32 for float32 features at F <= 256) and one for the
+// split planes (hipe_head_projection_integral_workspace bytes,
+// head_projection_integral_mma.cu; none for bfloat16 at F <= 256).
+// Returns the first launch error.
 extern "C" int hipe_head_projection_integral_bwd(
     const void* feats, const void* weight, const void* bias, const void* m,
     const void* t, const void* a, const void* bc, void* dfeat, void* dweight,
-    void* dbias, void* ws, void* ws_db, int batch, int height, int width,
-    int num_feats, int num_joints, int depth, int chunks_per_image,
-    void* stream) {
+    void* dbias, void* ws, void* ws_db, void* planes, int batch, int height,
+    int width, int num_feats, int num_joints, int depth,
+    int chunks_per_image, void* stream) {
   const cudaError_t err = hipe::head_projection_bwd_mma(
       static_cast<const __nv_bfloat16*>(feats),
       static_cast<const float*>(weight), static_cast<const float*>(bias),
       static_cast<const float*>(m), static_cast<const float*>(t),
       static_cast<const float*>(a), static_cast<const float*>(bc),
       static_cast<__nv_bfloat16*>(dfeat), static_cast<float*>(ws),
-      static_cast<float*>(ws_db), batch, height, width, num_feats,
-      num_joints, depth, chunks_per_image, static_cast<cudaStream_t>(stream));
+      static_cast<float*>(ws_db), static_cast<__nv_bfloat16*>(planes), batch,
+      height, width, num_feats, num_joints, depth, chunks_per_image,
+      static_cast<cudaStream_t>(stream));
   return reduce_after(err, ws, ws_db, dweight, dbias, batch, num_feats,
                       num_joints, depth, chunks_per_image, stream);
 }

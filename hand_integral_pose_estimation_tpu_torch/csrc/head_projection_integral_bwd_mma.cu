@@ -53,8 +53,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "bf16x3_mma.cuh"
 #include "f32_planes.cuh"
+#include "k_slices.cuh"
 
 namespace hipe {
 
@@ -230,22 +233,22 @@ __global__ void __launch_bounds__(kGroups * kGroupThreads, 1)
     for (int n = 0; n < kMaxBlocksF; ++n) fence_operands(acc[n]);
   }
 
+  with_parity(num_feats, [&](auto even) {
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    if (!ok[k]) continue;
-    __nv_bfloat16* dst =
-        dfeat + image +
-        (long long)(hw0 + wq * 16 + (lane >> 2) + 8 * k) * num_feats;
+    for (int k = 0; k < 2; ++k) {
+      if (!ok[k]) continue;
+      __nv_bfloat16* dst =
+          dfeat + image +
+          (long long)(hw0 + wq * 16 + (lane >> 2) + 8 * k) * num_feats;
 #pragma unroll
-    for (int n = 0; n < kMaxBlocksF; ++n)
+      for (int n = 0; n < kMaxBlocksF; ++n)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int f = n * 64 + 8 * i + 2 * (lane & 3);
-        if (f < num_feats)
-          *reinterpret_cast<__nv_bfloat162*>(dst + f) = __floats2bfloat162_rn(
+        for (int i = 0; i < 8; ++i)
+          store_pair<decltype(even)::value>(
+              dst, n * 64 + 8 * i + 2 * (lane & 3), num_feats,
               acc[n][4 * i + 2 * k], acc[n][4 * i + 2 * k + 1]);
-      }
-  }
+    }
+  });
 }
 
 // (b) partial dW and db of channel block blockIdx.x over chunk q of image
@@ -387,7 +390,7 @@ __global__ void __launch_bounds__(kGroups * kGroupThreads, 1)
       db_s[group * kBlockC + wq * 16 + (lane >> 2) + 8 * k] = db[k];
   }
   // warpgroup 1's dW partial goes through shared memory (the weight
-  // planes' place, 64 x F floats) and warpgroup 0 adds it to its own
+  // planes' place, 64 x kpad floats) and warpgroup 0 adds it to its own
   __syncthreads();
   float* other = reinterpret_cast<float*>(w_s);
   const long long part = (long long)b * chunks + q;
@@ -402,18 +405,17 @@ __global__ void __launch_bounds__(kGroups * kGroupThreads, 1)
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const int f = n * 64 + 8 * i + 2 * (lane & 3);
-            if (f >= num_feats) continue;
+            if (f >= kpad) continue;
             float2 v = make_float2(acc[n][4 * i + 2 * k],
                                    acc[n][4 * i + 2 * k + 1]);
-            float2* o = reinterpret_cast<float2*>(other + rr * num_feats + f);
+            float2* o = reinterpret_cast<float2*>(other + rr * kpad + f);
             if (group == 1) {
               *o = v;
             } else if (valid[k]) {
               const float2 u = *o;
-              v.x += u.x;
-              v.y += u.y;
               *reinterpret_cast<float2*>(
-                  ws + (part * channels + c0 + rr) * num_feats + f) = v;
+                  ws + (part * channels + c0 + rr) * kpad + f) =
+                  make_float2(v.x + u.x, v.y + u.y);
             }
           }
       }
@@ -671,35 +673,35 @@ __global__ void __launch_bounds__(kGroups * kGroupThreads, 1)
   // floats fit their 3 x 64 x kpad bf16) and warpgroup 0 adds it to its own
   __syncthreads();
   float* other = reinterpret_cast<float*>(f_s);
+  with_parity(num_feats, [&](auto even) {
 #pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    if ((pass == 0) == (group == 1)) {
+    for (int pass = 0; pass < 2; ++pass) {
+      if ((pass == 0) == (group == 1)) {
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int rr = wq * 16 + (lane >> 2) + 8 * k;
-        float* dst = dfeat + image + (long long)(hw0 + rr) * num_feats;
+        for (int k = 0; k < 2; ++k) {
+          const int rr = wq * 16 + (lane >> 2) + 8 * k;
+          float* dst = dfeat + image + (long long)(hw0 + rr) * num_feats;
 #pragma unroll
-        for (int n = 0; n < kBF; ++n)
+          for (int n = 0; n < kBF; ++n)
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int f = n * 64 + 8 * i + 2 * (lane & 3);
-            if (f >= num_feats) continue;
-            float2 v = make_float2(acc[n][4 * i + 2 * k],
-                                   acc[n][4 * i + 2 * k + 1]);
-            float2* o = reinterpret_cast<float2*>(other + rr * kpad + f);
-            if (group == 1) {
-              *o = v;
-            } else if (ok[k]) {
-              const float2 u = *o;
-              v.x += u.x;
-              v.y += u.y;
-              *reinterpret_cast<float2*>(dst + f) = v;
+            for (int i = 0; i < 8; ++i) {
+              const int f = n * 64 + 8 * i + 2 * (lane & 3);
+              float2 v = make_float2(acc[n][4 * i + 2 * k],
+                                     acc[n][4 * i + 2 * k + 1]);
+              float2* o = reinterpret_cast<float2*>(other + rr * kpad + f);
+              if (group == 1) {
+                *o = v;
+              } else if (ok[k]) {
+                const float2 u = *o;
+                store_pair<decltype(even)::value>(dst, f, num_feats,
+                                                  v.x + u.x, v.y + u.y);
+              }
             }
-          }
+        }
       }
+      __syncthreads();
     }
-    __syncthreads();
-  }
+  });
 }
 
 // (b)'s logits (64 channels x 32 positions) of the tile of (s) at f_addr
@@ -880,39 +882,448 @@ __global__ void __launch_bounds__(kGroupThreads, 1)
     if (!valid[k]) continue;
     const int c = c0 + wq * 16 + (lane >> 2) + 8 * k;
     if ((lane & 3) == 0) ws_db[part * channels + c] = db[k];
-    float* dst = ws + (part * channels + c) * num_feats;
+    float* dst = ws + (part * channels + c) * kpad;
 #pragma unroll
     for (int n = 0; n < kBF; ++n)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int f = n * 64 + 8 * i + 2 * (lane & 3);
-        if (f < num_feats)
-          *reinterpret_cast<float2*>(dst + f) = make_float2(
-              acc[n][4 * i + 2 * k], acc[n][4 * i + 2 * k + 1]);
-      }
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float2*>(dst + n * 64 + 8 * i + 2 * (lane & 3)) =
+            make_float2(acc[n][4 * i + 2 * k], acc[n][4 * i + 2 * k + 1]);
   }
 }
 
+
+// ---- F > 256: the slice-walking backward (both feature dtypes)
+//
+// Past 256 features neither the block's weight planes at the whole F nor
+// a 64 x F float32 accumulator fit beside the tiles (k_slices.cuh). Both
+// kernels walk K = F in slices of 64 for the logits, through a ring of
+// two stages whose next stage is copied under the products. Each stage
+// holds a weight slice (the block's three planes, from (s)) and the two
+// warpgroups' feature slices (bf16 rows, or (s)'s three planes of float32
+// features).
+//
+//   (a) dfeat: one CTA per two tiles of 64 positions, a warpgroup each.
+//       For each channel block: the logits (positions x channels) over
+//       the slices and g, once; then g . W over every slice of the
+//       block's weight (the ring's later stages of the block), each
+//       slice's 64 x 64 float32 partial read from device memory (`partial`,
+//       rows of kpad floats, which the workspace of split planes holds
+//       past them), added to and written back, the last block's to dfeat.
+//       The partial's rows are the CTA's own, read back by the thread that
+//       wrote them, in the same order of additions as an accumulator held
+//       in registers.
+//   (b) dW, db partials: one CTA per (channel block, image and chunk of
+//       its 64-position tiles, pass of 256 features: a grid dimension);
+//       the warpgroups take the chunk's tiles two at a time. For each
+//       round: the logits (channels x positions) over the slices, g (and
+//       db, summed by the first pass's CTAs only), then g^T f over the
+//       pass's feature slices into 4 x 32 registers a thread, as at F =
+//       256; each pass recomputes the logits. The warpgroups' partials are
+//       added in warpgroup order at the end, as at F <= 256.
+// Every sum is taken in a fixed order: the same bits from run to run.
+//
+// (a) forms g once a tile and block and keeps its float32 partial in
+// device memory, since g cannot stay in shared memory for every block
+// (64 positions x 1 176 channels x two bf16 parts is 301 KB). A design
+// with passes of 256 features, accumulators in registers and the logits
+// and g formed once a pass gave the same bits and was 20-38 % slower a
+// backward call at F = 1024 and 2048 on an H100 (PERF.md, section 6).
+template <int kParts>
+__global__ void __launch_bounds__(kSliceGroups * kGroupThreads, 1)
+    hp_bwd_dfeat_slices_kernel(
+        const __nv_bfloat16* __restrict__ feats,
+        const __nv_bfloat16* __restrict__ wplanes,
+        const float* __restrict__ bias, const float* __restrict__ mvec,
+        const float* __restrict__ tvec, const float* __restrict__ avec,
+        const float* __restrict__ bvec,
+        std::conditional_t<kParts == 1, __nv_bfloat16, float>* __restrict__
+            dfeat,
+        float* __restrict__ partial, int hw_total, int width, int num_feats,
+        int kpad, int channels, int blocks, int tiles, int all_tiles,
+        int image_tiles) {
+  using Stage = SliceStage<kParts>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);  // 2 stages
+  float* v_s = reinterpret_cast<float*>(ring + 2 * Stage::kElems);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int group = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int wq = warp & 3;
+  const int gtid = threadIdx.x - group * kGroupThreads;
+  const int tile = blockIdx.x * kSliceGroups + group;
+  const bool active = tile < all_tiles;
+  const int b = active ? tile / tiles : 0;
+  const int t64 = active ? tile - b * tiles : 0;
+  const int hw0 = t64 * kTileP;
+  const int slices = kpad / kSlice;
+  const int per_block = 2 * slices;
+  const int items = blocks * per_block;
+  float* v_g = v_s + group * kBlockC * 5;
+
+  auto stage = [&](int item) {
+    const int cb = item / per_block;
+    const int i = item - cb * per_block;
+    __nv_bfloat16* st = ring + (item & 1) * Stage::kElems;
+    copy_plane_slice(st, wplanes + (long long)2 * cb * 3 * kRows32 * kpad,
+                     kpad, (i < slices ? i : i - slices) * kSlice,
+                     threadIdx.x, blockDim.x);
+    if (i < slices)
+      copy_tile_slice<kParts>(feats, b, t64, hw_total,
+                              active ? hw_total : 0, num_feats, kpad,
+                              image_tiles, i * kSlice,
+                              st + Stage::kWeight + group * Stage::kFeature,
+                              gtid, kGroupThreads);
+    cp_async_commit();
+  };
+
+  bool ok[2];
+  float col[2], row[2];
+  long long prow[2];  // this thread's rows of the partial and of dfeat
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int hw = hw0 + wq * 16 + (lane >> 2) + 8 * k;
+    const int r = hw / width;
+    ok[k] = active && hw < hw_total;
+    row[k] = float(r);
+    col[k] = float(hw - r * width);
+    prow[k] = (long long)b * hw_total + hw;
+  }
+
+  int item = 0;
+  auto advance = [&]() {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    if (item + 1 < items) stage(item + 1);
+    return smem_addr(ring + (item++ & 1) * Stage::kElems);
+  };
+  const uint32_t f_off = 2 * (Stage::kWeight + group * Stage::kFeature);
+  stage(0);
+  for (int cb = 0; cb < blocks; ++cb) {
+    float x[32], xs[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) x[j] = 0.f;
+    for (int sl = 0; sl < slices; ++sl) {
+      const uint32_t w_addr = advance();
+      slice_logits<kParts, false>(x, xs, w_addr, w_addr + f_off);
+    }
+    const int c = cb * kBlockC + gtid;
+    if (gtid < kBlockC) {
+      const bool valid = c < channels;
+      const long long bc = (long long)b * channels + c;
+      v_g[5 * gtid] = valid ? bias[c] : 0.f;
+      v_g[5 * gtid + 1] = valid ? mvec[bc] : 0.f;
+      v_g[5 * gtid + 2] = valid ? tvec[bc] : 0.f;
+      v_g[5 * gtid + 3] = valid ? avec[bc] : 0.f;
+      v_g[5 * gtid + 4] = valid ? bvec[bc] : 0.f;
+    }
+    group_sync(group);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ch = 8 * j + 2 * (lane & 3) + e;
+        const float cv[5] = {v_g[5 * ch], v_g[5 * ch + 1], v_g[5 * ch + 2],
+                             v_g[5 * ch + 3], v_g[5 * ch + 4]};
+        const bool valid = cb * kBlockC + ch < channels;
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float& v = x[4 * j + 2 * k + e];
+          v = ok[k] && valid ? cotangent(v, cv, col[k], row[k]) : 0.f;
+        }
+      }
+    uint32_t a[4][2][4];
+    split_fragments<4, 2>(x, a);
+    for (int n = 0; n < slices; ++n) {
+      const uint32_t w_addr = advance();
+      float acc[32];
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float2 v = make_float2(0.f, 0.f);
+          if (cb > 0 && ok[k])
+            v = *reinterpret_cast<const float2*>(
+                partial + prow[k] * kpad + n * kSlice + 8 * j +
+                2 * (lane & 3));
+          acc[4 * j + 2 * k] = v.x;
+          acc[4 * j + 2 * k + 1] = v.y;
+        }
+      slice_dfeat(acc, a, w_addr);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (!ok[k]) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int f = n * kSlice + 8 * j + 2 * (lane & 3);
+          if (cb + 1 < blocks)
+            *reinterpret_cast<float2*>(partial + prow[k] * kpad + f) =
+                make_float2(acc[4 * j + 2 * k], acc[4 * j + 2 * k + 1]);
+          else if (num_feats % 2 == 0)
+            store_pair<true>(dfeat + prow[k] * num_feats, f, num_feats,
+                             acc[4 * j + 2 * k], acc[4 * j + 2 * k + 1]);
+          else
+            store_pair<false>(dfeat + prow[k] * num_feats, f, num_feats,
+                              acc[4 * j + 2 * k], acc[4 * j + 2 * k + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int kParts>
+__global__ void __launch_bounds__(kSliceGroups * kGroupThreads, 1)
+    hp_bwd_dweight_slices_kernel(
+        const __nv_bfloat16* __restrict__ feats,
+        const __nv_bfloat16* __restrict__ wplanes,
+        const float* __restrict__ bias, const float* __restrict__ mvec,
+        const float* __restrict__ tvec, const float* __restrict__ avec,
+        const float* __restrict__ bvec, float* __restrict__ ws,
+        float* __restrict__ ws_db, int hw_total, int width, int num_feats,
+        int kpad, int channels, int chunks, int tiles_per_chunk,
+        int image_tiles) {
+  using Stage = SliceStage<kParts>;
+  constexpr int kPassF = kSlicesPerPass * kSlice;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);  // 2 stages
+  float* db_s = reinterpret_cast<float*>(ring + 2 * Stage::kElems);
+
+  const int c0 = blockIdx.x * kBlockC;
+  const int b = blockIdx.y / chunks;
+  const int q = blockIdx.y - b * chunks;
+  const int tiles = (hw_total + kTileP - 1) / kTileP;
+  const int t0 = q * tiles_per_chunk;
+  const int t1 = min(tiles, t0 + tiles_per_chunk);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int group = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int wq = warp & 3;
+  const int gtid = threadIdx.x - group * kGroupThreads;
+  const int slices = kpad / kSlice;
+  const int first = kSlicesPerPass * blockIdx.z;  // the pass's first slice
+  const int passes = min(kSlicesPerPass, slices - first);
+  const int per_round = slices + passes;
+  const int items =
+      max(0, (t1 - t0 + kSliceGroups - 1) / kSliceGroups) * per_round;
+  const __nv_bfloat16* wblock =
+      wplanes + (long long)2 * blockIdx.x * 3 * kRows32 * kpad;
+
+  // item = round r x per_round + i: i < slices the logits' weight and
+  // feature slices, then the pass's feature slices
+  auto stage = [&](int item) {
+    const int r = item / per_round;
+    const int i = item - r * per_round;
+    const int t = t0 + kSliceGroups * r + group;
+    __nv_bfloat16* st = ring + (item & 1) * Stage::kElems;
+    if (i < slices)
+      copy_plane_slice(st, wblock, kpad, i * kSlice, threadIdx.x,
+                       blockDim.x);
+    copy_tile_slice<kParts>(feats, b, min(t, t1 - 1), hw_total,
+                            t < t1 ? hw_total : 0, num_feats, kpad,
+                            image_tiles,
+                            (i < slices ? i : first + i - slices) * kSlice,
+                            st + Stage::kWeight + group * Stage::kFeature,
+                            gtid, kGroupThreads);
+    cp_async_commit();
+  };
+
+  // this thread's two channels' bias, m, T, A, B
+  float cst[2][5];
+  bool valid[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int c = c0 + wq * 16 + (lane >> 2) + 8 * k;
+    const long long bc = (long long)b * channels + c;
+    valid[k] = c < channels;
+    cst[k][0] = valid[k] ? bias[c] : 0.f;
+    cst[k][1] = valid[k] ? mvec[bc] : 0.f;
+    cst[k][2] = valid[k] ? tvec[bc] : 0.f;
+    cst[k][3] = valid[k] ? avec[bc] : 0.f;
+    cst[k][4] = valid[k] ? bvec[bc] : 0.f;
+  }
+
+  float acc[kSlicesPerPass][32];
+#pragma unroll
+  for (int n = 0; n < kSlicesPerPass; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
+  float db[2] = {0.f, 0.f};
+
+  // wait for the ring's next stage, start the copy of the one after it
+  // and return the address of this warpgroup's feature slice there
+  int item = 0;
+  const uint32_t f_off = 2 * (Stage::kWeight + group * Stage::kFeature);
+  auto advance = [&]() {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();  // stage `item` has landed; the other one is free
+    if (item + 1 < items) stage(item + 1);
+    return smem_addr(ring + (item++ & 1) * Stage::kElems) + f_off;
+  };
+  if (items > 0) stage(0);
+  for (int r = 0; r < items / per_round; ++r) {
+    const int t = t0 + kSliceGroups * r + group;
+    float x[32], xs[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) x[j] = 0.f;
+    for (int sl = 0; sl < slices; ++sl) {
+      const uint32_t f_addr = advance();
+      slice_logits<kParts, true>(x, xs, f_addr - f_off, f_addr);
+    }
+    // g at positions t * 64 + 8 j + 2 (lane % 4) + e, row and column
+    // stepped along without a division each; none past the chunk
+    const int limit = t < t1 ? hw_total : 0;
+    int hw = t * kTileP + 2 * (lane & 3);
+    int rw = hw / width, cl = hw - rw * width;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool wrap = cl + e >= width;
+        const float colf = float(wrap ? cl + e - width : cl + e);
+        const float rowf = float(wrap ? rw + 1 : rw);
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float& v = x[4 * j + 2 * k + e];
+          v = hw + e < limit && valid[k] ? cotangent(v, cst[k], colf, rowf)
+                                         : 0.f;
+          db[k] += v;
+        }
+      }
+      hw += 8;
+      for (cl += 8; cl >= width; cl -= width) ++rw;
+    }
+    // dW += g^T f over the pass's slices of the tile's features
+    uint32_t a[4][3][4];
+    split_fragments<4, 3>(x, a);
+#pragma unroll
+    for (int n = 0; n < kSlicesPerPass; ++n)
+      if (n < passes) slice_dweight<kParts>(acc[n], a, advance());
+  }
+
+  // db: the four lanes of a row group (lane / 4) share its channels
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+      db[k] += __shfl_xor_sync(0xffffffffu, db[k], off);
+    if ((lane & 3) == 0)
+      db_s[group * kBlockC + wq * 16 + (lane >> 2) + 8 * k] = db[k];
+  }
+  // warpgroup 1's dW partial goes through the ring (64 x 256 floats) and
+  // warpgroup 0 adds it to its own
+  __syncthreads();
+  float* other = reinterpret_cast<float*>(ring);
+  const long long part = (long long)b * chunks + q;
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    if ((pass == 0) == (group == 1)) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int rr = wq * 16 + (lane >> 2) + 8 * k;
+#pragma unroll
+        for (int n = 0; n < kSlicesPerPass; ++n)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int f = n * kSlice + 8 * j + 2 * (lane & 3);
+            float2 v = make_float2(acc[n][4 * j + 2 * k],
+                                   acc[n][4 * j + 2 * k + 1]);
+            float2* o = reinterpret_cast<float2*>(other + rr * kPassF + f);
+            if (group == 1) {
+              *o = v;
+            } else if (valid[k] && n < passes) {
+              const float2 u = *o;
+              *reinterpret_cast<float2*>(
+                  ws + (part * channels + c0 + rr) * kpad + first * kSlice +
+                  f) = make_float2(v.x + u.x, v.y + u.y);
+            }
+          }
+      }
+    }
+    __syncthreads();
+  }
+  if (blockIdx.z == 0)
+    for (int i = threadIdx.x; i < kBlockC; i += blockDim.x)
+      if (c0 + i < channels)
+        ws_db[part * channels + c0 + i] = db_s[i] + db_s[kBlockC + i];
+}
+
+// (a) and (b) at F > 256: feats are bf16 rows (kParts 1) or (s)'s feature
+// planes (kParts 3), wplanes (s)'s weight planes, partial (a)'s dfeat
+// partial (batch x H*W rows of kpad floats); chunks of 64-position tiles.
+template <int kParts>
+cudaError_t launch_bwd_slices(
+    const __nv_bfloat16* feats, const __nv_bfloat16* wplanes,
+    const float* bias, const float* m, const float* t, const float* a,
+    const float* bc,
+    std::conditional_t<kParts == 1, __nv_bfloat16, float>* dfeat,
+    float* partial, float* ws, float* ws_db, const F32Planes& pl,
+    int hw_total, int width, int num_feats, int channels, int chunks,
+    cudaStream_t stream) {
+  const int passes = (pl.kpad / kSlice + kSlicesPerPass - 1) / kSlicesPerPass;
+  const size_t ring =
+      (size_t)2 * SliceStage<kParts>::kElems * sizeof(__nv_bfloat16);
+  const size_t smem_a = ring + kSliceGroups * 5 * kBlockC * sizeof(float);
+  const int ctas_a =
+      (pl.batch * pl.tiles64 + kSliceGroups - 1) / kSliceGroups;
+  cudaError_t err = allow_smem(hp_bwd_dfeat_slices_kernel<kParts>, smem_a);
+  if (err != cudaSuccess) return err;
+  hp_bwd_dfeat_slices_kernel<kParts>
+      <<<ctas_a, kSliceGroups * kGroupThreads, smem_a, stream>>>(
+          feats, wplanes, bias, m, t, a, bc, dfeat, partial, hw_total, width,
+          num_feats, pl.kpad, channels, pl.blocks, pl.tiles64,
+          pl.batch * pl.tiles64, pl.image_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t smem_b = ring + kSliceGroups * kBlockC * sizeof(float);
+  err = allow_smem(hp_bwd_dweight_slices_kernel<kParts>, smem_b);
+  if (err != cudaSuccess) return err;
+  hp_bwd_dweight_slices_kernel<kParts>
+      <<<dim3(pl.blocks, pl.batch * chunks, passes),
+         kSliceGroups * kGroupThreads, smem_b, stream>>>(
+          feats, wplanes, bias, m, t, a, bc, ws, ws_db, hw_total, width,
+          num_feats, pl.kpad, channels, chunks,
+          (pl.tiles64 + chunks - 1) / chunks, pl.image_tiles);
+  return cudaGetLastError();
+}
 }  // namespace
 
-// Launches (a) and (b); the caller runs (c). ws holds batch * chunks
-// partial (J*D, F) blocks, ws_db batch * chunks partial (J*D,) rows.
+// bf16 features: launches (a) and (b), or at F > 256 (s) over the weight
+// into `planes` (head_projection_planes_bytes: the weight's planes, then
+// (a)'s dfeat partial) and the slice-walking (a) and (b); the caller runs
+// (c).
+// ws holds batch * chunks partial (J*D, kpad) blocks (F rounded up to 64:
+// aligned paired stores at any F), ws_db batch * chunks partial (J*D,)
+// rows.
 cudaError_t head_projection_bwd_mma(
     const __nv_bfloat16* feats, const float* weight, const float* bias,
     const float* m, const float* t, const float* a, const float* bc,
-    __nv_bfloat16* dfeat, float* ws, float* ws_db, int batch, int height,
-    int width, int num_feats, int num_joints, int depth, int chunks,
-    cudaStream_t stream) {
+    __nv_bfloat16* dfeat, float* ws, float* ws_db, __nv_bfloat16* planes,
+    int batch, int height, int width, int num_feats, int num_joints,
+    int depth, int chunks, cudaStream_t stream) {
   const int hw_total = height * width;
   const int channels = num_joints * depth;
-  const int kpad = (num_feats + 63) / 64 * 64;
-  const int blocks = (channels + kBlockC - 1) / kBlockC;
-  const int tiles = (hw_total + kTileP - 1) / kTileP;
+  const F32Planes pl(batch, hw_total, num_feats, channels);
+  if (pl.kpad > kResidentBlocks * 64) {
+    const cudaError_t err = split_weight_planes(weight, pl, num_feats,
+                                                channels, planes, stream);
+    if (err != cudaSuccess) return err;
+    return launch_bwd_slices<1>(
+        feats, planes, bias, m, t, a, bc, dfeat,
+        reinterpret_cast<float*>(planes + pl.weight_elems()), ws, ws_db, pl,
+        hw_total, width, num_feats, channels, chunks, stream);
+  }
+  const int kpad = pl.kpad;
+  const int blocks = pl.blocks;
+  const int tiles = pl.tiles64;
   const int per_chunk = (tiles + chunks - 1) / chunks;
-  const size_t planes =
+  const size_t planes_bytes =
       (size_t)(3 * kBlockC + kGroups * kTileP) * kpad * sizeof(__nv_bfloat16);
 
-  const size_t smem_a = planes + (size_t)kBlockC * kpad * sizeof(float) +
+  const size_t smem_a = planes_bytes + (size_t)kBlockC * kpad * sizeof(float) +
                         kGroups * 5 * kBlockC * sizeof(float);
   cudaError_t err = allow_smem(hp_bwd_dfeat_mma_kernel, smem_a);
   if (err != cudaSuccess) return err;
@@ -924,7 +1335,7 @@ cudaError_t head_projection_bwd_mma(
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem_b = planes + kGroups * kBlockC * sizeof(float);
+  const size_t smem_b = planes_bytes + kGroups * kBlockC * sizeof(float);
   err = allow_smem(hp_bwd_dweight_mma_kernel, smem_b);
   if (err != cudaSuccess) return err;
   hp_bwd_dweight_mma_kernel<<<dim3(blocks, batch * chunks),
@@ -936,33 +1347,30 @@ cudaError_t head_projection_bwd_mma(
 
 namespace {
 
+// float32 features at F padded to kBF x 64: (a) and (b) on (s)'s planes.
 template <int kBF>
-cudaError_t launch_f32(const float* feats, const float* weight,
-                       const float* bias, const float* m, const float* t,
-                       const float* a, const float* bc, float* dfeat,
-                       float* ws, float* ws_db, __nv_bfloat16* planes,
-                       int batch, int height, int width, int num_feats,
-                       int channels, int chunks, cudaStream_t stream) {
+cudaError_t launch_f32_resident(const __nv_bfloat16* planes,
+                                const float* bias, const float* m,
+                                const float* t, const float* a,
+                                const float* bc, float* dfeat, float* ws,
+                                float* ws_db, const F32Planes& pl,
+                                int hw_total, int width, int num_feats,
+                                int channels, int chunks,
+                                cudaStream_t stream) {
   constexpr int kpad = 64 * kBF;
-  const int hw_total = height * width;
-  const F32Planes pl(batch, hw_total, num_feats, channels);
-  __nv_bfloat16* fplanes = planes;
-  __nv_bfloat16* wplanes = planes + pl.feature_elems();
+  const __nv_bfloat16* fplanes = planes;
+  const __nv_bfloat16* wplanes = planes + pl.feature_elems();
   const int tiles32 = (hw_total + kRows32 - 1) / kRows32;
   const int per_chunk = (tiles32 + chunks - 1) / chunks;
   const size_t planes_w = (size_t)3 * kBlockC * kpad * sizeof(__nv_bfloat16);
 
-  cudaError_t err = split_f32_planes<kBF>(feats, weight, pl, hw_total,
-                                          num_feats, channels, planes, stream);
-  if (err != cudaSuccess) return err;
-
   const size_t smem_a = planes_w +
                         (size_t)3 * kTileP * kpad * sizeof(__nv_bfloat16) +
                         5 * kBlockC * sizeof(float);
-  err = allow_smem(hp_bwd_dfeat_f32_kernel<kBF>, smem_a);
+  cudaError_t err = allow_smem(hp_bwd_dfeat_f32_kernel<kBF>, smem_a);
   if (err != cudaSuccess) return err;
-  hp_bwd_dfeat_f32_kernel<kBF><<<batch * pl.tiles64, kGroups * kGroupThreads,
-                                 smem_a, stream>>>(
+  hp_bwd_dfeat_f32_kernel<kBF><<<pl.batch * pl.tiles64,
+                                 kGroups * kGroupThreads, smem_a, stream>>>(
       fplanes, wplanes, bias, m, t, a, bc, dfeat, hw_total, width, num_feats,
       channels, pl.blocks, pl.tiles64);
   err = cudaGetLastError();
@@ -972,18 +1380,45 @@ cudaError_t launch_f32(const float* feats, const float* weight,
       planes_w + (size_t)2 * 3 * 32 * kpad * sizeof(__nv_bfloat16);
   err = allow_smem(hp_bwd_dweight_f32_kernel<kBF>, smem_b);
   if (err != cudaSuccess) return err;
-  hp_bwd_dweight_f32_kernel<kBF><<<dim3(pl.blocks, batch * chunks),
+  hp_bwd_dweight_f32_kernel<kBF><<<dim3(pl.blocks, pl.batch * chunks),
                                    kGroupThreads, smem_b, stream>>>(
       fplanes, wplanes, bias, m, t, a, bc, ws, ws_db, hw_total, width,
       num_feats, channels, chunks, per_chunk, pl.image_tiles);
   return cudaGetLastError();
 }
 
+// float32 features: (s), then (a) and (b), resident (kBF 1 .. 4) or
+// slice-walking (kBF 0, F > 256).
+template <int kBF>
+cudaError_t launch_f32(const float* feats, const float* weight,
+                       const float* bias, const float* m, const float* t,
+                       const float* a, const float* bc, float* dfeat,
+                       float* ws, float* ws_db, __nv_bfloat16* planes,
+                       int batch, int height, int width, int num_feats,
+                       int channels, int chunks, cudaStream_t stream) {
+  const int hw_total = height * width;
+  const F32Planes pl(batch, hw_total, num_feats, channels);
+  const cudaError_t err = split_f32_planes(feats, weight, pl, hw_total,
+                                           num_feats, channels, planes,
+                                           stream);
+  if (err != cudaSuccess) return err;
+  if constexpr (kBF == 0)
+    return launch_bwd_slices<3>(
+        planes, planes + pl.feature_elems(), bias, m, t, a, bc, dfeat,
+        reinterpret_cast<float*>(planes + pl.elems()), ws, ws_db, pl,
+        hw_total, width, num_feats, channels, chunks, stream);
+  else
+    return launch_f32_resident<kBF>(planes, bias, m, t, a, bc, dfeat, ws,
+                                    ws_db, pl, hw_total, width, num_feats,
+                                    channels, chunks, stream);
+}
+
 }  // namespace
 
 // The float32-feature route: (s), (a) and (b) above; the caller runs (c).
-// ws holds batch * chunks partial (J*D, F) blocks over tiles of 32
-// positions, planes head_projection_f32_planes_bytes bytes (f32_planes.cuh).
+// ws holds batch * chunks partial (J*D, kpad) blocks over tiles of 32
+// positions (64 at F > 256), planes head_projection_planes_bytes bytes
+// (f32_planes.cuh; at F > 256 (a)'s dfeat partial after the planes).
 cudaError_t head_projection_bwd_mma_f32(
     const float* feats, const float* weight, const float* bias,
     const float* m, const float* t, const float* a, const float* bc,

@@ -3,11 +3,11 @@
 // memory.
 //
 // Replaces the TPU kernel hand_integral_pose_estimation_tpu/ops/fused_head.py:
-// _fwd_kernel (launched by _forward_pallas). The C entry points are in
-// head_projection_integral.cu, which also keeps the CUDA-core kernel for
-// float32 widths outside the tensor-core kernels' limits (F % 4 != 0 or
-// F > 256). The float32-feature route comes after the bf16 one, below
-// "---- float32 features", with its own header.
+// _fwd_kernel (launched by _forward_pallas), for every width F and depth
+// D it takes. The C entry points are at the end of this file. The
+// float32-feature route comes after the bf16 one, below "---- float32
+// features", and the kernel for F > 256 (both routes) below "---- F >
+// 256", each with its own header.
 //
 // bf16 features:
 //
@@ -50,6 +50,7 @@
 #include "bf16x3_mma.cuh"
 #include "chunk_merge.cuh"
 #include "f32_planes.cuh"
+#include "k_slices.cuh"
 #include "online_softmax.cuh"
 
 namespace hipe {
@@ -410,6 +411,177 @@ __global__ void __launch_bounds__(kF32Groups * kGroupThreads, 1)
                            (long long)b * chunks + q, ws);
 }
 
+
+// ---- F > 256: the slice-walking forward (both feature dtypes)
+//
+// Past 256 features the block's weight planes no longer fit in shared
+// memory beside the feature tiles, so the CTA walks K = F in slices of 64
+// (k_slices.cuh). One CTA per (image, position chunk, block of 64
+// channels), channel block fastest, as above; its two warpgroups take the
+// chunk's 64-position tiles two at a time, tile t0 + 2 r + g in round r,
+// and share each slice of the block's weight planes: a stage of the ring
+// holds the weight slice and both warpgroups' feature slices (40 KB for
+// bf16 features, 72 KB for float32 ones' three planes), the next stage's
+// copies running under the products. The 64 x 64 logits accumulate in
+// registers across the slices; then the tile's online-softmax fold, the
+// partial states and the chunk merge are the resident kernels'. The
+// weight's planes come from (s) (f32_planes.cuh) for both dtypes, so no
+// CTA splits. A warpgroup whose round has no tile multiplies zeros (bf16)
+// or the chunk's last tile again (float32) and folds nothing.
+//
+// Bound: the products, 3 (bf16) or 6 (float32) x 2 x B*H*W x F x J*D
+// flops, as at F <= 256. What it pays beyond the resident kernels: the
+// weight slices are read from L2 once per round of two tiles (at F = 512,
+// B = 32: 19 blocks x 32 images x 25 rounds x 8 slices x 24 KB, 2.9 GB)
+// beside the features' slices, and each slice's products wait on their
+// copies at a barrier.
+template <int kParts>
+__global__ void __launch_bounds__(kSliceGroups * kGroupThreads, 1)
+    hp_fwd_slices_kernel(const __nv_bfloat16* __restrict__ feats,
+                         const __nv_bfloat16* __restrict__ wplanes,
+                         const float* __restrict__ bias, int hw_total,
+                         int width, int num_feats, int kpad, int channels,
+                         int blocks, int chunks, int tiles_per_chunk,
+                         int image_tiles, float4* __restrict__ ws) {
+  using Stage = SliceStage<kParts>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);  // 2 stages
+  OnlineState* st_s = reinterpret_cast<OnlineState*>(ring + 2 * Stage::kElems);
+
+  const int cb = blockIdx.x % blocks;
+  const int rest = blockIdx.x / blocks;
+  const int q = rest % chunks;
+  const int b = rest / chunks;
+  const int c0 = cb * kBlockC;
+  const int tiles = (hw_total + kTileP - 1) / kTileP;
+  const int t0 = q * tiles_per_chunk;
+  const int t1 = min(tiles, t0 + tiles_per_chunk);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // the warpgroup, provably warp-uniform (see the bf16 kernel)
+  const int group = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int wq = warp & 3;
+  const int gtid = threadIdx.x - group * kGroupThreads;
+  const int slices = kpad / kSlice;
+  const int items =
+      max(0, (t1 - t0 + kSliceGroups - 1) / kSliceGroups) * slices;
+  const __nv_bfloat16* wblock =
+      wplanes + (long long)2 * cb * 3 * kRows32 * kpad;
+
+  // item = round r x slices + slice s: the weight slice by the whole CTA,
+  // each warpgroup's feature slice by its own threads
+  auto stage = [&](int item) {
+    const int r = item / slices;
+    const int sl = item - r * slices;
+    const int t = t0 + kSliceGroups * r + group;
+    __nv_bfloat16* st = ring + (item & 1) * Stage::kElems;
+    copy_plane_slice(st, wblock, kpad, sl * kSlice, threadIdx.x, blockDim.x);
+    copy_tile_slice<kParts>(feats, b, min(t, t1 - 1), hw_total,
+                            t < t1 ? hw_total : 0, num_feats, kpad,
+                            image_tiles, sl * kSlice,
+                            st + Stage::kWeight + group * Stage::kFeature,
+                            gtid, kGroupThreads);
+    cp_async_commit();
+  };
+
+  float bias_r[2];
+  OnlineState st[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int c = c0 + wq * 16 + (lane >> 2) + 8 * k;
+    bias_r[k] = c < channels ? bias[c] : 0.f;
+    st[k] = empty_state();
+  }
+  // wait for the ring's next stage, start the copy of the one after it
+  // and return the address of its weight slice
+  int item = 0;
+  auto advance = [&]() {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();  // stage `item` has landed; the other one is free
+    if (item + 1 < items) stage(item + 1);
+    return smem_addr(ring + (item++ & 1) * Stage::kElems);
+  };
+  const uint32_t f_off = 2 * (Stage::kWeight + group * Stage::kFeature);
+  if (items > 0) stage(0);
+  for (int r = 0; r < items / slices; ++r) {
+    const int t = t0 + kSliceGroups * r + group;
+    float x[32], xs[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    for (int sl = 0; sl < slices; ++sl) {
+      const uint32_t w_addr = advance();
+      slice_logits<kParts, true>(x, xs, w_addr, w_addr + f_off);
+    }
+    fold_tile<8>(st, x, bias_r, t * kTileP, t < t1 ? hw_total : 0, width,
+                 lane);
+  }
+  store_states<kSliceGroups>(st, st_s, group, wq, lane, c0, channels,
+                             (long long)b * chunks + q, ws);
+}
+
+// The slice-walking forward and the merge: feats are bf16 rows (kParts 1)
+// or (s)'s feature planes (kParts 3), wplanes (s)'s weight planes; chunks
+// of tiles of 64 positions.
+template <int kParts>
+cudaError_t launch_fwd_slices(const __nv_bfloat16* feats,
+                              const __nv_bfloat16* wplanes, const float* bias,
+                              float* coords, float* m, float* s, float4* ws,
+                              const F32Planes& pl, int height, int width,
+                              int num_feats, int num_joints, int depth,
+                              int chunks, cudaStream_t stream) {
+  const int hw_total = height * width;
+  const int channels = num_joints * depth;
+  const int tiles = (hw_total + kTileP - 1) / kTileP;
+  const int per_chunk = (tiles + chunks - 1) / chunks;
+  const size_t smem = (size_t)2 * SliceStage<kParts>::kElems *
+                          sizeof(__nv_bfloat16) +
+                      kSliceGroups * kBlockC * sizeof(OnlineState);
+  cudaError_t err = allow_smem(hp_fwd_slices_kernel<kParts>, smem);
+  if (err != cudaSuccess) return err;
+  hp_fwd_slices_kernel<kParts><<<pl.batch * chunks * pl.blocks,
+                                 kSliceGroups * kGroupThreads, smem,
+                                 stream>>>(
+      feats, wplanes, bias, hw_total, width, num_feats, pl.kpad, channels,
+      pl.blocks, chunks, per_chunk, pl.image_tiles, ws);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  merge_chunks_kernel<<<pl.batch * num_joints, kMergeThreads, 0, stream>>>(
+      ws, chunks, num_joints, height, width, depth, coords, m, s);
+  return cudaGetLastError();
+}
+
+// The resident kernel at F padded to kBF x 64 and the merge.
+template <int kBF>
+cudaError_t launch_fwd_f32_resident(const __nv_bfloat16* planes,
+                                    const float* bias, float* coords,
+                                    float* m, float* s, float4* ws,
+                                    const F32Planes& pl, int height,
+                                    int width, int num_joints, int depth,
+                                    int chunks, cudaStream_t stream) {
+  constexpr int kpad = 64 * kBF;
+  const int hw_total = height * width;
+  const int tiles = (hw_total + kRows32 - 1) / kRows32;
+  const int per_chunk = (tiles + chunks - 1) / chunks;
+  const size_t smem =
+      (size_t)(3 * kBlockC + kF32Groups * 3 * kRows32) * kpad *
+          sizeof(__nv_bfloat16) +
+      kF32Groups * kBlockC * sizeof(OnlineState);
+  cudaError_t err = allow_smem(hp_fwd_f32_kernel<kBF>, smem);
+  if (err != cudaSuccess) return err;
+  hp_fwd_f32_kernel<kBF><<<pl.batch * chunks * pl.blocks,
+                           kF32Groups * kGroupThreads, smem, stream>>>(
+      planes, planes + pl.feature_elems(), bias, hw_total, width,
+      num_joints * depth, pl.blocks, chunks, per_chunk, pl.image_tiles, ws);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  merge_chunks_kernel<<<pl.batch * num_joints, kMergeThreads, 0, stream>>>(
+      ws, chunks, num_joints, height, width, depth, coords, m, s);
+  return cudaGetLastError();
+}
+
+// float32 features: (s), then the resident kernel (kBF 1 .. 4) or the
+// slice-walking one (kBF 0, F > 256), and the merge.
 template <int kBF>
 cudaError_t launch_fwd_f32(const float* feats, const float* weight,
                            const float* bias, float* coords, float* m,
@@ -417,46 +589,46 @@ cudaError_t launch_fwd_f32(const float* feats, const float* weight,
                            int batch, int height, int width, int num_feats,
                            int num_joints, int depth, int chunks,
                            cudaStream_t stream) {
-  constexpr int kpad = 64 * kBF;
   const int hw_total = height * width;
   const int channels = num_joints * depth;
   const F32Planes pl(batch, hw_total, num_feats, channels);
-  cudaError_t err = split_f32_planes<kBF>(feats, weight, pl, hw_total,
-                                          num_feats, channels, planes, stream);
+  const cudaError_t err = split_f32_planes(feats, weight, pl, hw_total,
+                                           num_feats, channels, planes,
+                                           stream);
   if (err != cudaSuccess) return err;
-  const int tiles = (hw_total + kRows32 - 1) / kRows32;
-  const int per_chunk = (tiles + chunks - 1) / chunks;
-  const size_t smem =
-      (size_t)(3 * kBlockC + kF32Groups * 3 * kRows32) * kpad *
-          sizeof(__nv_bfloat16) +
-      kF32Groups * kBlockC * sizeof(OnlineState);
-  err = allow_smem(hp_fwd_f32_kernel<kBF>, smem);
-  if (err != cudaSuccess) return err;
-  hp_fwd_f32_kernel<kBF><<<batch * chunks * pl.blocks,
-                           kF32Groups * kGroupThreads, smem, stream>>>(
-      planes, planes + pl.feature_elems(), bias, hw_total, width, channels,
-      pl.blocks, chunks, per_chunk, pl.image_tiles, ws);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  merge_chunks_kernel<<<batch * num_joints, kMergeThreads, 0, stream>>>(
-      ws, chunks, num_joints, height, width, depth, coords, m, s);
-  return cudaGetLastError();
+  if constexpr (kBF == 0)
+    return launch_fwd_slices<3>(planes, planes + pl.feature_elems(), bias,
+                                coords, m, s, ws, pl, height, width,
+                                num_feats, num_joints, depth, chunks, stream);
+  else
+    return launch_fwd_f32_resident<kBF>(planes, bias, coords, m, s, ws, pl,
+                                        height, width, num_joints, depth,
+                                        chunks, stream);
 }
 
-}  // namespace
-
-// Both launches; ws holds batch * chunks * J*D float4 partial states.
+// bf16 features: both launches (F <= 256), or (s) over the weight into
+// `planes`, the slice-walking kernel and the merge (F > 256); ws holds
+// batch * chunks * J*D float4 partial states.
 cudaError_t head_projection_fwd_mma(const __nv_bfloat16* feats,
                                     const float* weight, const float* bias,
                                     float* coords, float* m, float* s,
-                                    float* ws, int batch, int height,
-                                    int width, int num_feats, int num_joints,
-                                    int depth, int chunks,
-                                    cudaStream_t stream) {
+                                    float* ws, __nv_bfloat16* planes,
+                                    int batch, int height, int width,
+                                    int num_feats, int num_joints, int depth,
+                                    int chunks, cudaStream_t stream) {
   const int hw_total = height * width;
   const int channels = num_joints * depth;
-  const int kpad = (num_feats + 63) / 64 * 64;
-  const int blocks = (channels + kBlockC - 1) / kBlockC;
+  float4* ws4 = reinterpret_cast<float4*>(ws);
+  const F32Planes pl(batch, hw_total, num_feats, channels);
+  if (pl.kpad > kResidentBlocks * 64) {
+    const cudaError_t err = split_weight_planes(weight, pl, num_feats,
+                                                channels, planes, stream);
+    if (err != cudaSuccess) return err;
+    return launch_fwd_slices<1>(feats, planes, bias, coords, m, s, ws4, pl,
+                                height, width, num_feats, num_joints, depth,
+                                chunks, stream);
+  }
+  const int kpad = pl.kpad;
   const int tiles = (hw_total + kTileP - 1) / kTileP;
   const int per_chunk = (tiles + chunks - 1) / chunks;
   const size_t smem =
@@ -464,11 +636,10 @@ cudaError_t head_projection_fwd_mma(const __nv_bfloat16* feats,
       kGroups * kBlockC * sizeof(OnlineState);
   cudaError_t err = allow_smem(hp_fwd_mma_kernel, smem);
   if (err != cudaSuccess) return err;
-  float4* ws4 = reinterpret_cast<float4*>(ws);
-  hp_fwd_mma_kernel<<<batch * chunks * blocks, kGroups * kGroupThreads, smem,
-                      stream>>>(
-      feats, weight, bias, hw_total, width, num_feats, kpad, channels, blocks,
-      chunks, per_chunk, ws4);
+  hp_fwd_mma_kernel<<<batch * chunks * pl.blocks, kGroups * kGroupThreads,
+                      smem, stream>>>(
+      feats, weight, bias, hw_total, width, num_feats, kpad, channels,
+      pl.blocks, chunks, per_chunk, ws4);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   merge_chunks_kernel<<<batch * num_joints, kMergeThreads, 0, stream>>>(
@@ -476,24 +647,58 @@ cudaError_t head_projection_fwd_mma(const __nv_bfloat16* feats,
   return cudaGetLastError();
 }
 
-// The float32-feature route: (s), the products and the merge; ws as for
-// bf16 (chunks of tiles of 32 positions), planes
-// head_projection_f32_planes_bytes bytes (f32_planes.cuh: the backward's
-// layout).
-cudaError_t head_projection_fwd_mma_f32(const float* feats,
-                                        const float* weight,
-                                        const float* bias, float* coords,
-                                        float* m, float* s, float* ws,
-                                        void* planes, int batch, int height,
-                                        int width, int num_feats,
-                                        int num_joints, int depth, int chunks,
-                                        cudaStream_t stream) {
-  return with_feature_blocks(num_feats, [&](auto bf) {
-    return launch_fwd_f32<decltype(bf)::value>(
-        feats, weight, bias, coords, m, s, reinterpret_cast<float4*>(ws),
-        static_cast<__nv_bfloat16*>(planes), batch, height, width, num_feats,
-        num_joints, depth, chunks, stream);
-  });
-}
+}  // namespace
 
 }  // namespace hipe
+
+// One entry point per route, so that each counts its own launches:
+// hipe_head_projection_integral_fwd takes bfloat16 feats,
+// hipe_head_projection_integral_fwd_f32 float32 ones; weight and bias are
+// float32. The caller guarantees contiguity, 16-byte aligned arrays, depth
+// >= 1, a workspace ws of batch * chunks * J*D * 4 floats (chunks of tiles
+// of 64 positions, or of 32 for float32 features at F <= 256) and one of
+// hipe_head_projection_integral_workspace bytes for the split planes
+// (the backward's layout; none for bf16 features at F <= 256). Returns
+// the first launch's CUDA error code.
+extern "C" int hipe_head_projection_integral_fwd(
+    const void* feats, const void* weight, const void* bias, void* coords,
+    void* m, void* s, void* ws, void* planes, int batch, int height,
+    int width, int num_feats, int num_joints, int depth, int chunks,
+    void* stream) {
+  return static_cast<int>(hipe::head_projection_fwd_mma(
+      static_cast<const __nv_bfloat16*>(feats),
+      static_cast<const float*>(weight), static_cast<const float*>(bias),
+      static_cast<float*>(coords), static_cast<float*>(m),
+      static_cast<float*>(s), static_cast<float*>(ws),
+      static_cast<__nv_bfloat16*>(planes), batch, height, width, num_feats,
+      num_joints, depth, chunks, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int hipe_head_projection_integral_fwd_f32(
+    const void* feats, const void* weight, const void* bias, void* coords,
+    void* m, void* s, void* ws, void* planes, int batch, int height,
+    int width, int num_feats, int num_joints, int depth, int chunks,
+    void* stream) {
+  return static_cast<int>(hipe::mma::with_feature_blocks(
+      num_feats, [&](auto bf) {
+        return hipe::launch_fwd_f32<decltype(bf)::value>(
+            static_cast<const float*>(feats),
+            static_cast<const float*>(weight),
+            static_cast<const float*>(bias), static_cast<float*>(coords),
+            static_cast<float*>(m), static_cast<float*>(s),
+            static_cast<float4*>(ws), static_cast<__nv_bfloat16*>(planes),
+            batch, height, width, num_feats, num_joints, depth, chunks,
+            static_cast<cudaStream_t>(stream));
+      }));
+}
+
+// Bytes of the workspace of split planes that a route takes (forward and
+// backward: one layout; past 256 features the backward's is longer): f32
+// non-zero for float32 features, backward non-zero for kernel 4's.
+extern "C" long long hipe_head_projection_integral_workspace(
+    int f32, int backward, int batch, int height, int width, int num_feats,
+    int num_joints, int depth) {
+  return hipe::mma::head_projection_planes_bytes(
+      f32 != 0, backward != 0, batch, height * width, num_feats,
+      num_joints * depth);
+}

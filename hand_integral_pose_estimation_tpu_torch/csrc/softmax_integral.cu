@@ -209,7 +209,9 @@ __global__ void __launch_bounds__(kTargetThreads, 1)
 constexpr int kThreads = 256;
 constexpr int kRows = 4;  // rows in flight per warp
 
-// The generic path. DPL: depth slots per lane, ceil(D / 32).
+// The generic path. DPL: depth slots per lane, ceil(D / 32) up to 4; a
+// deeper volume (D > 128) walks its depth slots in groups of 128, each
+// row's groups in order, so the fold's order is fixed for every D.
 template <typename T, int DPL>
 __global__ void __launch_bounds__(kThreads)
     softmax_integral_fwd_kernel(const T* __restrict__ hm, int num_joints,
@@ -229,33 +231,35 @@ __global__ void __launch_bounds__(kThreads)
   const int nwarps = blockDim.x >> 5;
 
   OnlineState st = empty_state();
-  for (int hw0 = warp; hw0 < hw_total; hw0 += nwarps * kRows) {
-    float v[kRows * DPL], x[kRows * DPL], y[kRows * DPL], z[kRows * DPL];
+  for (int hw0 = warp; hw0 < hw_total; hw0 += nwarps * kRows)
+    for (int d0 = 0; d0 < depth; d0 += 32 * DPL) {
+      float v[kRows * DPL], x[kRows * DPL], y[kRows * DPL], z[kRows * DPL];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int hw = hw0 + r * nwarps;
-      const bool row_ok = hw < hw_total;
-      const T* row = base + (long long)hw * channels;
+      for (int r = 0; r < kRows; ++r) {
+        const int hw = hw0 + r * nwarps;
+        const bool row_ok = hw < hw_total;
+        const T* row = base + (long long)hw * channels;
 #pragma unroll
-      for (int k = 0; k < DPL; ++k) {
-        const int d = lane + 32 * k;
-        v[r * DPL + k] = (row_ok && d < depth) ? to_float(row[d]) : -CUDART_INF_F;
+        for (int k = 0; k < DPL; ++k) {
+          const int d = d0 + lane + 32 * k;
+          v[r * DPL + k] =
+              (row_ok && d < depth) ? to_float(row[d]) : -CUDART_INF_F;
+        }
       }
-    }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int hw = hw0 + r * nwarps;
-      const float row_y = float(hw / width);
-      const float col_x = float(hw - (hw / width) * width);
+      for (int r = 0; r < kRows; ++r) {
+        const int hw = hw0 + r * nwarps;
+        const float row_y = float(hw / width);
+        const float col_x = float(hw - (hw / width) * width);
 #pragma unroll
-      for (int k = 0; k < DPL; ++k) {
-        x[r * DPL + k] = col_x;
-        y[r * DPL + k] = row_y;
-        z[r * DPL + k] = float(lane + 32 * k);
+        for (int k = 0; k < DPL; ++k) {
+          x[r * DPL + k] = col_x;
+          y[r * DPL + k] = row_y;
+          z[r * DPL + k] = float(d0 + lane + 32 * k);
+        }
       }
+      fold(st, v, x, y, z);
     }
-    fold(st, v, x, y, z);
-  }
   finish(st, bj, height, width, depth, coords, m_out, s_out);
 }
 
@@ -356,7 +360,7 @@ cudaError_t cta_slots(int device, int dtype, int channels, int* slots) {
 // whose workspace ws holds batch * chunks * J*D float4 states; it refuses
 // (cudaErrorInvalidValue) a heatmap the path does not take. chunks = 0
 // takes the generic path and ignores ws. The caller guarantees
-// contiguity, 1 <= depth <= 128 and a non-empty grid. Returns
+// contiguity, depth >= 1 and a non-empty grid. Returns
 // cudaGetLastError() after the launches.
 extern "C" int hipe_softmax_integral_fwd(const void* hm, int dtype,
                                          void* coords, void* m, void* s,

@@ -13,17 +13,16 @@ and its backward kernel 4 (`csrc/head_projection_integral_bwd_mma.cu`),
 which recomputes the logits per tile and contracts the soft-argmax
 cotangent into dfeat, dW and db without writing the heatmap or its
 gradient; for CPU tensors both take the plain versions. Both run on the
-tensor cores: each float32 operand is split into bf16 parts (`bf16_split`)
-and multiplied part by part, which keeps float32 accuracy. bf16 features,
-the main path's, are exact in bf16; float32 features
-(`compute_dtype="float32"`) are split into three parts as well, and the
-part pairs kept to float32 accuracy (`F32_PART_PAIRS`). Each route counts
-its launches on its own entry point (`forward_route`;
-`kernels.HEAD_PROJECTION_INTEGRAL_*_F32` for float32 features). float32
-features of a width the tensor-core kernels do not take (F % 4 != 0 or
-F > 256) run the forward on a CUDA-core kernel
-(`csrc/head_projection_integral.cu`, its own entry point) and have no
-backward kernel.
+tensor cores at every width F and depth D: each float32 operand is split
+into bf16 parts (`bf16_split`) and multiplied part by part, which keeps
+float32 accuracy. bf16 features, the main path's, are exact in bf16;
+float32 features (`compute_dtype="float32"`) are split into three parts
+as well, and the part pairs kept to float32 accuracy (`F32_PART_PAIRS`).
+Up to F = 256 a CTA keeps its block's weight planes at the whole F in
+shared memory; wider features are walked in slices of 64
+(`csrc/k_slices.cuh`). Each feature dtype counts its launches on its own
+entry point (`forward_route`; `kernels.HEAD_PROJECTION_INTEGRAL_*_F32`
+for float32 features).
 """
 
 from __future__ import annotations
@@ -34,26 +33,21 @@ import torch
 
 from hand_integral_pose_estimation_tpu_torch.ops import kernels
 from hand_integral_pose_estimation_tpu_torch.ops.integral import (
-    MAX_DEPTH,
     channel_constants,
     softmax_integral_reference,
 )
 
-# the backward's entry point for each feature dtype's route
+# each feature dtype's entry points: kernel 3 and kernel 4
+_FWD = {torch.bfloat16: kernels.HEAD_PROJECTION_INTEGRAL_FWD,
+        torch.float32: kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32}
 _BWD = {torch.bfloat16: kernels.HEAD_PROJECTION_INTEGRAL_BWD,
         torch.float32: kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32}
-# float32 features outside the tensor-core kernels' widths: the CUDA-core
-# forward stages a joint's (F, D rounded up to 8) float32 weight slice plus
-# a (64, 65) float32 feature slice in one CTA's shared memory
-_SMEM_BYTES = 232448 - 1024
-# the tensor-core kernels take at most 256 features (F % 4 == 0). Their
-# shared memory grows with F rounded up to 64, and at F = 256 the largest
-# (the bf16 dfeat kernel, 231 936 bytes; the float32 route's take 199 168,
-# 197 888 and 196 608) still fits a CTA's 232 448
-_MMA_MAX_FEATS = 256
+# the widest F at which the tensor-core kernels keep a block's weight
+# planes at the whole F in shared memory; wider F is walked in slices
+_RESIDENT_FEATS = 256
 # the tensor-core kernels' blocks of 64 channels and their tiles of
 # positions in the forward's chunks and the dW partials: 64 for bf16
-# features, 32 for float32 ones
+# features, 32 for float32 ones up to 256 features, 64 past that
 _MMA_BLOCK_C = 64
 _DW_TILE = {torch.bfloat16: 64, torch.float32: 32}
 # float32 features: the (feature part, weight part) pairs the tensor-core
@@ -78,14 +72,21 @@ def bf16_split(x: torch.Tensor, parts: int) -> list[torch.Tensor]:
     return out
 
 
+def _chunk_tile(dtype: torch.dtype, num_feats: int) -> int:
+    """Positions in a tile of the forward's chunks and the dW partials:
+    the dtype's `_DW_TILE` up to `_RESIDENT_FEATS` features, 64 for the
+    slice-walking kernels past that (as the C launchers cut them)."""
+    return _DW_TILE[dtype] if num_feats <= _RESIDENT_FEATS else 64
+
+
 def _mma_chunks(feats: torch.Tensor, num_channels: int) -> int:
     """Chunks per image of the tensor-core forward and dW grids, which have
     one CTA per (image, chunk of its tiles of positions, block of 64
     channels) and one CTA per SM: the count that least waves x (tiles per
     chunk + 1, the weight staging's share) take, so the last wave is nearly
-    full at any batch. Tiles are the dtype's `_DW_TILE` positions."""
-    B, H, W, _ = feats.shape
-    tiles = -(-(H * W) // _DW_TILE[feats.dtype])
+    full at any batch. Tiles are `_chunk_tile` positions."""
+    B, H, W, F = feats.shape
+    tiles = -(-(H * W) // _chunk_tile(feats.dtype, F))
     ctas = B * -(-num_channels // _MMA_BLOCK_C)
     sms = kernels.sm_count(feats.device.index or 0)
     return min(range(1, tiles + 1), key=lambda c: (
@@ -106,54 +107,46 @@ def head_projection_integral_reference(feats: torch.Tensor,
     return softmax_integral_reference(hm, num_joints, depth)
 
 
-def _on_tensor_cores(num_feats: int) -> bool:
-    return num_feats % 4 == 0 and num_feats <= _MMA_MAX_FEATS
+def forward_route(dtype: torch.dtype) -> kernels.Kernel:
+    """The entry point that runs kernel 3 on CUDA features of `dtype`, at
+    every width and depth: each dtype has one route, which gives way to
+    no other and to no plain version."""
+    return _FWD[dtype]
 
 
-def forward_route(dtype: torch.dtype, num_feats: int) -> kernels.Kernel:
-    """The entry point that runs kernel 3 on CUDA features of `dtype` and
-    width F = `num_feats`: the tensor-core kernels where F % 4 == 0 and F
-    <= 256 (bf16 features take no other width), the CUDA-core kernel for
-    float32 features of any other width. A route is chosen by shape alone;
-    no route falls back to another or to the plain version."""
-    if _on_tensor_cores(num_feats):
-        return (kernels.HEAD_PROJECTION_INTEGRAL_FWD
-                if dtype == torch.bfloat16
-                else kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32)
-    if dtype == torch.float32:
-        return kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES
-    raise ValueError(f"the forward kernel takes {dtype} features with F a "
-                     f"multiple of 4 up to {_MMA_MAX_FEATS}, got {num_feats}")
-
-
-def _check_feats(feats: torch.Tensor, weight: torch.Tensor, depth: int,
-                 direction: str) -> None:
-    F = feats.shape[-1]
+def _check_feats(feats: torch.Tensor, weight: torch.Tensor,
+                 depth: int) -> None:
     for name, t in (("feats", feats), ("weight", weight)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    if not 1 <= depth <= MAX_DEPTH:
-        raise ValueError(f"depth {depth} outside 1..{MAX_DEPTH}")
-    if direction == "backward" and not _on_tensor_cores(F):
-        raise ValueError(f"the backward kernel takes {feats.dtype} "
-                         f"features with F a multiple of 4 up to "
-                         f"{_MMA_MAX_FEATS}, got {F}")
+    if depth < 1:
+        raise ValueError(f"depth {depth} is not positive")
+
+
+def _planes(feats: torch.Tensor, num_joints: int, depth: int,
+            backward: bool) -> torch.Tensor:
+    """The route's workspace of split bf16 planes (`kernels.
+    head_projection_workspace` bytes, maybe none)."""
+    B, H, W, F = feats.shape
+    return torch.empty(kernels.head_projection_workspace(
+        feats.dtype, backward, B, H, W, F, num_joints, depth),
+        dtype=torch.uint8, device=feats.device)
 
 
 def head_projection_integral_cuda(feats: torch.Tensor, weight: torch.Tensor,
                                   bias: torch.Tensor, num_joints: int,
                                   depth: int):
     """Launch the fused kernel. feats: contiguous CUDA (B, H, W, F) bfloat16
-    (F % 4 == 0, F <= 256) or float32, on the route `forward_route`
-    chooses; weight: contiguous float32 (J*D, F); bias: float32 (J*D,).
-    Returns (coords, m, s) in float32."""
+    or float32 of any width, on its dtype's route (`forward_route`);
+    weight: contiguous float32 (J*D, F); bias: float32 (J*D,); any depth
+    D. Returns (coords, m, s) in float32."""
     for name, t in (("feats", feats), ("weight", weight), ("bias", bias)):
         if t.device.type != "cuda" or t.device != feats.device:
             raise ValueError(f"{name} must be on the CUDA device of feats, "
                              f"got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if feats.dtype not in (torch.bfloat16, torch.float32):
+    if feats.dtype not in _FWD:
         raise TypeError(f"feats must be bfloat16 or float32, got {feats.dtype}")
     if weight.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError(f"weight and bias must be float32, got "
@@ -165,38 +158,23 @@ def head_projection_integral_cuda(feats: torch.Tensor, weight: torch.Tensor,
     if tuple(weight.shape) != (C, F) or tuple(bias.shape) != (C,):
         raise ValueError(f"weight {tuple(weight.shape)} / bias "
                          f"{tuple(bias.shape)} do not match ({C}, {F})")
-    route = forward_route(feats.dtype, F)
-    _check_feats(feats, weight, depth, "forward")
-    depth_pad = -(-depth // 8) * 8
-    if (route is kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES
-            and 4 * (F * depth_pad + 64 * 65) > _SMEM_BYTES):
-        raise ValueError(f"F = {F} at depth {depth} does not fit the kernel's "
-                         f"shared memory")
-    if B * H * W * num_joints == 0:
+    _check_feats(feats, weight, depth)
+    if B * H * W * F * num_joints == 0:
         raise ValueError(f"empty features {tuple(feats.shape)}")
     with torch.cuda.device(feats.device):
         f32 = dict(dtype=torch.float32, device=feats.device)
         coords = torch.empty(B, num_joints, 3, **f32)
         m = torch.empty(B, num_joints, **f32)
         s = torch.empty(B, num_joints, **f32)
-        outs = (feats.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                coords.data_ptr(), m.data_ptr(), s.data_ptr())
-        stream = torch.cuda.current_stream().cuda_stream
-        if route is kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES:
-            route(*outs, B, H, W, F, num_joints, depth, stream)
-            return coords, m, s
         # per-(image, chunk, channel) partial states (m, s, sx, sy)
         chunks = _mma_chunks(feats, C)
         ws = torch.empty(B * chunks * C * 4, **f32)
-        planes = ()
-        if feats.dtype == torch.float32:  # their split bf16 planes
-            ws_planes = torch.empty(
-                kernels.head_projection_f32_workspace(
-                    B, H, W, F, num_joints, depth),
-                dtype=torch.uint8, device=feats.device)
-            planes = (ws_planes.data_ptr(),)
-        route(*outs, ws.data_ptr(), *planes, B, H, W, F, num_joints, depth,
-              chunks, stream)
+        planes = _planes(feats, num_joints, depth, backward=False)
+        forward_route(feats.dtype)(
+            feats.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            coords.data_ptr(), m.data_ptr(), s.data_ptr(), ws.data_ptr(),
+            planes.data_ptr(), B, H, W, F, num_joints, depth, chunks,
+            torch.cuda.current_stream().cuda_stream)
     return coords, m, s
 
 
@@ -241,9 +219,9 @@ def head_projection_integral_bwd_cuda(feats: torch.Tensor,
     """Launch the fused-head backward (`csrc/head_projection_integral_bwd.cu`,
     three launches: dfeat, per-chunk dW/db partials, their fixed-order sum;
     on the tensor cores for both feature dtypes, `*_bwd_mma.cu`; float32
-    features split first, and counted on
-    `HEAD_PROJECTION_INTEGRAL_BWD_F32`). Operands as
-    `head_projection_integral_cuda` takes them (F % 4 == 0, F <= 256),
+    features, and the weight past 256 features, split first; float32
+    features counted on `HEAD_PROJECTION_INTEGRAL_BWD_F32`). Operands as
+    `head_projection_integral_cuda` takes them (any width and depth),
     plus the forward's m, s (B, J), coords and the cotangent (B, J, 3).
     Returns (dfeat in the features' dtype, dW (J*D, F) float32, db (J*D,)
     float32); dW and db are the same bits from run to run."""
@@ -272,8 +250,8 @@ def head_projection_integral_bwd_cuda(feats: torch.Tensor,
                            ("cot", cot, (B, num_joints, 3))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} is not {shape}")
-    _check_feats(feats, weight, depth, "backward")
-    if B * H * W * num_joints == 0:
+    _check_feats(feats, weight, depth)
+    if B * H * W * F * num_joints == 0:
         raise ValueError(f"empty features {tuple(feats.shape)}")
     chunks = _mma_chunks(feats, C)
     with torch.cuda.device(feats.device):
@@ -282,22 +260,16 @@ def head_projection_integral_bwd_cuda(feats: torch.Tensor,
         dfeat = torch.empty_like(feats)
         dW = torch.empty(C, F, **f32)
         db = torch.empty(C, **f32)
-        ws = torch.empty(B * chunks, C, F, **f32)
+        # per-chunk dW partials in rows of F rounded up to 64
+        ws = torch.empty(B * chunks, C, -(-F // 64) * 64, **f32)
         ws_db = torch.empty(B * chunks, C, **f32)
-        planes = ()
-        if feats.dtype == torch.float32:  # their split bf16 planes
-            ws_planes = torch.empty(
-                kernels.head_projection_f32_workspace(
-                    B, H, W, F, num_joints, depth),
-                dtype=torch.uint8, device=feats.device)
-            planes = (ws_planes.data_ptr(),)
+        planes = _planes(feats, num_joints, depth, backward=True)
         _BWD[feats.dtype](
             feats.data_ptr(), weight.data_ptr(), bias.data_ptr(),
             mvec.data_ptr(), T.data_ptr(), A.data_ptr(), Bc.data_ptr(),
-            dfeat.data_ptr(),
-            dW.data_ptr(), db.data_ptr(), ws.data_ptr(), ws_db.data_ptr(),
-            *planes, B, H, W, F, num_joints, depth, chunks,
-            torch.cuda.current_stream().cuda_stream)
+            dfeat.data_ptr(), dW.data_ptr(), db.data_ptr(), ws.data_ptr(),
+            ws_db.data_ptr(), planes.data_ptr(), B, H, W, F, num_joints,
+            depth, chunks, torch.cuda.current_stream().cuda_stream)
     return dfeat, dW, db
 
 

@@ -31,7 +31,6 @@ import torch
 from hand_integral_pose_estimation_tpu_torch.ops import kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DEPTH = 128
 
 
 def softmax_integral_chunks(heatmap: torch.Tensor) -> int:
@@ -89,8 +88,8 @@ def softmax_integral_cuda(heatmap: torch.Tensor, num_joints: int,
                          f"(B, H, W, {num_joints} x {depth})")
     if not heatmap.is_contiguous():
         raise ValueError("softmax_integral_cuda needs a contiguous heatmap")
-    if not 1 <= depth <= MAX_DEPTH:
-        raise ValueError(f"depth {depth} outside 1..{MAX_DEPTH}")
+    if depth < 1:
+        raise ValueError(f"depth {depth} is not positive")
     B, H, W, C = heatmap.shape
     if B * H * W * num_joints == 0:
         raise ValueError(f"empty heatmap {tuple(heatmap.shape)}")

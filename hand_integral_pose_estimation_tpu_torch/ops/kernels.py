@@ -111,6 +111,9 @@ MMA_KERNELS = ("hp_fwd_mma_kernel", "hp_bwd_dfeat_mma_kernel",
 #: the float32-feature route of kernels 3 and 4 on the tensor cores
 F32_MMA_KERNELS = ("hp_fwd_f32_kernel", "hp_bwd_dfeat_f32_kernel",
                    "hp_bwd_dweight_f32_kernel")
+#: kernels 3 and 4 at F > 256 (both feature dtypes, one template each)
+SLICE_MMA_KERNELS = ("hp_fwd_slices_kernel", "hp_bwd_dfeat_slices_kernel",
+                     "hp_bwd_dweight_slices_kernel")
 
 
 def tensor_core_instructions(names=MMA_KERNELS) -> dict[str, int]:
@@ -162,7 +165,8 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = argtypes
         # the device kernels of which one call launches exactly one (an
-        # entry's other kernels, such as a merge, are not counted)
+        # entry's other kernels, such as a merge, are not counted); "name<k>"
+        # is the instantiation of a template kernel at int argument k
         self.device_kernels = device_kernels
         self.launches = 0
         self._fn = None
@@ -228,20 +232,24 @@ def softmax_integral_fwd_chunks(hm: int, dtype: int, batch: int, rows: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _f32_planes_entry():
-    fn = library().hipe_head_projection_integral_f32_workspace
-    fn.argtypes = [_I, _I, _I, _I, _I, _I]
+def _planes_entry():
+    fn = library().hipe_head_projection_integral_workspace
+    fn.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I]
     fn.restype = ctypes.c_longlong
     return fn
 
 
-def head_projection_f32_workspace(batch: int, height: int, width: int,
-                                  feats: int, joints: int, depth: int) -> int:
-    """Bytes of the workspace the float32-feature routes of kernels 3 and
-    4 take (the features and the weight split into bf16 planes, one layout
-    for both); the C library owns the layout. It launches nothing."""
-    return int(_f32_planes_entry()(batch, height, width, feats, joints,
-                                   depth))
+def head_projection_workspace(dtype: torch.dtype, backward: bool,
+                              batch: int, height: int, width: int,
+                              feats: int, joints: int, depth: int) -> int:
+    """Bytes of the workspace of split bf16 planes that kernel 3 or, with
+    `backward`, kernel 4 takes for features of `dtype` (one layout for
+    both): float32 features' and the weight's, the weight's alone for bf16
+    features wider than 256, else 0; past 256 features kernel 4's also
+    holds its dfeat partial. The C library owns the layout. It launches
+    nothing."""
+    return int(_planes_entry()(int(dtype == torch.float32), int(backward),
+                               batch, height, width, feats, joints, depth))
 
 
 @functools.lru_cache(maxsize=None)
@@ -265,46 +273,40 @@ SOFTMAX_INTEGRAL_FWD = Kernel(
     "hipe_softmax_integral_fwd",
     [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ("softmax_integral_partial_kernel", "softmax_integral_fwd_kernel"))
-#: (feats, weight, bias, coords, m, s, ws, B, H, W, F, J, D,
-#:  chunks per image, stream): bf16 features on the tensor cores
+#: (feats, weight, bias, coords, m, s, ws, planes, B, H, W, F, J, D,
+#:  chunks per image, stream): bf16 features on the tensor cores; planes
+#:  is the workspace of `head_projection_workspace` bytes (the weight's
+#:  split planes at F > 256)
 HEAD_PROJECTION_INTEGRAL_FWD = Kernel(
     "hipe_head_projection_integral_fwd",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    ("hp_fwd_mma_kernel",))
-#: float32 features on the tensor cores: the same arguments plus, after
-#: ws (chunks of tiles of 32 positions), the workspace of their split
-#: planes (`head_projection_f32_workspace` bytes)
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ("hp_fwd_mma_kernel", "hp_fwd_slices_kernel<1>"))
+#: float32 features on the tensor cores: the same arguments, planes the
+#: features' and the weight's split planes
 HEAD_PROJECTION_INTEGRAL_FWD_F32 = Kernel(
     "hipe_head_projection_integral_fwd_f32",
     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    ("hp_fwd_f32_kernel",))
-#: (feats, weight, bias, coords, m, s, B, H, W, F, J, D, stream): float32
-#: features of widths the tensor-core kernels do not take (F % 4 != 0 or
-#: F > 256), the CUDA-core kernel
-HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES = Kernel(
-    "hipe_head_projection_integral_fwd_f32_cuda_cores",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    ("head_projection_integral_fwd_kernel",))
+    ("hp_fwd_f32_kernel", "hp_fwd_slices_kernel<3>"))
 
 #: (hm, dtype, m, s, coords, cot, grad, B, H, W, J, D, stream)
 SOFTMAX_INTEGRAL_BWD = Kernel(
     "hipe_softmax_integral_bwd",
     [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ("softmax_integral_bwd_vec_kernel", "softmax_integral_bwd_kernel"))
-#: (feats, weight, bias, m, T, A, B, dfeat, dW, db, ws, ws_db,
-#:  B, H, W, F, J, D, chunks per image, stream): bf16 features
+#: (feats, weight, bias, m, T, A, B, dfeat, dW, db, ws, ws_db, planes,
+#:  B, H, W, F, J, D, chunks per image, stream): bf16 features; planes as
+#:  for the forward
 HEAD_PROJECTION_INTEGRAL_BWD = Kernel(
     "hipe_head_projection_integral_bwd",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
      _I, _I, _I, _I, _I, _I, _I, _P],
-    ("hp_bwd_dfeat_mma_kernel",))
-#: float32 features, on the tensor cores as well: the same arguments plus,
-#: after ws_db, the workspace of their split planes
-#: (`head_projection_f32_workspace` bytes)
+    ("hp_bwd_dfeat_mma_kernel", "hp_bwd_dfeat_slices_kernel<1>"))
+#: float32 features, on the tensor cores as well: the same arguments
 HEAD_PROJECTION_INTEGRAL_BWD_F32 = Kernel(
     "hipe_head_projection_integral_bwd_f32",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-     _I, _I, _I, _I, _I, _I, _I, _P], ("hp_bwd_dfeat_f32_kernel",))
+     _I, _I, _I, _I, _I, _I, _I, _P],
+    ("hp_bwd_dfeat_f32_kernel", "hp_bwd_dfeat_slices_kernel<3>"))
 #: (images, image dtype (0 float32, 1 uint8), maps, map dtype (0 float32,
 #:  1 float64), map strides (3), inverse, colour or NULL, host means and
 #:  stds or NULL, out, B, Hs, Ws, Ho, Wo, C, stream)
@@ -331,8 +333,7 @@ NMS = Kernel("hipe_nms", [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
 KERNELS = (SOFTMAX_INTEGRAL_FWD, HEAD_PROJECTION_INTEGRAL_FWD,
            SOFTMAX_INTEGRAL_BWD, HEAD_PROJECTION_INTEGRAL_BWD, WARP_TWOPASS,
            ROI_ALIGN_FWD, NMS, ROI_ALIGN_BWD, HEAD_PROJECTION_INTEGRAL_FWD_F32,
-           HEAD_PROJECTION_INTEGRAL_BWD_F32,
-           HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES)
+           HEAD_PROJECTION_INTEGRAL_BWD_F32)
 
 
 class _KernelNodeParams(ctypes.Structure):
@@ -386,9 +387,16 @@ def graph_launches(graph: "torch.cuda.CUDAGraph",
                    kernels=None) -> dict[str, int]:
     """Calls of each entry point (by C symbol) that one replay of `graph`
     launches: the kernel nodes whose function is one of the entry's
-    `device_kernels` (matched as the mangled name's length-prefixed
-    identifier)."""
+    `device_kernels` (matched by `mangled_name`)."""
     names = graph_kernel_names(graph)
-    return {k.symbol: sum(any(f"{len(d)}{d}" in n for d in k.device_kernels)
+    return {k.symbol: sum(any(mangled_name(d) in n for d in k.device_kernels)
                           for n in names)
             for k in (KERNELS if kernels is None else kernels)}
+
+
+def mangled_name(name: str) -> str:
+    """The part of a kernel's mangled name that identifies it: the
+    length-prefixed identifier, and for "name<k>" the int template
+    argument after it."""
+    ident, _, arg = name.partition("<")
+    return f"{len(ident)}{ident}" + (f"ILi{arg[:-1]}E" if arg else "")

@@ -14,9 +14,8 @@ taken by
 
 at batch 32 with 21, 7 and 3 joints (1 176, 392 and 168 channels: the
 serving shape and the model split's), at batch 4 and, for the forward, at
-the teacher sweep's 168 crops, over a few seeds; the forward also on the
-CUDA-core kernel that float32 widths outside the tensor-core kernels'
-take, here at F = 256 through its entry point; then what isolates the
+the teacher sweep's 168 crops, over a few seeds; the forward also at F =
+512, on the kernel that walks F in slices of 64; then what isolates the
 backward's error: the float32 route on features that are exact in bf16
 (their mid and lo parts zero), the bf16 route on the same features, and
 the dW partials over 1 to 16 chunks an image. Run from the repo root on a
@@ -103,28 +102,20 @@ def main():
               f"{route} route, chunks {chunks or 'as planned'}: "
               + "; ".join(parts), flush=True)
 
-    def run_fwd(B, joints, seed, route):
+    def run_fwd(B, joints, seed, width=F):
         g = torch.Generator(device=dev).manual_seed(seed)
-        feats = torch.randn(B, H, W, F, device=dev, generator=g)
-        w = 0.3 * torch.randn(joints * D, F, device=dev, generator=g)
+        feats = torch.randn(B, H, W, width, device=dev, generator=g)
+        w = (0.3 * (F / width) ** 0.5) * torch.randn(joints * D, width,
+                                                     device=dev, generator=g)
         b = torch.randn(joints * D, device=dev, generator=g)
-        if route == "tensor cores":
-            got = fh.head_projection_integral_cuda(feats, w, b, joints, D)
-        else:
-            got = [torch.empty(B, joints, 3, device=dev),
-                   torch.empty(B, joints, device=dev),
-                   torch.empty(B, joints, device=dev)]
-            kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES(
-                feats.data_ptr(), w.data_ptr(), b.data_ptr(),
-                *(t.data_ptr() for t in got), B, H, W, F, joints, D,
-                torch.cuda.current_stream().cuda_stream)
+        got = fh.head_projection_integral_cuda(feats, w, b, joints, D)
         plain = fh.head_projection_integral_reference(feats, w, b, joints, D)
         exact = fh.head_projection_integral_reference(
             feats.double(), w.double(), b.double(), joints, D)
         kp, k64, p64 = (fwd_shares(got, plain), fwd_shares(got, exact),
                         fwd_shares(plain, exact))
-        print(f"[accuracy] forward, B {B}, {joints * D} channels, seed "
-              f"{seed}, {route}: " + "; ".join(
+        print(f"[accuracy] forward, B {B}, {joints * D} channels, F "
+              f"{width}, seed {seed}: " + "; ".join(
                   f"{name} k-p {kp[i]:.3f} k-64 {k64[i]:.3f} p-64 "
                   f"{p64[i]:.3f}" for i, name in enumerate(("coords", "m",
                                                             "s"))),
@@ -132,8 +123,8 @@ def main():
 
     for seed in range(args.seeds):
         for B, joints in ((32, 21), (32, 7), (32, 3), (4, 21), (168, 21)):
-            run_fwd(B, joints, seed, "tensor cores")
-        run_fwd(32, 21, seed, "CUDA cores")
+            run_fwd(B, joints, seed)
+        run_fwd(32, 21, seed, width=512)
     for seed in range(args.seeds):
         for B, joints in ((32, 21), (32, 7), (32, 3), (4, 21)):
             run(B, joints, seed, "float32")

@@ -423,25 +423,104 @@ def test_f32_head_fwd_at_path_shapes(dev, shape):
                                                                 J, D))
 
 
-@pytest.mark.parametrize("num_feats", [260, 38, 258])
-def test_f32_head_fwd_cuda_core_route(dev, num_feats):
-    """float32 features of widths the tensor-core kernels do not take run
-    the CUDA-core kernel, counted on its own entry point, against the
-    plain version; no other kernel launches."""
-    B, H, W, J, D = 2, 9, 7, 3, 24
+# every width and depth the JAX head takes: F odd (7: 2-byte feature
+# copies and single stores in the resident kernels; 259 in the slice
+# kernels), not a multiple of 4 (6; 258: 4-byte copies past 256) or of 8
+# (38), past 256 (260: one slice past the resident kernels; 512: two
+# passes of the N = F products; 2048: eight), and D = 160 (the chunk merge
+# and kernel 1's generic path past 128 depth slots) at F = 256 and 512
+WIDE_HEAD_SHAPES = [(2, 9, 7, 3, 24, f)
+                    for f in (6, 7, 38, 258, 259, 260, 512, 2048)] + [
+    (2, 9, 7, 3, 160, 256), (2, 9, 7, 2, 160, 512), (3, 56, 56, 21, 56, 512)]
+
+
+@pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", WIDE_HEAD_SHAPES)
+def test_head_at_every_width_and_depth(dev, shape, feat_dtype):
+    """Kernels 3 and 4 (3f and 4f with float32 features) at widths and
+    depths outside the serving configuration, on the tensor cores: the
+    forward within COORD_TOL / S_REL_TOL of its plain version, the
+    backward within the fused tolerance, one counted launch of the dtype's
+    entry point a call and nothing else, and two calls of each bitwise
+    equal (dW and db too)."""
+    B, H, W, J, D, F = shape
     g = torch.Generator(device=dev).manual_seed(14)
-    feats = torch.randn(B, H, W, num_feats, device=dev, generator=g)
-    w = 0.3 * torch.randn(J * D, num_feats, device=dev, generator=g)
+    feats = torch.randn(B, H, W, F, device=dev, generator=g).to(feat_dtype)
+    w = (0.3 * 16 / math.sqrt(F)) * torch.randn(J * D, F, device=dev,
+                                                 generator=g)
     b = torch.randn(J * D, device=dev, generator=g)
+    cot = torch.randn(B, J, 3, device=dev, generator=g)
     counts = [k.launches for k in kernels.KERNELS]
-    got = fused_head.head_projection_integral(feats, w, b, J, D)
+    first = fused_head.head_projection_integral_cuda(feats, w, b, J, D)
+    second = fused_head.head_projection_integral_cuda(feats, w, b, J, D)
+    coords, m, s = first
+    grads = [fused_head.head_projection_integral_bwd_cuda(
+        feats, w, b, m, s, coords, cot, J, D) for _ in range(2)]
     torch.cuda.synchronize()
     assert [k.launches - c for k, c in zip(kernels.KERNELS, counts)] == [
-        int(k is kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES)
+        2 * (k in (_HEAD_FWD[feat_dtype], _HEAD_BWD[feat_dtype]))
         for k in kernels.KERNELS]
-    want = fused_head.head_projection_integral_reference(feats, w, b, J, D)
-    torch.testing.assert_close(got, want[0], rtol=0, atol=COORD_TOL)
-    _check(fused_head.head_projection_integral_cuda(feats, w, b, J, D), want)
+    for x, y in zip(first + grads[0], second + grads[1]):
+        assert torch.equal(x, y)
+    _check(first, fused_head.head_projection_integral_reference(feats, w, b,
+                                                                J, D))
+    want = fused_head.head_projection_integral_bwd_reference(
+        feats, w, b, m, s, coords, cot, J, D)
+    assert grads[0][0].dtype == feat_dtype
+    assert grads[0][1].shape == (J * D, F) and grads[0][2].shape == (J * D,)
+    _close(grads[0][0], want[0], feat_dtype, FUSED_GRAD_ABS_SCALE)
+    for gk, wk in zip(grads[0][1:], want[1:]):
+        _close(gk, wk, torch.float32, FUSED_GRAD_ABS_SCALE)
+
+
+@pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("num_feats", [256, 257])
+def test_head_device_kernels_by_width(dev, num_feats, feat_dtype):
+    """A forward and a backward call launch the resident kernels up to 256
+    features and the slice-walking ones past it (the feature dtype's
+    instantiation: <1> bf16, <3> float32), one of each, read from a
+    captured graph's kernel nodes: the entry points' counts cannot tell
+    the two apart."""
+    B, H, W, J, D, F = 2, 9, 7, 3, 24, num_feats
+    g = torch.Generator(device=dev).manual_seed(15)
+    feats = torch.randn(B, H, W, F, device=dev, generator=g).to(feat_dtype)
+    w = (0.3 * 16 / math.sqrt(F)) * torch.randn(J * D, F, device=dev,
+                                                 generator=g)
+    b = torch.randn(J * D, device=dev, generator=g)
+    cot = torch.randn(B, J, 3, device=dev, generator=g)
+
+    def call():
+        coords, m, s = fused_head.head_projection_integral_cuda(
+            feats, w, b, J, D)
+        fused_head.head_projection_integral_bwd_cuda(
+            feats, w, b, m, s, coords, cot, J, D)
+
+    call()  # warm-up off the capture: builds the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        call()
+    names = kernels.graph_kernel_names(graph)
+    f32 = feat_dtype == torch.float32
+    if F > 256:
+        want = [f"{k}<{3 if f32 else 1}>" for k in kernels.SLICE_MMA_KERNELS]
+    else:
+        want = list(kernels.F32_MMA_KERNELS if f32 else kernels.MMA_KERNELS)
+    head = kernels.MMA_KERNELS + kernels.F32_MMA_KERNELS + tuple(
+        f"{k}<{p}>" for k in kernels.SLICE_MMA_KERNELS for p in (1, 3))
+    launched = {k: sum(kernels.mangled_name(k) in n for n in names)
+                for k in head}
+    assert launched == {k: int(k in want) for k in head}
+
+
+def test_slice_kernels_run_on_tensor_cores(dev):
+    """The kernels that walk F > 256 in slices (both feature dtypes'
+    instantiations) hold tensor-core products in their SASS."""
+    if kernels.cuda_tool("cuobjdump") is None:
+        pytest.skip("needs cuobjdump")
+    counts = kernels.tensor_core_instructions(kernels.SLICE_MMA_KERNELS)
+    assert set(counts) == set(kernels.SLICE_MMA_KERNELS)
+    assert all(n > 0 for n in counts.values()), counts
 
 
 # float32 features at the model split's channel counts (7 joints: 392
@@ -659,9 +738,7 @@ def test_autograd_functions_take_the_kernels_both_ways(dev):
                         "hipe_nms": 0, "hipe_roi_align_bwd": 0,
                         # float32 features: the float32 route's entries
                         "hipe_head_projection_integral_fwd_f32": 1,
-                        "hipe_head_projection_integral_bwd_f32": 1,
-                        "hipe_head_projection_integral_fwd_f32_cuda_cores":
-                            0}
+                        "hipe_head_projection_integral_bwd_f32": 1}
 
     want_hm, = torch.autograd.grad(
         integral.softmax_integral_reference(hm, J, D)[0], hm, cot)
@@ -731,11 +808,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                            J, D)
     with pytest.raises(ValueError):
         integral.softmax_integral_bwd_cuda(hm, m[:1], s, coords, coords, J, D)
-    feats18 = torch.randn(2, 8, 8, 18, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 4"):
+    # every width is taken; features off 16 bytes are not
+    off16 = feats.reshape(-1)[1:1 + 2 * 8 * 8 * 15].view(2, 8, 8, 15)
+    w15 = torch.randn(J * D, 15, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_head.head_projection_integral_cuda(off16, w15, b, J, D)
+    with pytest.raises(ValueError, match="16-byte"):
         fused_head.head_projection_integral_bwd_cuda(
-            feats18, torch.randn(J * D, 18, device=dev), b, m, s, coords,
-            coords, J, D)
+            off16, w15, b, m, s, coords, coords, J, D)
     images = torch.rand(2, 16, 16, 3, device=dev)
     H = torch.eye(3, device=dev).expand(2, 3, 3)
     with pytest.raises(TypeError):
@@ -774,8 +854,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         c + (k not in (kernels.WARP_TWOPASS, kernels.ROI_ALIGN_FWD,
                        kernels.NMS, kernels.ROI_ALIGN_BWD,
                        kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32,
-                       kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32,
-                       kernels.HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES))
+                       kernels.HEAD_PROJECTION_INTEGRAL_BWD_F32))
         for k, c in zip(kernels.KERNELS, counts)]  # bf16 features
     assert hm.grad.shape == hm.shape and w.grad.shape == w.shape
 

@@ -402,40 +402,45 @@ def test_f32_hi_pair_alone_misses_the_tolerance(D):
     assert float(np.abs(coords.numpy() - np.asarray(want[0])).max()) > 10 * tol
 
 
-# feature widths and the forward's route: the tensor-core kernels take F %
-# 4 == 0 up to 256 for both dtypes; float32 features of other widths take
-# the CUDA-core kernel (its own entry point), never the plain version;
-# bf16 features of other widths are refused
+# feature widths and the routes: every width, at every depth, takes its
+# dtype's tensor-core entry point in both directions (the kernels that keep
+# a block's weight planes at the whole F up to 256 features, the ones that
+# walk F in slices of 64 past that); no width is refused and none gives way
+# to another route or to the plain version
 F32_ROUTES = [(f, "HEAD_PROJECTION_INTEGRAL_FWD_F32")
-              for f in (4, 36, 40, 64, 128, 192, 252, 256)] + [
-    (f, "HEAD_PROJECTION_INTEGRAL_FWD_F32_CUDA_CORES")
-    for f in (1, 6, 38, 254, 258, 260, 512)]
+              for f in (4, 36, 40, 64, 128, 192, 252, 256,
+                        1, 6, 38, 254, 258, 260, 512)]
 
 
 @pytest.mark.parametrize("num_feats,entry", F32_ROUTES)
 def test_f32_forward_route_by_width(num_feats, entry):
-    route = fused_head.forward_route(torch.float32, num_feats)
+    route = fused_head.forward_route(torch.float32)
     assert route is getattr(kernels, entry)
     assert route in kernels.KERNELS
     assert route.symbol == "hipe_" + entry.lower()
-    # the backward has the tensor-core route only
+    # the chunks' tiles: 32 positions on the resident kernels, 64 on the
+    # slice-walking ones
+    assert fused_head._chunk_tile(torch.float32, num_feats) == (
+        32 if num_feats <= 256 else 64)
+    # both directions take the width at any depth
     feats = torch.zeros(1, 2, 2, num_feats)
     weight = torch.zeros(3, num_feats)
-    if entry.endswith("_CUDA_CORES"):
-        with pytest.raises(ValueError, match="multiple of 4"):
-            fused_head._check_feats(feats, weight, 1, "backward")
-    else:
-        fused_head._check_feats(feats, weight, 1, "backward")
+    for depth in (1, 56, 128, 160):
+        fused_head._check_feats(feats, weight, depth)
 
 
 def test_bf16_forward_route_by_width():
-    for f in (4, 40, 256):
-        assert (fused_head.forward_route(torch.bfloat16, f)
+    for f in (4, 40, 256, 1, 7, 38, 258, 260, 512, 2048):
+        assert (fused_head.forward_route(torch.bfloat16)
                 is kernels.HEAD_PROJECTION_INTEGRAL_FWD)
-    for f in (38, 258):
-        with pytest.raises(ValueError, match="multiple of 4"):
-            fused_head.forward_route(torch.bfloat16, f)
-    # each route has an entry point of its own, counted apart
+        assert fused_head._chunk_tile(torch.bfloat16, f) == 64
+        fused_head._check_feats(torch.zeros(1, 2, 2, f, dtype=torch.bfloat16),
+                                torch.zeros(3, f), 160)
+    with pytest.raises(ValueError, match="depth 0"):
+        fused_head._check_feats(torch.zeros(1, 2, 2, 8), torch.zeros(3, 8), 0)
+    # each route has an entry point of its own, counted apart, and no
+    # CUDA-core route is left
     symbols = [k.symbol for k in kernels.KERNELS]
     assert len(set(symbols)) == len(symbols)
+    assert not any("cuda_cores" in s for s in symbols)
     assert "hp_fwd_f32_kernel" in kernels.F32_MMA_KERNELS
