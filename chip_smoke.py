@@ -75,7 +75,9 @@ before the result line.
    kernel nodes of a captured CUDA graph; it fails unless 1); kernels 3
    and 4 with both feature dtypes, kernel 3 also at batch 4, 3f also at
    the teacher sweep's 168 crops, all four also at F = 260 and 512, each
-   beside its bound and its share of it; kernel 5 on
+   beside its bound and its share of it, with the backward call's device
+   time by step from a trace ((s), `channel_constants`, (a), (b), (c)),
+   and 4 and 4f at F = 1024 (two passes of 512 features); kernel 5 on
    the training path's call (uint8 frames to the normalised patch) against
    its plain chain, both beside their byte bounds, with the wrapper's host
    issue time and its device kernels per call (it fails unless 1);
@@ -334,6 +336,8 @@ SWEEP_CROPS = SWEEP_BATCH * 21
 # training run's (512, both dtypes) and phase 6's; and a depth past 128
 WIDE_FEATS = (260, 512)
 WIDE_DEPTH = 160
+# phase 6 also times the backward at two passes of 512 features
+PASS_FEATS_TIMED = 1024
 WIDE_TRAIN_STEPS = 2
 # the kernels line's rows of the kernels both routes take past 256
 # features: kernel 3, 4, 3f and 4f there
@@ -800,6 +804,24 @@ def compare_graph_timing(title, unit, eager_fn, replay, call, eager_per,
           f"eager, {busy_graph:.3f} ms graph ({kernels_graph:g} kernels "
           f"traced per {unit}); replay event time {ev_graph:.3f} ms; on "
           f"{card}", flush=True)
+
+
+def backward_steps_ms(fn) -> dict[str, float]:
+    """One call of the fused head's backward under torch.profiler: its
+    device time by step, ms: the operands' split into bf16 planes (s),
+    `channel_constants`' kernels, dfeat (a), the dW and db partials (b)
+    and their sum (c)."""
+    fn()
+    torch.cuda.synchronize()
+    _, rows = device_profile(fn, 1)
+    out = {"(s)": 0.0, "channel_constants": 0.0, "(a)": 0.0, "(b)": 0.0,
+           "(c)": 0.0}
+    for key, ms, _ in rows:
+        step = ("(s)" if "hp_split" in key else "(a)" if "hp_bwd_dfeat" in
+                key else "(b)" if "hp_bwd_dweight" in key else "(c)" if
+                "hp_bwd_reduce" in key else "channel_constants")
+        out[step] += ms
+    return out
 
 
 def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS):
@@ -4234,8 +4256,37 @@ def main() -> None:
                 if f == WIDE_FEATS[1]:
                     wide_times[name + "_slices"] = t
                     wide_bounds[name + "_slices"] = bd
+            # the backward call's device time by step, from a trace
+            steps = backward_steps_ms(lambda: head_projection_integral_bwd_cuda(
+                x, w_w, b, mw, sw, cw, cot, J, D))
+            print(f"[timing] head_projection_integral_bwd{sfx} at F = {f}: "
+                  f"device ms by step: " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in steps.items())
+                  + f" on {card}", flush=True)
             del x, cw, mw, sw
         del feats_w, w_w
+    # the backward past one pass of the N = F products (two passes of 512)
+    feats_w = torch.randn(BATCH, Ho, Wo, PASS_FEATS_TIMED, device=dev,
+                          generator=g)
+    w_w = (0.1 * 16 / math.sqrt(PASS_FEATS_TIMED)) * torch.randn(
+        J * D, PASS_FEATS_TIMED, device=dev, generator=g)
+    for fdt, sfx, rate in ((torch.bfloat16, "", BF16X3_FLOPS),
+                           (torch.float32, "_f32", BF16X6_FLOPS)):
+        x = feats_w.to(fdt)
+        cw, mw, sw = head_projection_integral_cuda(x, w_w, b, J, D)
+        t = time_pair(
+            lambda: head_projection_integral_bwd_cuda(
+                x, w_w, b, mw, sw, cw, cot, J, D),
+            lambda: head_projection_integral_bwd_reference(
+                x, w_w, b, mw, sw, cw, cot, J, D), iters=2)
+        bd = bound(2 * (x.numel() * x.element_size() + w_w.numel() * 4),
+                   3 * 2.0 * x.numel() * w_w.shape[0], rate)
+        print(f"[timing] head_projection_integral_bwd{sfx} at F = "
+              f"{PASS_FEATS_TIMED}, {tuple(x.shape)}: kernel {t[0]:.4f} ms, "
+              f"plain {t[1]:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), "
+              f"{100 * bd[0] / t[0]:.1f} % of it, on {card}", flush=True)
+        del x, cw, mw, sw
+    del feats_w, w_w
     torch.cuda.empty_cache()
     more = {
         f"head_projection_integral_fwd at batch {DET_BATCH}": time_pair(

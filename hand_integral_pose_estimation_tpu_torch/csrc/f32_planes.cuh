@@ -125,11 +125,35 @@ struct F32Planes {
   long long elems() const { return feature_elems() + weight_elems(); }
 };
 
+// Past 256 features the backward's products along N = F run in passes of
+// kPassSlices slices of 64 features: 512.
+constexpr int kPassSlices = 8;
+
+// The backward's workspace past 256 features, (s2)'s layout
+// (k_slices.cuh): the features' slices of 64 x 64 (one plane each for bf16
+// features, three for float32) and the weight's (three planes), in
+// elements.
+struct SlicePlanes {
+  int batch, slices, tiles64, blocks;
+  SlicePlanes(int batch, int hw_total, int num_feats, int channels)
+      : batch(batch),
+        slices((num_feats + 63) / 64),
+        tiles64((hw_total + kTileP - 1) / kTileP),
+        blocks((channels + kBlockC - 1) / kBlockC) {}
+  long long feature_elems(int parts) const {
+    return (long long)batch * tiles64 * slices * parts * kTileP * 64;
+  }
+  long long weight_elems() const {
+    return (long long)blocks * slices * 3 * kBlockC * 64;
+  }
+  int passes() const { return (slices + kPassSlices - 1) / kPassSlices; }
+};
+
 // Bytes of a route's workspace of split planes (the forward's and the
-// backward's: one layout): the features' and the weight's for float32
-// features, the weight's for bf16 ones wider than the resident kernels
-// take, else none. Past those widths the backward's workspace holds its
-// dfeat partial after the planes: batch x hw_total rows of kpad floats.
+// backward's: one layout up to 256 features): the features' and the
+// weight's for float32 features, the weight's for bf16 ones wider than the
+// resident kernels take, else none. Past those widths the backward takes
+// (s2)'s layout instead (SlicePlanes).
 inline long long head_projection_planes_bytes(bool f32_features,
                                               bool backward, int batch,
                                               int hw_total, int num_feats,
@@ -137,10 +161,11 @@ inline long long head_projection_planes_bytes(bool f32_features,
   const F32Planes pl(batch, hw_total, num_feats, channels);
   if (pl.kpad <= kResidentBlocks * 64)
     return f32_features ? pl.elems() * (long long)sizeof(__nv_bfloat16) : 0;
-  const long long planes = f32_features ? pl.elems() : pl.weight_elems();
-  return planes * (long long)sizeof(__nv_bfloat16) +
-         (backward ? (long long)batch * hw_total * pl.kpad * sizeof(float)
-                   : 0);
+  const SlicePlanes sp(batch, hw_total, num_feats, channels);
+  const long long elems =
+      backward ? sp.feature_elems(f32_features ? 3 : 1) + sp.weight_elems()
+               : (f32_features ? pl.elems() : pl.weight_elems());
+  return elems * (long long)sizeof(__nv_bfloat16);
 }
 
 // Launch (s) over the weight (C, F) into `wplanes`.

@@ -14,11 +14,13 @@
 // order, so the work is split into three launches, and every sum is taken
 // in a fixed order: the result is the same bits from run to run.
 //
-//   (s) float32 features only: features and weight split once into bf16
-//       planes, in a workspace;
-//   (a) dfeat, one CTA per tile (or two) of positions;
+//   (s) float32 features up to F = 256: features and weight split once
+//       into bf16 planes, in a workspace; (s2) past 256, both dtypes: the
+//       features and the weight laid out slice by slice (k_slices.cuh);
+//   (a) dfeat, one CTA per tile (or two) of positions (and pass of 512
+//       features past 512);
 //   (b) dW, db partials, one CTA per (channel block, image, chunk of the
-//       image's tiles; at F > 256 also per pass of 256 features), written
+//       image's tiles; past 512 features also per pass of 512), written
 //       to a workspace;
 //   (c) here: a reduction adds the chunks' partials in chunk order, one
 //       thread per element of dW and db, so it takes any F.

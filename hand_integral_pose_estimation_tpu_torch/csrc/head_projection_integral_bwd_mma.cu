@@ -893,289 +893,392 @@ __global__ void __launch_bounds__(kGroupThreads, 1)
 }
 
 
-// ---- F > 256: the slice-walking backward (both feature dtypes)
+// ---- F > 256: the ring backward (both feature dtypes)
 //
 // Past 256 features neither the block's weight planes at the whole F nor
-// a 64 x F float32 accumulator fit beside the tiles (k_slices.cuh). Both
-// kernels walk K = F in slices of 64 for the logits, through a ring of
-// two stages whose next stage is copied under the products. Each stage
-// holds a weight slice (the block's three planes, from (s)) and the two
-// warpgroups' feature slices (bf16 rows, or (s)'s three planes of float32
-// features).
-//
-//   (a) dfeat: one CTA per two tiles of 64 positions, a warpgroup each.
-//       For each channel block: the logits (positions x channels) over
-//       the slices and g, once; then g . W over every slice of the
-//       block's weight (the ring's later stages of the block), each
-//       slice's 64 x 64 float32 partial read from device memory (`partial`,
-//       rows of kpad floats, which the workspace of split planes holds
-//       past them), added to and written back, the last block's to dfeat.
-//       The partial's rows are the CTA's own, read back by the thread that
-//       wrote them, in the same order of additions as an accumulator held
-//       in registers.
+// a 64 x F float32 accumulator a warpgroup fit in a CTA (k_slices.cuh).
+// (s2) lays the features and the weight out slice by slice; each CTA
+// feeds the slices through a ring of stages by bulk copies (each stage
+// refilled by the last warp done with it), and its two warpgroups split
+// F: each takes half of the slices of K for the logits, and half of a
+// pass's slices (at most 4: passes of 512 features) for the products
+// along N = F. A round (a channel block in (a), a tile in (b)) is two
+// phases of the ring:
+//   L: each warpgroup's partial logits over its half of K, each slice's
+//      products in an accumulator of their own, added by float32 adds;
+//      the two partials are added through shared memory, warpgroup 0's
+//      and 1's (float addition commutes, so both hold the same bits), and
+//      both form g;
+//   P: each warpgroup's products over its half of the pass's slices, into
+//      its own 64 x 64 accumulators, one group in flight while the next
+//      slice's is issued.
+//   (a) dfeat: one CTA per 64-position tile and pass; rounds are channel
+//       blocks. L reads the block's weight slice and the tile's feature
+//       slice (bf16 features up to 512: the whole tile, resident in
+//       shared memory, copied once), P the block's weight slice again (hi
+//       and mid planes). The accumulators hold the tile's dfeat at the
+//       pass's columns across every block and are stored at the end: no
+//       partial in device memory.
 //   (b) dW, db partials: one CTA per (channel block, image and chunk of
-//       its 64-position tiles, pass of 256 features: a grid dimension);
-//       the warpgroups take the chunk's tiles two at a time. For each
-//       round: the logits (channels x positions) over the slices, g (and
-//       db, summed by the first pass's CTAs only), then g^T f over the
-//       pass's feature slices into 4 x 32 registers a thread, as at F =
-//       256; each pass recomputes the logits. The warpgroups' partials are
-//       added in warpgroup order at the end, as at F <= 256.
-// Every sum is taken in a fixed order: the same bits from run to run.
-//
-// (a) forms g once a tile and block and keeps its float32 partial in
-// device memory, since g cannot stay in shared memory for every block
-// (64 positions x 1 176 channels x two bf16 parts is 301 KB). A design
-// with passes of 256 features, accumulators in registers and the logits
-// and g formed once a pass gave the same bits and was 20-38 % slower a
-// backward call at F = 1024 and 2048 on an H100 (PERF.md, section 6).
+//       its 64-position tiles, pass); rounds are tiles. L reads the
+//       block's weight slice and the tile's feature slice, P the feature
+//       slice again. Each warpgroup writes its columns of the partial,
+//       warpgroup 0 in pass 0 the db partial.
+// Up to 512 features there is one pass: the logits and g are formed once
+// a tile and channel block in each of (a) and (b). Every sum is taken in a
+// fixed order: the same bits from run to run.
+
+// Shared memory of a ring CTA: the barriers (kMaxStages, and one for
+// resident features) and the stages' counts of warps done, the channel
+// constants of a block (64 x 5 floats), the two warpgroups' partial logits (64 x 64 floats each),
+// then resident features, then the ring.
+constexpr size_t kRingBars = 256;
+constexpr size_t kRingHead = kRingBars + kBlockC * 5 * sizeof(float) +
+                             kSliceGroups * kTileP * kBlockC * sizeof(float);
+
+struct RingSmem {
+  uint64_t* full;
+  uint64_t* feat;
+  int* done;
+  float* consts;
+  float* logits;
+  __nv_bfloat16* resident;
+  __nv_bfloat16* ring;
+  __device__ RingSmem(unsigned char* smem, int resident_elems)
+      : full(reinterpret_cast<uint64_t*>(smem)),
+        feat(full + kMaxStages),
+        done(reinterpret_cast<int*>(feat + 1)),
+        consts(reinterpret_cast<float*>(smem + kRingBars)),
+        logits(consts + kBlockC * 5),
+        resident(reinterpret_cast<__nv_bfloat16*>(smem + kRingHead)),
+        ring(resident + resident_elems) {}
+};
+
+// One thread initialises the ring's barriers and counts; the CTA then
+// synchronises.
+__device__ __forceinline__ void init_ring(const RingSmem& sm, int stages) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(sm.full + i, 1);
+      sm.done[i] = 0;
+    }
+    mbar_init(sm.feat, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Add the other warpgroup's partial logits to x, each element in the
+// accumulator's own layout (element i of thread gtid at i * 128 + gtid:
+// the two warpgroups' threads hold the same rows and columns).
+__device__ __forceinline__ void add_partial_logits(float (&x)[32],
+                                                   const RingSmem& sm,
+                                                   int group, int gtid) {
+  float* mine = sm.logits + group * kTileP * kBlockC;
+  const float* other = sm.logits + (1 - group) * kTileP * kBlockC;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mine[i * kGroupThreads + gtid] = x[i];
+  consumer_sync();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] += other[i * kGroupThreads + gtid];
+}
+
+// (a) dfeat. A consumer warpgroup's logits are positions x channels:
+// thread (warp w, lane l) holds positions 16 w + l / 4 + 8 k and channels
+// 8 j + 2 (l % 4) + e; its dfeat accumulators the same positions by
+// features 64 (d0 + n) + 8 j + 2 (l % 4) + e.
 template <int kParts>
-__global__ void __launch_bounds__(kSliceGroups * kGroupThreads, 1)
-    hp_bwd_dfeat_slices_kernel(
-        const __nv_bfloat16* __restrict__ feats,
-        const __nv_bfloat16* __restrict__ wplanes,
+__global__ void __launch_bounds__(kRingThreads, 1)
+    hp_bwd_dfeat_ring_kernel(
+        const __nv_bfloat16* __restrict__ fslices,
+        const __nv_bfloat16* __restrict__ wslices,
         const float* __restrict__ bias, const float* __restrict__ mvec,
         const float* __restrict__ tvec, const float* __restrict__ avec,
         const float* __restrict__ bvec,
         std::conditional_t<kParts == 1, __nv_bfloat16, float>* __restrict__
             dfeat,
-        float* __restrict__ partial, int hw_total, int width, int num_feats,
-        int kpad, int channels, int blocks, int tiles, int all_tiles,
-        int image_tiles) {
-  using Stage = SliceStage<kParts>;
+        int hw_total, int width, int num_feats, int slices, int channels,
+        int blocks, int tiles, int stages, int resident) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);  // 2 stages
-  float* v_s = reinterpret_cast<float*>(ring + 2 * Stage::kElems);
-
+  const RingSmem sm(smem, resident ? slices * kParts * kSlicePlane : 0);
+  const int tile = blockIdx.x;
+  const int b = tile / tiles;
+  const int hw0 = (tile - b * tiles) * kTileP;
+  const int p0 = blockIdx.y * kPassSlices;  // the pass's first slice
+  const int np = min(kPassSlices, slices - p0);
+  const int per_round = slices + np;
+  const Ring ring{sm.ring, (3 + (resident ? 0 : kParts)) * kSlicePlane,
+                  stages, blocks * per_round, sm.full, sm.done};
+  const __nv_bfloat16* ftile =
+      fslices + (long long)tile * slices * kParts * kSlicePlane;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+
+  // Issue item j (one thread): in block j / per_round, L items the
+  // weight slice and (unless resident) the feature slice, P items the
+  // weight slice's hi and mid planes, for the owning warpgroup.
+  auto issue = [&](int j) {
+    const int cb = j / per_round;
+    const int i = j - cb * per_round;
+    const __nv_bfloat16* wb =
+        wslices + (long long)cb * slices * 3 * kSlicePlane;
+    int group, k;
+    if (i < slices) {
+      item_owner(i, slices, 0, group, k);
+      const int s = half_first(slices, group, 0) + k;
+      const uint32_t fbytes = resident ? 0 : kParts * kSlicePlaneBytes;
+      __nv_bfloat16* st = ring.expect(j, 3 * kSlicePlaneBytes + fbytes);
+      bulk_copy(st, wb + (long long)s * 3 * kSlicePlane,
+                3 * kSlicePlaneBytes, ring.bar(j));
+      if (fbytes)
+        bulk_copy(st + 3 * kSlicePlane,
+                  ftile + (long long)s * kParts * kSlicePlane, fbytes,
+                  ring.bar(j));
+    } else {
+      item_owner(i - slices, np, 1, group, k);
+      const int s = p0 + half_first(np, group, 1) + k;
+      bulk_copy(ring.expect(j, 2 * kSlicePlaneBytes),
+                wb + (long long)s * 3 * kSlicePlane, 2 * kSlicePlaneBytes,
+                ring.bar(j));
+    }
+  };
+  init_ring(sm, stages);
+  if (threadIdx.x == 0) {
+    if (resident) {
+      const uint32_t bytes = slices * kParts * kSlicePlaneBytes;
+      mbar_expect_tx(sm.feat, bytes);
+      bulk_copy(sm.resident, ftile, bytes, sm.feat);
+    }
+    for (int j = 0; j < min(stages, ring.items); ++j) issue(j);
+  }
+
   const int group = __shfl_sync(0xffffffffu, warp >> 2, 0);
   const int wq = warp & 3;
   const int gtid = threadIdx.x - group * kGroupThreads;
-  const int tile = blockIdx.x * kSliceGroups + group;
-  const bool active = tile < all_tiles;
-  const int b = active ? tile / tiles : 0;
-  const int t64 = active ? tile - b * tiles : 0;
-  const int hw0 = t64 * kTileP;
-  const int slices = kpad / kSlice;
-  const int per_block = 2 * slices;
-  const int items = blocks * per_block;
-  float* v_g = v_s + group * kBlockC * 5;
-
-  auto stage = [&](int item) {
-    const int cb = item / per_block;
-    const int i = item - cb * per_block;
-    __nv_bfloat16* st = ring + (item & 1) * Stage::kElems;
-    copy_plane_slice(st, wplanes + (long long)2 * cb * 3 * kRows32 * kpad,
-                     kpad, (i < slices ? i : i - slices) * kSlice,
-                     threadIdx.x, blockDim.x);
-    if (i < slices)
-      copy_tile_slice<kParts>(feats, b, t64, hw_total,
-                              active ? hw_total : 0, num_feats, kpad,
-                              image_tiles, i * kSlice,
-                              st + Stage::kWeight + group * Stage::kFeature,
-                              gtid, kGroupThreads);
-    cp_async_commit();
-  };
+  const int nl = half_count(slices, group, 0);
+  const int l0 = half_first(slices, group, 0);
+  const int nd = half_count(np, group, 1);
+  const int d0 = p0 + half_first(np, group, 1);
+  const uint32_t res_addr = smem_addr(sm.resident);
 
   bool ok[2];
   float col[2], row[2];
-  long long prow[2];  // this thread's rows of the partial and of dfeat
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const int hw = hw0 + wq * 16 + (lane >> 2) + 8 * k;
     const int r = hw / width;
-    ok[k] = active && hw < hw_total;
+    ok[k] = hw < hw_total;
     row[k] = float(r);
     col[k] = float(hw - r * width);
-    prow[k] = (long long)b * hw_total + hw;
   }
 
-  int item = 0;
-  auto advance = [&]() {
-    cp_async_wait<0>();
-    fence_async_smem();
-    __syncthreads();
-    if (item + 1 < items) stage(item + 1);
-    return smem_addr(ring + (item++ & 1) * Stage::kElems);
-  };
-  const uint32_t f_off = 2 * (Stage::kWeight + group * Stage::kFeature);
-  stage(0);
-  for (int cb = 0; cb < blocks; ++cb) {
-    float x[32], xs[32];
+  float acc[kHalfSlices][32];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) x[j] = 0.f;
-    for (int sl = 0; sl < slices; ++sl) {
-      const uint32_t w_addr = advance();
-      slice_logits<kParts, false>(x, xs, w_addr, w_addr + f_off);
-    }
-    const int c = cb * kBlockC + gtid;
-    if (gtid < kBlockC) {
+  for (int n = 0; n < kHalfSlices; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
+  if (resident) mbar_wait(sm.feat, 0);
+
+  for (int cb = 0; cb < blocks; ++cb) {
+    const int base = cb * per_round;
+    if (group == 0 && gtid < kBlockC) {  // read after the next sync
+      const int c = cb * kBlockC + gtid;
       const bool valid = c < channels;
       const long long bc = (long long)b * channels + c;
-      v_g[5 * gtid] = valid ? bias[c] : 0.f;
-      v_g[5 * gtid + 1] = valid ? mvec[bc] : 0.f;
-      v_g[5 * gtid + 2] = valid ? tvec[bc] : 0.f;
-      v_g[5 * gtid + 3] = valid ? avec[bc] : 0.f;
-      v_g[5 * gtid + 4] = valid ? bvec[bc] : 0.f;
+      float* v = sm.consts + 5 * gtid;
+      v[0] = valid ? bias[c] : 0.f;
+      v[1] = valid ? mvec[bc] : 0.f;
+      v[2] = valid ? tvec[bc] : 0.f;
+      v[3] = valid ? avec[bc] : 0.f;
+      v[4] = valid ? bvec[bc] : 0.f;
     }
-    group_sync(group);
+    float x[32], xs[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    // each slice's products in xs, added to x once done
+    for (int i = 0; i < nl; ++i) {
+      const int j = base + item_slot(i, group, slices);
+      const uint32_t st = ring.wait(j);
+      issue_logits<kParts, false>(
+          xs, st,
+          resident ? res_addr + (l0 + i) * kParts * kSlicePlaneBytes
+                   : st + 3 * kSlicePlaneBytes);
+      wgmma_wait_all();
+      fence_operands(xs);
+      ring.release(j, lane, issue);
+#pragma unroll
+      for (int q = 0; q < 32; ++q) x[q] += xs[q];
+    }
+    add_partial_logits(x, sm, group, gtid);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int ch = 8 * j + 2 * (lane & 3) + e;
-        const float cv[5] = {v_g[5 * ch], v_g[5 * ch + 1], v_g[5 * ch + 2],
-                             v_g[5 * ch + 3], v_g[5 * ch + 4]};
+        const float* v = sm.consts + 5 * ch;
+        const float cv[5] = {v[0], v[1], v[2], v[3], v[4]};
         const bool valid = cb * kBlockC + ch < channels;
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
-          float& v = x[4 * j + 2 * k + e];
-          v = ok[k] && valid ? cotangent(v, cv, col[k], row[k]) : 0.f;
+          float& g = x[4 * j + 2 * k + e];
+          g = ok[k] && valid ? cotangent(g, cv, col[k], row[k]) : 0.f;
         }
       }
+    consumer_sync();  // the partials and the constants have been read
     uint32_t a[4][2][4];
     split_fragments<4, 2>(x, a);
-    for (int n = 0; n < slices; ++n) {
-      const uint32_t w_addr = advance();
-      float acc[32];
+    int prev = 0;
 #pragma unroll
-      for (int k = 0; k < 2; ++k)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float2 v = make_float2(0.f, 0.f);
-          if (cb > 0 && ok[k])
-            v = *reinterpret_cast<const float2*>(
-                partial + prow[k] * kpad + n * kSlice + 8 * j +
-                2 * (lane & 3));
-          acc[4 * j + 2 * k] = v.x;
-          acc[4 * j + 2 * k + 1] = v.y;
+    for (int n = 0; n < kHalfSlices; ++n) {
+      if (n < nd) {
+        const int j = base + slices + item_slot(n, group, np);
+        issue_dfeat(acc[n], a, ring.wait(j));
+        if (n > 0) {
+          wgmma_wait<1>();  // the previous slice's products are done
+          ring.release(prev, lane, issue);
         }
-      slice_dfeat(acc, a, w_addr);
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        if (!ok[k]) continue;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int f = n * kSlice + 8 * j + 2 * (lane & 3);
-          if (cb + 1 < blocks)
-            *reinterpret_cast<float2*>(partial + prow[k] * kpad + f) =
-                make_float2(acc[4 * j + 2 * k], acc[4 * j + 2 * k + 1]);
-          else if (num_feats % 2 == 0)
-            store_pair<true>(dfeat + prow[k] * num_feats, f, num_feats,
-                             acc[4 * j + 2 * k], acc[4 * j + 2 * k + 1]);
-          else
-            store_pair<false>(dfeat + prow[k] * num_feats, f, num_feats,
-                              acc[4 * j + 2 * k], acc[4 * j + 2 * k + 1]);
-        }
+        prev = j;
       }
     }
+    wgmma_wait_all();
+#pragma unroll
+    for (int n = 0; n < kHalfSlices; ++n) fence_operands(acc[n]);
+    if (nd > 0) ring.release(prev, lane, issue);
   }
+
+  with_parity(num_feats, [&](auto even) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (!ok[k]) continue;
+      auto* dst = dfeat + ((long long)b * hw_total + hw0 + wq * 16 +
+                           (lane >> 2) + 8 * k) *
+                              num_feats;
+#pragma unroll
+      for (int n = 0; n < kHalfSlices; ++n) {
+        if (n >= nd) break;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          store_pair<decltype(even)::value>(
+              dst, (d0 + n) * kSlice + 8 * j + 2 * (lane & 3), num_feats,
+              acc[n][4 * j + 2 * k], acc[n][4 * j + 2 * k + 1]);
+      }
+    }
+  });
 }
 
+// (b) dW, db partials of channel block blockIdx.x over chunk q of image
+// b's 64-position tiles, pass blockIdx.z. A consumer warpgroup's logits
+// are channels x positions: thread (warp w, lane l) holds channels 16 w +
+// l / 4 + 8 k and positions 8 j + 2 (l % 4) + e; its dW accumulators the
+// same channels by features 64 (d0 + n) + 8 j + 2 (l % 4) + e.
 template <int kParts>
-__global__ void __launch_bounds__(kSliceGroups * kGroupThreads, 1)
-    hp_bwd_dweight_slices_kernel(
-        const __nv_bfloat16* __restrict__ feats,
-        const __nv_bfloat16* __restrict__ wplanes,
+__global__ void __launch_bounds__(kRingThreads, 1)
+    hp_bwd_dweight_ring_kernel(
+        const __nv_bfloat16* __restrict__ fslices,
+        const __nv_bfloat16* __restrict__ wslices,
         const float* __restrict__ bias, const float* __restrict__ mvec,
         const float* __restrict__ tvec, const float* __restrict__ avec,
         const float* __restrict__ bvec, float* __restrict__ ws,
-        float* __restrict__ ws_db, int hw_total, int width, int num_feats,
-        int kpad, int channels, int chunks, int tiles_per_chunk,
-        int image_tiles) {
-  using Stage = SliceStage<kParts>;
-  constexpr int kPassF = kSlicesPerPass * kSlice;
+        float* __restrict__ ws_db, int hw_total, int width, int slices,
+        int channels, int chunks, int tiles_per_chunk, int tiles,
+        int stages) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);  // 2 stages
-  float* db_s = reinterpret_cast<float*>(ring + 2 * Stage::kElems);
-
+  const RingSmem sm(smem, 0);
   const int c0 = blockIdx.x * kBlockC;
   const int b = blockIdx.y / chunks;
   const int q = blockIdx.y - b * chunks;
-  const int tiles = (hw_total + kTileP - 1) / kTileP;
   const int t0 = q * tiles_per_chunk;
-  const int t1 = min(tiles, t0 + tiles_per_chunk);
+  const int rounds = max(0, min(tiles, t0 + tiles_per_chunk) - t0);
+  const int p0 = blockIdx.z * kPassSlices;  // the pass's first slice
+  const int np = min(kPassSlices, slices - p0);
+  const int per_round = slices + np;
+  const Ring ring{sm.ring, (3 + kParts) * kSlicePlane, stages,
+                  rounds * per_round, sm.full, sm.done};
+  const __nv_bfloat16* wb =
+      wslices + (long long)blockIdx.x * slices * 3 * kSlicePlane;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  if (threadIdx.x < kBlockC) {  // the block's constants for image b
+    const int c = c0 + threadIdx.x;
+    const bool valid = c < channels;
+    const long long bc = (long long)b * channels + c;
+    float* v = sm.consts + 5 * threadIdx.x;
+    v[0] = valid ? bias[c] : 0.f;
+    v[1] = valid ? mvec[bc] : 0.f;
+    v[2] = valid ? tvec[bc] : 0.f;
+    v[3] = valid ? avec[bc] : 0.f;
+    v[4] = valid ? bvec[bc] : 0.f;
+  }
+
+  // Issue item j (one thread): in tile t0 + j / per_round, L items the
+  // weight slice and the feature slice, P items the feature slice again,
+  // for the owning warpgroup.
+  auto issue = [&](int j) {
+    const int r = j / per_round;
+    const int i = j - r * per_round;
+    const __nv_bfloat16* ft =
+        fslices +
+        ((long long)b * tiles + t0 + r) * slices * kParts * kSlicePlane;
+    int group, k;
+    if (i < slices) {
+      item_owner(i, slices, 0, group, k);
+      const int s = half_first(slices, group, 0) + k;
+      __nv_bfloat16* st = ring.expect(j, (3 + kParts) * kSlicePlaneBytes);
+      bulk_copy(st, wb + (long long)s * 3 * kSlicePlane,
+                3 * kSlicePlaneBytes, ring.bar(j));
+      bulk_copy(st + 3 * kSlicePlane,
+                ft + (long long)s * kParts * kSlicePlane,
+                kParts * kSlicePlaneBytes, ring.bar(j));
+    } else {
+      item_owner(i - slices, np, 1, group, k);
+      const int s = p0 + half_first(np, group, 1) + k;
+      bulk_copy(ring.expect(j, kParts * kSlicePlaneBytes) + 3 * kSlicePlane,
+                ft + (long long)s * kParts * kSlicePlane,
+                kParts * kSlicePlaneBytes, ring.bar(j));
+    }
+  };
+  init_ring(sm, stages);
+  if (threadIdx.x == 0)
+    for (int j = 0; j < min(stages, ring.items); ++j) issue(j);
+
   const int group = __shfl_sync(0xffffffffu, warp >> 2, 0);
   const int wq = warp & 3;
   const int gtid = threadIdx.x - group * kGroupThreads;
-  const int slices = kpad / kSlice;
-  const int first = kSlicesPerPass * blockIdx.z;  // the pass's first slice
-  const int passes = min(kSlicesPerPass, slices - first);
-  const int per_round = slices + passes;
-  const int items =
-      max(0, (t1 - t0 + kSliceGroups - 1) / kSliceGroups) * per_round;
-  const __nv_bfloat16* wblock =
-      wplanes + (long long)2 * blockIdx.x * 3 * kRows32 * kpad;
-
-  // item = round r x per_round + i: i < slices the logits' weight and
-  // feature slices, then the pass's feature slices
-  auto stage = [&](int item) {
-    const int r = item / per_round;
-    const int i = item - r * per_round;
-    const int t = t0 + kSliceGroups * r + group;
-    __nv_bfloat16* st = ring + (item & 1) * Stage::kElems;
-    if (i < slices)
-      copy_plane_slice(st, wblock, kpad, i * kSlice, threadIdx.x,
-                       blockDim.x);
-    copy_tile_slice<kParts>(feats, b, min(t, t1 - 1), hw_total,
-                            t < t1 ? hw_total : 0, num_feats, kpad,
-                            image_tiles,
-                            (i < slices ? i : first + i - slices) * kSlice,
-                            st + Stage::kWeight + group * Stage::kFeature,
-                            gtid, kGroupThreads);
-    cp_async_commit();
-  };
-
-  // this thread's two channels' bias, m, T, A, B
-  float cst[2][5];
+  const int nl = half_count(slices, group, 0);
+  const int nd = half_count(np, group, 1);
+  const int d0 = p0 + half_first(np, group, 1);
   bool valid[2];
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int c = c0 + wq * 16 + (lane >> 2) + 8 * k;
-    const long long bc = (long long)b * channels + c;
-    valid[k] = c < channels;
-    cst[k][0] = valid[k] ? bias[c] : 0.f;
-    cst[k][1] = valid[k] ? mvec[bc] : 0.f;
-    cst[k][2] = valid[k] ? tvec[bc] : 0.f;
-    cst[k][3] = valid[k] ? avec[bc] : 0.f;
-    cst[k][4] = valid[k] ? bvec[bc] : 0.f;
-  }
+  for (int k = 0; k < 2; ++k)
+    valid[k] = c0 + wq * 16 + (lane >> 2) + 8 * k < channels;
 
-  float acc[kSlicesPerPass][32];
+  float acc[kHalfSlices][32];
 #pragma unroll
-  for (int n = 0; n < kSlicesPerPass; ++n)
+  for (int n = 0; n < kHalfSlices; ++n)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
   float db[2] = {0.f, 0.f};
 
-  // wait for the ring's next stage, start the copy of the one after it
-  // and return the address of this warpgroup's feature slice there
-  int item = 0;
-  const uint32_t f_off = 2 * (Stage::kWeight + group * Stage::kFeature);
-  auto advance = [&]() {
-    cp_async_wait<0>();
-    fence_async_smem();
-    __syncthreads();  // stage `item` has landed; the other one is free
-    if (item + 1 < items) stage(item + 1);
-    return smem_addr(ring + (item++ & 1) * Stage::kElems) + f_off;
-  };
-  if (items > 0) stage(0);
-  for (int r = 0; r < items / per_round; ++r) {
-    const int t = t0 + kSliceGroups * r + group;
+  for (int r = 0; r < rounds; ++r) {
+    const int base = r * per_round;
     float x[32], xs[32];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) x[j] = 0.f;
-    for (int sl = 0; sl < slices; ++sl) {
-      const uint32_t f_addr = advance();
-      slice_logits<kParts, true>(x, xs, f_addr - f_off, f_addr);
+    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    // each slice's products in xs, added to x once done
+    for (int i = 0; i < nl; ++i) {
+      const int j = base + item_slot(i, group, slices);
+      const uint32_t st = ring.wait(j);
+      issue_logits<kParts, true>(xs, st, st + 3 * kSlicePlaneBytes);
+      wgmma_wait_all();
+      fence_operands(xs);
+      ring.release(j, lane, issue);
+#pragma unroll
+      for (int q = 0; q < 32; ++q) x[q] += xs[q];
     }
+    add_partial_logits(x, sm, group, gtid);
     // g at positions t * 64 + 8 j + 2 (lane % 4) + e, row and column
-    // stepped along without a division each; none past the chunk
-    const int limit = t < t1 ? hw_total : 0;
-    int hw = t * kTileP + 2 * (lane & 3);
+    // stepped along without a division each; db summed by warpgroup 0
+    int hw = (t0 + r) * kTileP + 2 * (lane & 3);
     int rw = hw / width, cl = hw - rw * width;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -1186,115 +1289,126 @@ __global__ void __launch_bounds__(kSliceGroups * kGroupThreads, 1)
         const float rowf = float(wrap ? rw + 1 : rw);
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
-          float& v = x[4 * j + 2 * k + e];
-          v = hw + e < limit && valid[k] ? cotangent(v, cst[k], colf, rowf)
-                                         : 0.f;
-          db[k] += v;
+          const float* v = sm.consts + 5 * (wq * 16 + (lane >> 2) + 8 * k);
+          const float cv[5] = {v[0], v[1], v[2], v[3], v[4]};
+          float& g = x[4 * j + 2 * k + e];
+          g = hw + e < hw_total && valid[k] ? cotangent(g, cv, colf, rowf)
+                                            : 0.f;
+          if (group == 0) db[k] += g;
         }
       }
       hw += 8;
       for (cl += 8; cl >= width; cl -= width) ++rw;
     }
-    // dW += g^T f over the pass's slices of the tile's features
+    consumer_sync();  // the partials have been read
     uint32_t a[4][3][4];
     split_fragments<4, 3>(x, a);
+    int prev = 0;
 #pragma unroll
-    for (int n = 0; n < kSlicesPerPass; ++n)
-      if (n < passes) slice_dweight<kParts>(acc[n], a, advance());
-  }
-
-  // db: the four lanes of a row group (lane / 4) share its channels
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1)
-      db[k] += __shfl_xor_sync(0xffffffffu, db[k], off);
-    if ((lane & 3) == 0)
-      db_s[group * kBlockC + wq * 16 + (lane >> 2) + 8 * k] = db[k];
-  }
-  // warpgroup 1's dW partial goes through the ring (64 x 256 floats) and
-  // warpgroup 0 adds it to its own
-  __syncthreads();
-  float* other = reinterpret_cast<float*>(ring);
-  const long long part = (long long)b * chunks + q;
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    if ((pass == 0) == (group == 1)) {
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int rr = wq * 16 + (lane >> 2) + 8 * k;
-#pragma unroll
-        for (int n = 0; n < kSlicesPerPass; ++n)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int f = n * kSlice + 8 * j + 2 * (lane & 3);
-            float2 v = make_float2(acc[n][4 * j + 2 * k],
-                                   acc[n][4 * j + 2 * k + 1]);
-            float2* o = reinterpret_cast<float2*>(other + rr * kPassF + f);
-            if (group == 1) {
-              *o = v;
-            } else if (valid[k] && n < passes) {
-              const float2 u = *o;
-              *reinterpret_cast<float2*>(
-                  ws + (part * channels + c0 + rr) * kpad + first * kSlice +
-                  f) = make_float2(v.x + u.x, v.y + u.y);
-            }
-          }
+    for (int n = 0; n < kHalfSlices; ++n) {
+      if (n < nd) {
+        const int j = base + slices + item_slot(n, group, np);
+        issue_dweight<kParts>(acc[n], a,
+                              ring.wait(j) + 3 * kSlicePlaneBytes);
+        if (n > 0) {
+          wgmma_wait<1>();  // the previous slice's products are done
+          ring.release(prev, lane, issue);
+        }
+        prev = j;
       }
     }
-    __syncthreads();
+    wgmma_wait_all();
+#pragma unroll
+    for (int n = 0; n < kHalfSlices; ++n) fence_operands(acc[n]);
+    if (nd > 0) ring.release(prev, lane, issue);
   }
-  if (blockIdx.z == 0)
-    for (int i = threadIdx.x; i < kBlockC; i += blockDim.x)
-      if (c0 + i < channels)
-        ws_db[part * channels + c0 + i] = db_s[i] + db_s[kBlockC + i];
+
+  const long long part = (long long)b * chunks + q;
+  const int kpad = slices * kSlice;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int rr = wq * 16 + (lane >> 2) + 8 * k;
+    if (group == 0 && blockIdx.z == 0) {
+      // db: the four lanes of a row group (lane / 4) share its channels
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+        db[k] += __shfl_xor_sync(0xffffffffu, db[k], off);
+      if ((lane & 3) == 0 && valid[k])
+        ws_db[part * channels + c0 + rr] = db[k];
+    }
+    if (!valid[k]) continue;
+    float* dst = ws + (part * channels + c0 + rr) * kpad;
+#pragma unroll
+    for (int n = 0; n < kHalfSlices; ++n) {
+      if (n >= nd) break;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(dst + (d0 + n) * kSlice + 8 * j +
+                                   2 * (lane & 3)) =
+            make_float2(acc[n][4 * j + 2 * k], acc[n][4 * j + 2 * k + 1]);
+    }
+  }
 }
 
-// (a) and (b) at F > 256: feats are bf16 rows (kParts 1) or (s)'s feature
-// planes (kParts 3), wplanes (s)'s weight planes, partial (a)'s dfeat
-// partial (batch x H*W rows of kpad floats); chunks of 64-position tiles.
+// The ring's stages that fit beside `head` bytes of shared memory.
+inline int ring_stages(size_t head, size_t stage_bytes) {
+  const size_t fit = (kSmemLimit - head) / stage_bytes;
+  return fit < kMaxStages ? (int)fit : kMaxStages;
+}
+
+// (s2), (a) and (b) at F > 256: feats are bf16 (kParts 1) or float32
+// (kParts 3) rows; planes holds (s2)'s layout (SlicePlanes: the features'
+// slices, then the weight's).
 template <int kParts>
-cudaError_t launch_bwd_slices(
-    const __nv_bfloat16* feats, const __nv_bfloat16* wplanes,
-    const float* bias, const float* m, const float* t, const float* a,
-    const float* bc,
-    std::conditional_t<kParts == 1, __nv_bfloat16, float>* dfeat,
-    float* partial, float* ws, float* ws_db, const F32Planes& pl,
-    int hw_total, int width, int num_feats, int channels, int chunks,
-    cudaStream_t stream) {
-  const int passes = (pl.kpad / kSlice + kSlicesPerPass - 1) / kSlicesPerPass;
-  const size_t ring =
-      (size_t)2 * SliceStage<kParts>::kElems * sizeof(__nv_bfloat16);
-  const size_t smem_a = ring + kSliceGroups * 5 * kBlockC * sizeof(float);
-  const int ctas_a =
-      (pl.batch * pl.tiles64 + kSliceGroups - 1) / kSliceGroups;
-  cudaError_t err = allow_smem(hp_bwd_dfeat_slices_kernel<kParts>, smem_a);
+cudaError_t launch_bwd_ring(
+    const void* feats, const float* weight, const float* bias,
+    const float* m, const float* t, const float* a, const float* bc,
+    std::conditional_t<kParts == 1, __nv_bfloat16, float>* dfeat, float* ws,
+    float* ws_db, __nv_bfloat16* planes, int batch, int hw_total, int width,
+    int num_feats, int channels, int chunks, cudaStream_t stream) {
+  const SlicePlanes sp(batch, hw_total, num_feats, channels);
+  __nv_bfloat16* fslices = planes;
+  __nv_bfloat16* wslices = planes + sp.feature_elems(kParts);
+  cudaError_t err = split_slices<kParts>(feats, batch, hw_total, num_feats,
+                                         fslices, stream);
   if (err != cudaSuccess) return err;
-  hp_bwd_dfeat_slices_kernel<kParts>
-      <<<ctas_a, kSliceGroups * kGroupThreads, smem_a, stream>>>(
-          feats, wplanes, bias, m, t, a, bc, dfeat, partial, hw_total, width,
-          num_feats, pl.kpad, channels, pl.blocks, pl.tiles64,
-          pl.batch * pl.tiles64, pl.image_tiles);
+  err = split_slices<3>(weight, 1, channels, num_feats, wslices, stream);
+  if (err != cudaSuccess) return err;
+
+  const int resident = kParts == 1 && sp.slices <= kPassSlices;
+  const size_t head_a =
+      kRingHead + (resident ? (size_t)sp.slices * kSlicePlaneBytes : 0);
+  const size_t stage_a =
+      (size_t)(3 + (resident ? 0 : kParts)) * kSlicePlaneBytes;
+  const int stages_a = ring_stages(head_a, stage_a);
+  const size_t smem_a = head_a + stages_a * stage_a;
+  err = allow_smem(hp_bwd_dfeat_ring_kernel<kParts>, smem_a);
+  if (err != cudaSuccess) return err;
+  hp_bwd_dfeat_ring_kernel<kParts>
+      <<<dim3(batch * sp.tiles64, sp.passes()), kRingThreads, smem_a,
+         stream>>>(fslices, wslices, bias, m, t, a, bc, dfeat, hw_total,
+                   width, num_feats, sp.slices, channels, sp.blocks,
+                   sp.tiles64, stages_a, resident);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem_b = ring + kSliceGroups * kBlockC * sizeof(float);
-  err = allow_smem(hp_bwd_dweight_slices_kernel<kParts>, smem_b);
+  const size_t stage_b = (size_t)(3 + kParts) * kSlicePlaneBytes;
+  const int stages_b = ring_stages(kRingHead, stage_b);
+  const size_t smem_b = kRingHead + stages_b * stage_b;
+  err = allow_smem(hp_bwd_dweight_ring_kernel<kParts>, smem_b);
   if (err != cudaSuccess) return err;
-  hp_bwd_dweight_slices_kernel<kParts>
-      <<<dim3(pl.blocks, pl.batch * chunks, passes),
-         kSliceGroups * kGroupThreads, smem_b, stream>>>(
-          feats, wplanes, bias, m, t, a, bc, ws, ws_db, hw_total, width,
-          num_feats, pl.kpad, channels, chunks,
-          (pl.tiles64 + chunks - 1) / chunks, pl.image_tiles);
+  hp_bwd_dweight_ring_kernel<kParts>
+      <<<dim3(sp.blocks, batch * chunks, sp.passes()), kRingThreads, smem_b,
+         stream>>>(fslices, wslices, bias, m, t, a, bc, ws, ws_db, hw_total,
+                   width, sp.slices, channels, chunks,
+                   (sp.tiles64 + chunks - 1) / chunks, sp.tiles64, stages_b);
   return cudaGetLastError();
 }
 }  // namespace
 
-// bf16 features: launches (a) and (b), or at F > 256 (s) over the weight
-// into `planes` (head_projection_planes_bytes: the weight's planes, then
-// (a)'s dfeat partial) and the slice-walking (a) and (b); the caller runs
-// (c).
+// bf16 features: launches (a) and (b), or at F > 256 (s2) over the
+// features and the weight into `planes` (head_projection_planes_bytes)
+// and the ring's (a) and (b); the caller runs (c).
 // ws holds batch * chunks partial (J*D, kpad) blocks (F rounded up to 64:
 // aligned paired stores at any F), ws_db batch * chunks partial (J*D,)
 // rows.
@@ -1307,15 +1421,10 @@ cudaError_t head_projection_bwd_mma(
   const int hw_total = height * width;
   const int channels = num_joints * depth;
   const F32Planes pl(batch, hw_total, num_feats, channels);
-  if (pl.kpad > kResidentBlocks * 64) {
-    const cudaError_t err = split_weight_planes(weight, pl, num_feats,
-                                                channels, planes, stream);
-    if (err != cudaSuccess) return err;
-    return launch_bwd_slices<1>(
-        feats, planes, bias, m, t, a, bc, dfeat,
-        reinterpret_cast<float*>(planes + pl.weight_elems()), ws, ws_db, pl,
-        hw_total, width, num_feats, channels, chunks, stream);
-  }
+  if (pl.kpad > kResidentBlocks * 64)
+    return launch_bwd_ring<1>(feats, weight, bias, m, t, a, bc, dfeat, ws,
+                              ws_db, planes, batch, hw_total, width,
+                              num_feats, channels, chunks, stream);
   const int kpad = pl.kpad;
   const int blocks = pl.blocks;
   const int tiles = pl.tiles64;
@@ -1387,8 +1496,8 @@ cudaError_t launch_f32_resident(const __nv_bfloat16* planes,
   return cudaGetLastError();
 }
 
-// float32 features: (s), then (a) and (b), resident (kBF 1 .. 4) or
-// slice-walking (kBF 0, F > 256).
+// float32 features: (s), then (a) and (b), resident (kBF 1 .. 4), or
+// (s2) and the ring's (a) and (b) (kBF 0, F > 256).
 template <int kBF>
 cudaError_t launch_f32(const float* feats, const float* weight,
                        const float* bias, const float* m, const float* t,
@@ -1397,28 +1506,28 @@ cudaError_t launch_f32(const float* feats, const float* weight,
                        int batch, int height, int width, int num_feats,
                        int channels, int chunks, cudaStream_t stream) {
   const int hw_total = height * width;
-  const F32Planes pl(batch, hw_total, num_feats, channels);
-  const cudaError_t err = split_f32_planes(feats, weight, pl, hw_total,
-                                           num_feats, channels, planes,
-                                           stream);
-  if (err != cudaSuccess) return err;
-  if constexpr (kBF == 0)
-    return launch_bwd_slices<3>(
-        planes, planes + pl.feature_elems(), bias, m, t, a, bc, dfeat,
-        reinterpret_cast<float*>(planes + pl.elems()), ws, ws_db, pl,
-        hw_total, width, num_feats, channels, chunks, stream);
-  else
+  if constexpr (kBF == 0) {
+    return launch_bwd_ring<3>(feats, weight, bias, m, t, a, bc, dfeat, ws,
+                              ws_db, planes, batch, hw_total, width,
+                              num_feats, channels, chunks, stream);
+  } else {
+    const F32Planes pl(batch, hw_total, num_feats, channels);
+    const cudaError_t err = split_f32_planes(feats, weight, pl, hw_total,
+                                             num_feats, channels, planes,
+                                             stream);
+    if (err != cudaSuccess) return err;
     return launch_f32_resident<kBF>(planes, bias, m, t, a, bc, dfeat, ws,
                                     ws_db, pl, hw_total, width, num_feats,
                                     channels, chunks, stream);
+  }
 }
 
 }  // namespace
 
-// The float32-feature route: (s), (a) and (b) above; the caller runs (c).
-// ws holds batch * chunks partial (J*D, kpad) blocks over tiles of 32
-// positions (64 at F > 256), planes head_projection_planes_bytes bytes
-// (f32_planes.cuh; at F > 256 (a)'s dfeat partial after the planes).
+// The float32-feature route: (s) or (s2), (a) and (b) above; the caller
+// runs (c). ws holds batch * chunks partial (J*D, kpad) blocks over tiles
+// of 32 positions (64 at F > 256), planes head_projection_planes_bytes
+// bytes (f32_planes.cuh; at F > 256 (s2)'s layout, k_slices.cuh).
 cudaError_t head_projection_bwd_mma_f32(
     const float* feats, const float* weight, const float* bias,
     const float* m, const float* t, const float* a, const float* bc,

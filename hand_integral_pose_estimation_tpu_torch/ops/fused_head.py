@@ -20,7 +20,8 @@ float32 features (`compute_dtype="float32"`) are split into three parts
 as well, and the part pairs kept to float32 accuracy (`F32_PART_PAIRS`).
 Up to F = 256 a CTA keeps its block's weight planes at the whole F in
 shared memory; wider features are walked in slices of 64
-(`csrc/k_slices.cuh`). Each feature dtype counts its launches on its own
+(`csrc/k_slices.cuh`), the backward's through a ring of bulk copies with
+F split between two warpgroups, in passes of 512 features past 512. Each feature dtype counts its launches on its own
 entry point (`forward_route`; `kernels.HEAD_PROJECTION_INTEGRAL_*_F32`
 for float32 features).
 """
@@ -50,6 +51,9 @@ _RESIDENT_FEATS = 256
 # features, 32 for float32 ones up to 256 features, 64 past that
 _MMA_BLOCK_C = 64
 _DW_TILE = {torch.bfloat16: 64, torch.float32: 32}
+# features a pass of kernel 4's N = F products takes past
+# `_RESIDENT_FEATS`: each of the two warpgroups owns half of them
+_PASS_FEATS = 512
 # float32 features: the (feature part, weight part) pairs the tensor-core
 # route multiplies, of the three-part splits (0 hi, 1 mid, 2 lo): those
 # whose parts' orders add up to at most 2^-16 of the product. The logits
@@ -79,18 +83,36 @@ def _chunk_tile(dtype: torch.dtype, num_feats: int) -> int:
     return _DW_TILE[dtype] if num_feats <= _RESIDENT_FEATS else 64
 
 
-def _mma_chunks(feats: torch.Tensor, num_channels: int) -> int:
+def _mma_chunks(feats: torch.Tensor, num_channels: int,
+                passes: int = 1) -> int:
     """Chunks per image of the tensor-core forward and dW grids, which have
     one CTA per (image, chunk of its tiles of positions, block of 64
-    channels) and one CTA per SM: the count that least waves x (tiles per
-    chunk + 1, the weight staging's share) take, so the last wave is nearly
-    full at any batch. Tiles are `_chunk_tile` positions."""
+    channels, pass) and one CTA per SM: the count that least waves x
+    (tiles per chunk + 1, the weight staging's share) take, so the last
+    wave is nearly full at any batch. Tiles are `_chunk_tile` positions."""
     B, H, W, F = feats.shape
     tiles = -(-(H * W) // _chunk_tile(feats.dtype, F))
-    ctas = B * -(-num_channels // _MMA_BLOCK_C)
+    ctas = B * -(-num_channels // _MMA_BLOCK_C) * passes
     sms = kernels.sm_count(feats.device.index or 0)
     return min(range(1, tiles + 1), key=lambda c: (
         math.ceil(ctas * c / sms) * (-(-tiles // c) + 1)))
+
+
+def backward_passes(num_feats: int) -> int:
+    """Passes of the N = F products in kernel 4's grids: one up to
+    `_PASS_FEATS` features, then one per `_PASS_FEATS` (as the C launcher
+    cuts them: `SlicePlanes::passes`, `csrc/k_slices.cuh`)."""
+    return max(1, -(-num_feats // _PASS_FEATS))
+
+
+def dweight_grid(feats: torch.Tensor, num_channels: int
+                 ) -> tuple[int, int, int]:
+    """The grid kernel 4's dW launch starts, (channel blocks, images x
+    chunks, passes), with the chunks planned over every dimension of it."""
+    B, F = feats.shape[0], feats.shape[-1]
+    passes = backward_passes(F)
+    chunks = _mma_chunks(feats, num_channels, passes)
+    return -(-num_channels // _MMA_BLOCK_C), B * chunks, passes
 
 
 def head_projection_integral_reference(feats: torch.Tensor,
@@ -219,7 +241,7 @@ def head_projection_integral_bwd_cuda(feats: torch.Tensor,
     """Launch the fused-head backward (`csrc/head_projection_integral_bwd.cu`,
     three launches: dfeat, per-chunk dW/db partials, their fixed-order sum;
     on the tensor cores for both feature dtypes, `*_bwd_mma.cu`; float32
-    features, and the weight past 256 features, split first; float32
+    features, and past 256 features both operands, laid out first; float32
     features counted on `HEAD_PROJECTION_INTEGRAL_BWD_F32`). Operands as
     `head_projection_integral_cuda` takes them (any width and depth),
     plus the forward's m, s (B, J), coords and the cotangent (B, J, 3).
@@ -253,7 +275,7 @@ def head_projection_integral_bwd_cuda(feats: torch.Tensor,
     _check_feats(feats, weight, depth)
     if B * H * W * F * num_joints == 0:
         raise ValueError(f"empty features {tuple(feats.shape)}")
-    chunks = _mma_chunks(feats, C)
+    chunks = dweight_grid(feats, C)[1] // B
     with torch.cuda.device(feats.device):
         mvec, T, A, Bc = channel_constants(m, s, coords, cot, H, W, depth)
         f32 = dict(dtype=torch.float32, device=feats.device)

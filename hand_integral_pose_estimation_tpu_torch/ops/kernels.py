@@ -111,9 +111,10 @@ MMA_KERNELS = ("hp_fwd_mma_kernel", "hp_bwd_dfeat_mma_kernel",
 #: the float32-feature route of kernels 3 and 4 on the tensor cores
 F32_MMA_KERNELS = ("hp_fwd_f32_kernel", "hp_bwd_dfeat_f32_kernel",
                    "hp_bwd_dweight_f32_kernel")
-#: kernels 3 and 4 at F > 256 (both feature dtypes, one template each)
-SLICE_MMA_KERNELS = ("hp_fwd_slices_kernel", "hp_bwd_dfeat_slices_kernel",
-                     "hp_bwd_dweight_slices_kernel")
+#: kernels 3 and 4 at F > 256 (both feature dtypes, one template each;
+#: the backward's fed through a ring of bulk copies)
+SLICE_MMA_KERNELS = ("hp_fwd_slices_kernel", "hp_bwd_dfeat_ring_kernel",
+                     "hp_bwd_dweight_ring_kernel")
 
 
 def tensor_core_instructions(names=MMA_KERNELS) -> dict[str, int]:
@@ -244,10 +245,11 @@ def head_projection_workspace(dtype: torch.dtype, backward: bool,
                               feats: int, joints: int, depth: int) -> int:
     """Bytes of the workspace of split bf16 planes that kernel 3 or, with
     `backward`, kernel 4 takes for features of `dtype` (one layout for
-    both): float32 features' and the weight's, the weight's alone for bf16
-    features wider than 256, else 0; past 256 features kernel 4's also
-    holds its dfeat partial. The C library owns the layout. It launches
-    nothing."""
+    both up to 256 features): float32 features' and the weight's, the
+    weight's alone for bf16 features wider than 256, else 0; past 256
+    features kernel 4's holds the features and the weight laid out slice
+    by slice (`csrc/k_slices.cuh`), bf16 features as one plane. The C
+    library owns the layout. It launches nothing."""
     return int(_planes_entry()(int(dtype == torch.float32), int(backward),
                                batch, height, width, feats, joints, depth))
 
@@ -300,13 +302,13 @@ HEAD_PROJECTION_INTEGRAL_BWD = Kernel(
     "hipe_head_projection_integral_bwd",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
      _I, _I, _I, _I, _I, _I, _I, _P],
-    ("hp_bwd_dfeat_mma_kernel", "hp_bwd_dfeat_slices_kernel<1>"))
+    ("hp_bwd_dfeat_mma_kernel", "hp_bwd_dfeat_ring_kernel<1>"))
 #: float32 features, on the tensor cores as well: the same arguments
 HEAD_PROJECTION_INTEGRAL_BWD_F32 = Kernel(
     "hipe_head_projection_integral_bwd_f32",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
      _I, _I, _I, _I, _I, _I, _I, _P],
-    ("hp_bwd_dfeat_f32_kernel", "hp_bwd_dfeat_slices_kernel<3>"))
+    ("hp_bwd_dfeat_f32_kernel", "hp_bwd_dfeat_ring_kernel<3>"))
 #: (images, image dtype (0 float32, 1 uint8), maps, map dtype (0 float32,
 #:  1 float64), map strides (3), inverse, colour or NULL, host means and
 #:  stds or NULL, out, B, Hs, Ws, Ho, Wo, C, stream)

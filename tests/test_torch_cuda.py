@@ -426,11 +426,16 @@ def test_f32_head_fwd_at_path_shapes(dev, shape):
 # every width and depth the JAX head takes: F odd (7: 2-byte feature
 # copies and single stores in the resident kernels; 259 in the slice
 # kernels), not a multiple of 4 (6; 258: 4-byte copies past 256) or of 8
-# (38), past 256 (260: one slice past the resident kernels; 512: two
-# passes of the N = F products; 2048: eight), and D = 160 (the chunk merge
-# and kernel 1's generic path past 128 depth slots) at F = 256 and 512
+# (38), past 256 (260: one slice past the resident kernels, split 3 + 2
+# between the backward's warpgroups; 320 and 384: 5 and 6 whole slices;
+# 511 and 512: the last width of one pass of the N = F products, 4 + 4
+# slices; 513: the first with two passes, the second of one slice, which
+# warpgroup 1 sits out; 1024: two whole passes; 2048: four, bf16 features
+# streamed in the backward's dfeat), and D = 160 (the chunk merge and
+# kernel 1's generic path past 128 depth slots) at F = 256 and 512
 WIDE_HEAD_SHAPES = [(2, 9, 7, 3, 24, f)
-                    for f in (6, 7, 38, 258, 259, 260, 512, 2048)] + [
+                    for f in (6, 7, 38, 258, 259, 260, 320, 384, 511, 512,
+                              513, 1024, 2048)] + [
     (2, 9, 7, 3, 160, 256), (2, 9, 7, 2, 160, 512), (3, 56, 56, 21, 56, 512)]
 
 

@@ -444,3 +444,115 @@ def test_bf16_forward_route_by_width():
     assert len(set(symbols)) == len(symbols)
     assert not any("cuda_cores" in s for s in symbols)
     assert "hp_fwd_f32_kernel" in kernels.F32_MMA_KERNELS
+
+
+# kernel 4 past 256 features (the ring kernels, csrc/k_slices.cuh): each
+# 64-wide slice's three-part logits in a sum of their own, each of the two
+# warpgroups' halves of K added slice by slice, the halves added
+# warpgroup 0 + 1; the products along N = F in passes of 512 features
+def _emulated_ring_backward(feats, w, bias, m, s, coords, cot, D):
+    """dfeat, dW, db in the ring kernels' order of sums: the logits as
+    above; dfeat's channel blocks of 64 and dW's tiles of 64 positions
+    added in order, each a float32 sum of bf16 part products."""
+    b_, h_, w_, f_ = feats.shape
+    slices = -(-f_ // 64)
+    pad = slices * 64 - f_
+    f = torch.nn.functional.pad(torch.from_numpy(feats), (0, pad))
+    f = f.reshape(b_, h_ * w_, slices * 64)
+    wt = torch.nn.functional.pad(torch.from_numpy(w), (0, pad))
+    parts = [p.float() for p in fused_head.bf16_split(wt, 3)]
+
+    def slice_logits(k):
+        cols = slice(64 * k, 64 * k + 64)
+        return sum(torch.matmul(f[..., cols], p[:, cols].t()) for p in parts)
+
+    half = (slices + 1) // 2
+    halves = [torch.zeros(b_, h_ * w_, wt.shape[0]) for _ in range(2)]
+    for k in range(slices):
+        halves[k >= half] = halves[k >= half] + slice_logits(k)
+    x = halves[0] + halves[1] + torch.from_numpy(bias)
+    mvec, T, A, Bc = integral.channel_constants(
+        torch.from_numpy(m), torch.from_numpy(s), torch.from_numpy(coords),
+        torch.from_numpy(cot), h_, w_, D)
+    hw = torch.arange(h_ * w_)
+    col = (hw % w_).float()[None, :, None]
+    row = (hw // w_).float()[None, :, None]
+    g = (torch.exp(x - mvec[:, None, :])
+         * (T[:, None, :] + A[:, None, :] * col + Bc[:, None, :] * row))
+    g2 = [p.float() for p in fused_head.bf16_split(g, 2)]
+    g3 = [p.float() for p in fused_head.bf16_split(g, 3)]
+    dfeat = torch.zeros_like(f)
+    for c0 in range(0, wt.shape[0], 64):
+        ch = slice(c0, c0 + 64)
+        dfeat = dfeat + (torch.matmul(g2[0][..., ch], parts[0][ch])
+                         + torch.matmul(g2[0][..., ch], parts[1][ch])
+                         + torch.matmul(g2[1][..., ch], parts[0][ch]))
+    dW = torch.zeros_like(wt)
+    for bi in range(b_):
+        for p0 in range(0, h_ * w_, 64):
+            rows = slice(p0, p0 + 64)
+            dW = dW + sum(p[bi, rows].t() @ f[bi, rows] for p in g3)
+    return (dfeat[..., :f_].reshape(feats.shape), dW[:, :f_],
+            g.sum(dim=(0, 1)))
+
+
+@pytest.mark.parametrize("num_feats", [260, 512, 513])
+def test_emulated_ring_backward_matches_jax(num_feats):
+    """The ring kernels' plan of sums, emulated at widths with one pass
+    (260: 3 + 2 slices, 512: 4 + 4) and two (513), within the tolerances
+    the other kernels are held to against the JAX backward."""
+    D, hw = 4, (9, 7)
+    rng = np.random.default_rng(num_feats)
+    feats = torch.from_numpy(rng.normal(size=(2, *hw, num_feats)).astype(
+        np.float32)).to(torch.bfloat16).float().numpy()
+    w = (rng.normal(size=(J * D, num_feats)) * LOGIT_STD
+         / np.sqrt(num_feats)).astype(np.float32)
+    bias = rng.normal(size=(J * D,)).astype(np.float32)
+    cot = rng.normal(size=(2, J, 3)).astype(np.float32)
+    coords, m, s = (np.array(a) for a in jfused._hp_fwd_dispatch(
+        jnp.asarray(feats), jnp.asarray(w.T), jnp.asarray(bias), J, D,
+        "xla", False))
+    res = (jnp.asarray(feats), jnp.asarray(w.T), jnp.asarray(bias),
+           jnp.asarray(m), jnp.asarray(s), jnp.asarray(coords))
+    want = jfused._hp_bwd(J, D, "xla", False, res, jnp.asarray(cot))
+    dfeat, dW, db = _emulated_ring_backward(feats, w, bias, m, s, coords,
+                                            cot, D)
+    assert _excess(dfeat, want[0], DFEAT_SCALE) <= 0
+    assert _excess(dW, np.asarray(want[1]).T, DW_SCALE) <= 0
+    assert _excess(db, want[2], DW_SCALE) <= 0
+
+
+@pytest.mark.parametrize("num_feats", [256, 260, 512, 1024])
+@pytest.mark.parametrize("batch", [32, 4])
+def test_backward_grid_plan_counts_every_dimension(monkeypatch, num_feats,
+                                                   batch):
+    """Kernel 4's dW grid (`fused_head.dweight_grid`) at the serving
+    shape on 132 SMs: (channel blocks, images x chunks, passes) as the C
+    launcher starts it, one pass up to 512 features and one per 512 past
+    that; the chunks planned over that whole grid (no other count takes
+    fewer waves x (tiles per chunk + 1)), no chunk empty, and the waves
+    nearly full: the work of one chunk an image over the SMs' time of the
+    planned waves at least 0.85."""
+    monkeypatch.setattr(kernels, "sm_count", lambda index: 132)
+    C, sms = 21 * 56, 132
+    for dtype in (torch.bfloat16, torch.float32):
+        feats = torch.empty(batch, 56, 56, num_feats, dtype=dtype)
+        blocks, rows, passes = fused_head.dweight_grid(feats, C)
+        assert blocks == 19
+        assert passes == fused_head.backward_passes(num_feats) == (
+            1 if num_feats <= 512 else -(-num_feats // 512))
+        assert rows % batch == 0
+        chunks = rows // batch
+        tiles = -(-56 * 56 // fused_head._chunk_tile(dtype, num_feats))
+        per_chunk = -(-tiles // chunks)
+        assert (chunks - 1) * per_chunk < tiles
+
+        def cost(c):
+            return (-(-blocks * batch * passes * c // sms)
+                    * (-(-tiles // c) + 1))
+
+        assert cost(chunks) == min(cost(c) for c in range(1, tiles + 1))
+        waves = -(-blocks * rows * passes // sms)
+        busy = (blocks * batch * passes * (tiles + 1)
+                / (sms * waves * (per_chunk + 1)))
+        assert busy >= 0.85, (dtype, chunks, busy)
