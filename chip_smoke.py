@@ -336,7 +336,8 @@ SWEEP_CROPS = SWEEP_BATCH * 21
 # training run's (512, both dtypes) and phase 6's; and a depth past 128
 WIDE_FEATS = (260, 512)
 WIDE_DEPTH = 160
-# phase 6 also times the backward at two passes of 512 features
+# phase 6 also times the forward and the backward at 1024 features (the
+# backward's two passes of 512)
 PASS_FEATS_TIMED = 1024
 WIDE_TRAIN_STEPS = 2
 # the kernels line's rows of the kernels both routes take past 256
@@ -3635,14 +3636,17 @@ def main() -> None:
     # (not a multiple of 8), 259 (odd, past 256), 260 (one slice past the
     # kernels that keep a block's weight planes at the whole F) and 512
     # (two passes of the N = F products) at the serving shape, D = 160 at F
-    # = 256 and 512; each forward and backward twice for the same bits.
-    # Their errors go to the `*_slices` rows past 256 features.
+    # = 256 and 512, and 5 x 64 positions of one image at F = 320 (the
+    # forward's last round of tiles holds one: a ragged round); each
+    # forward and backward twice for the same bits. Their errors go to the
+    # `*_slices` rows past 256 features.
     for (B, H, W, j, d, f), fdt in itertools.product(
             ((BATCH, Ho, Wo, J, D, WIDE_FEATS[0]),
              (BATCH, Ho, Wo, J, D, WIDE_FEATS[1]), (2, 7, 5, 3, 12, 38),
              (2, 7, 5, 3, 12, 7), (2, 9, 7, 3, 24, 259),
              (2, 9, 7, 3, WIDE_DEPTH, 256),
-             (2, 9, 7, 2, WIDE_DEPTH, WIDE_FEATS[1])),
+             (2, 9, 7, 2, WIDE_DEPTH, WIDE_FEATS[1]),
+             (1, 5, 64, 3, 24, 320)),
             (torch.bfloat16, torch.float32)):
         sfx = ("_f32" if fdt == torch.float32 else "") + (
             "_slices" if f > 256 else "")
@@ -3833,7 +3837,7 @@ def main() -> None:
         check(counts == {k.symbol: n_batches if k is entry else 0
                          for k in kernels.KERNELS},
               f"the width-{f} sweep launched {counts}")
-        check(traced == {f"hp_fwd_slices_kernel<{parts}>": n_batches},
+        check(traced == {f"hp_fwd_ring_kernel<{parts}>": n_batches},
               f"the width-{f} sweep ran the head's device kernels "
               f"{dict(traced)}")
         check(coords_w.shape == (N_SAMPLES, J, 3)
@@ -4265,7 +4269,8 @@ def main() -> None:
                   + f" on {card}", flush=True)
             del x, cw, mw, sw
         del feats_w, w_w
-    # the backward past one pass of the N = F products (two passes of 512)
+    # the forward and the backward at F = PASS_FEATS_TIMED (the backward
+    # past one pass of the N = F products: two passes of 512)
     feats_w = torch.randn(BATCH, Ho, Wo, PASS_FEATS_TIMED, device=dev,
                           generator=g)
     w_w = (0.1 * 16 / math.sqrt(PASS_FEATS_TIMED)) * torch.randn(
@@ -4274,17 +4279,25 @@ def main() -> None:
                            (torch.float32, "_f32", BF16X6_FLOPS)):
         x = feats_w.to(fdt)
         cw, mw, sw = head_projection_integral_cuda(x, w_w, b, J, D)
-        t = time_pair(
-            lambda: head_projection_integral_bwd_cuda(
-                x, w_w, b, mw, sw, cw, cot, J, D),
-            lambda: head_projection_integral_bwd_reference(
-                x, w_w, b, mw, sw, cw, cot, J, D), iters=2)
-        bd = bound(2 * (x.numel() * x.element_size() + w_w.numel() * 4),
-                   3 * 2.0 * x.numel() * w_w.shape[0], rate)
-        print(f"[timing] head_projection_integral_bwd{sfx} at F = "
-              f"{PASS_FEATS_TIMED}, {tuple(x.shape)}: kernel {t[0]:.4f} ms, "
-              f"plain {t[1]:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), "
-              f"{100 * bd[0] / t[0]:.1f} % of it, on {card}", flush=True)
+        flops = 2.0 * x.numel() * w_w.shape[0]
+        fbytes = x.numel() * x.element_size() + w_w.numel() * 4
+        for direction, t, bd in (
+                ("fwd", time_pair(
+                    lambda: head_projection_integral_cuda(x, w_w, b, J, D),
+                    lambda: head_projection_integral_reference(
+                        x, w_w, b, J, D), iters=3),
+                 bound(fbytes, flops, rate)),
+                ("bwd", time_pair(
+                    lambda: head_projection_integral_bwd_cuda(
+                        x, w_w, b, mw, sw, cw, cot, J, D),
+                    lambda: head_projection_integral_bwd_reference(
+                        x, w_w, b, mw, sw, cw, cot, J, D), iters=2),
+                 bound(2 * fbytes, 3 * flops, rate))):
+            print(f"[timing] head_projection_integral_{direction}{sfx} at "
+                  f"F = {PASS_FEATS_TIMED}, {tuple(x.shape)}: kernel "
+                  f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {bd[0]:.4f} "
+                  f"ms ({bd[1]}), {100 * bd[0] / t[0]:.1f} % of it, on "
+                  f"{card}", flush=True)
         del x, cw, mw, sw
     del feats_w, w_w
     torch.cuda.empty_cache()

@@ -198,30 +198,26 @@ __device__ __forceinline__ void zero_pad(__nv_bfloat16* tile, int rows,
   }
 }
 
-// Issue the copies of columns f0 .. f1 - 1 of positions hw0 .. hw0 +
-// kTileP - 1 of one image's bf16 features (HW, F) into columns 0 .. f1 -
-// f0 - 1 of a tile with kpad columns, by threads tid = 0 .. nthreads - 1;
-// rows past hw_total are zero-filled, and with kPastF (f1 > F: a slice
-// of F's last 64) so are columns past F. kBytes is the widest copy the
-// rows' alignment allows (F % 8 == 0: 16, F % 4 == 0: 8, F even: 4, else
-// 2), and f0, f1 are multiples of its width; 2-byte copies are plain loads
-// and stores (cp.async has none), which the caller's fence_async_smem
-// orders like the rest. Eight neighbouring threads fill one core matrix,
-// with no division per copy.
-template <int kBytes, bool kPastF>
+// Issue the copies of the F columns of positions hw0 .. hw0 + kTileP - 1
+// of one image's bf16 features (HW, F) into a tile with kpad columns, by
+// threads tid = 0 .. nthreads - 1; rows past hw_total are zero-filled.
+// kBytes is the widest copy the rows' alignment allows (F % 8 == 0: 16, F
+// % 4 == 0: 8, F even: 4, else 2); 2-byte copies are plain loads and
+// stores (cp.async has none), which the caller's fence_async_smem orders
+// like the rest. Eight neighbouring threads fill one core matrix, with no
+// division per copy.
+template <int kBytes>
 __device__ __forceinline__ void copy_features(
     const __nv_bfloat16* __restrict__ image, int hw0, int hw_total,
-    int num_feats, int f0, int f1, int kpad, __nv_bfloat16* tile, int tid,
-    int nthreads) {
+    int num_feats, int kpad, __nv_bfloat16* tile, int tid, int nthreads) {
   constexpr int kVec = kBytes / 2;
-  for (int f = f0 + (tid >> 3) * kVec; f < f1; f += (nthreads >> 3) * kVec)
+  for (int f = (tid >> 3) * kVec; f < num_feats; f += (nthreads >> 3) * kVec)
     for (int p = tid & 7; p < kTileP; p += 8) {
       const int hw = hw0 + p;
-      const bool valid = hw < hw_total && (!kPastF || f < num_feats);
-      const __nv_bfloat16* src = image +
-                                 (long long)(valid ? hw : 0) * num_feats +
-                                 (kPastF && !valid ? 0 : f);
-      __nv_bfloat16* dst = tile + core_offset(p, f - f0, kpad);
+      const bool valid = hw < hw_total;
+      const __nv_bfloat16* src =
+          image + (long long)(valid ? hw : 0) * num_feats + f;
+      __nv_bfloat16* dst = tile + core_offset(p, f, kpad);
       if constexpr (kBytes >= 4)
         cp_async<kBytes>(smem_addr(dst), src, valid);
       else
@@ -229,33 +225,24 @@ __device__ __forceinline__ void copy_features(
     }
 }
 
-// copy_features at the widest copy F allows, committed as one group.
-template <bool kPastF>
-__device__ __forceinline__ void stage_feature_cols(
-    const __nv_bfloat16* __restrict__ image, int hw0, int hw_total,
-    int num_feats, int f0, int f1, int kpad, __nv_bfloat16* tile, int tid,
-    int nthreads) {
-  if (num_feats % 8 == 0)
-    copy_features<16, kPastF>(image, hw0, hw_total, num_feats, f0, f1, kpad,
-                              tile, tid, nthreads);
-  else if (num_feats % 4 == 0)
-    copy_features<8, kPastF>(image, hw0, hw_total, num_feats, f0, f1, kpad,
-                             tile, tid, nthreads);
-  else if (num_feats % 2 == 0)
-    copy_features<4, kPastF>(image, hw0, hw_total, num_feats, f0, f1, kpad,
-                             tile, tid, nthreads);
-  else
-    copy_features<2, kPastF>(image, hw0, hw_total, num_feats, f0, f1, kpad,
-                             tile, tid, nthreads);
-  cp_async_commit();
-}
-
-// All F columns of a tile whose padding past F zero_pad has zeroed.
+// All F columns of a tile whose padding past F zero_pad has zeroed, at the
+// widest copy F allows, committed as one group.
 __device__ __forceinline__ void stage_features(
     const __nv_bfloat16* __restrict__ image, int hw0, int hw_total,
     int num_feats, int kpad, __nv_bfloat16* tile, int tid, int nthreads) {
-  stage_feature_cols<false>(image, hw0, hw_total, num_feats, 0, num_feats,
-                            kpad, tile, tid, nthreads);
+  if (num_feats % 8 == 0)
+    copy_features<16>(image, hw0, hw_total, num_feats, kpad, tile, tid,
+                      nthreads);
+  else if (num_feats % 4 == 0)
+    copy_features<8>(image, hw0, hw_total, num_feats, kpad, tile, tid,
+                     nthreads);
+  else if (num_feats % 2 == 0)
+    copy_features<4>(image, hw0, hw_total, num_feats, kpad, tile, tid,
+                     nthreads);
+  else
+    copy_features<2>(image, hw0, hw_total, num_feats, kpad, tile, tid,
+                     nthreads);
+  cp_async_commit();
 }
 
 // Store two neighbouring outputs, columns f and f + 1 of a row of F
@@ -356,6 +343,43 @@ __device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128 float32) += a . b^T for a 64 x 16 and b 128 x 16 bf16
+// tiles read K-major: the layout of wgmma_64x64x16 over twice the
+// columns, d[4 i + 2 k + e] for i < 16 (columns 64 .. 127 from d[32]).
+// With accumulate 0, d = a . b^T (its old value unread).
+__device__ __forceinline__ void wgmma_64x128x16(float (&d)[64], uint64_t a,
+                                                uint64_t b,
+                                                int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

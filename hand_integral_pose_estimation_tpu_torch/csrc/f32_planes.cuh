@@ -4,8 +4,8 @@
 // float32 x float32 product to float32 accuracy, and (s), the split of the
 // float32 features and weight into bf16 planes, once a call, into a
 // workspace laid out as the kernels stage it (contiguous copies, no ALU
-// work in the kernels that multiply). The bf16 route's kernels wider than
-// 256 features take the weight's planes from (s) too.
+// work in the kernels that multiply), up to 256 features; past that both
+// routes take (s2)'s layout (SlicePlanes, k_slices.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -104,11 +104,10 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// The workspace: (s)'s tiles of the features (an even number per image:
-// whole 64-row tiles for the backward's dfeat and the slice-walking
-// kernels) and of the weight (two per channel block of 64), in elements.
-// The float32 routes hold both, the features' first; the bf16 route at F
-// > 256 holds the weight's alone.
+// The float32 routes' workspace up to 256 features: (s)'s tiles of the
+// features (an even number per image: whole 64-row tiles for the
+// backward's dfeat), then of the weight (two per channel block of 64), in
+// elements.
 struct F32Planes {
   int batch, kpad, tiles64, image_tiles, blocks;
   F32Planes(int batch, int hw_total, int num_feats, int channels)
@@ -129,10 +128,10 @@ struct F32Planes {
 // kPassSlices slices of 64 features: 512.
 constexpr int kPassSlices = 8;
 
-// The backward's workspace past 256 features, (s2)'s layout
-// (k_slices.cuh): the features' slices of 64 x 64 (one plane each for bf16
-// features, three for float32) and the weight's (three planes), in
-// elements.
+// The workspace past 256 features (both directions, both routes), (s2)'s
+// layout (k_slices.cuh): the features' slices of 64 x 64 (one plane each
+// for bf16 features, three for float32), then the weight's (three
+// planes), in elements.
 struct SlicePlanes {
   int batch, slices, tiles64, blocks;
   SlicePlanes(int batch, int hw_total, int num_feats, int channels)
@@ -149,33 +148,18 @@ struct SlicePlanes {
   int passes() const { return (slices + kPassSlices - 1) / kPassSlices; }
 };
 
-// Bytes of a route's workspace of split planes (the forward's and the
-// backward's: one layout up to 256 features): the features' and the
-// weight's for float32 features, the weight's for bf16 ones wider than the
-// resident kernels take, else none. Past those widths the backward takes
-// (s2)'s layout instead (SlicePlanes).
-inline long long head_projection_planes_bytes(bool f32_features,
-                                              bool backward, int batch,
+// Bytes of a route's workspace of split planes, the forward's and the
+// backward's: up to 256 features (s)'s features and weight for float32
+// features, none for bf16 ones; past that (s2)'s layout (SlicePlanes).
+inline long long head_projection_planes_bytes(bool f32_features, int batch,
                                               int hw_total, int num_feats,
                                               int channels) {
   const F32Planes pl(batch, hw_total, num_feats, channels);
   if (pl.kpad <= kResidentBlocks * 64)
     return f32_features ? pl.elems() * (long long)sizeof(__nv_bfloat16) : 0;
   const SlicePlanes sp(batch, hw_total, num_feats, channels);
-  const long long elems =
-      backward ? sp.feature_elems(f32_features ? 3 : 1) + sp.weight_elems()
-               : (f32_features ? pl.elems() : pl.weight_elems());
-  return elems * (long long)sizeof(__nv_bfloat16);
-}
-
-// Launch (s) over the weight (C, F) into `wplanes`.
-inline cudaError_t split_weight_planes(const float* weight,
-                                       const F32Planes& pl, int num_feats,
-                                       int channels, __nv_bfloat16* wplanes,
-                                       cudaStream_t stream) {
-  hp_split_f32_kernel<<<dim3(2 * pl.blocks, 1), 256, 0, stream>>>(
-      weight, channels, num_feats, pl.kpad, wplanes);
-  return cudaGetLastError();
+  return (sp.feature_elems(f32_features ? 3 : 1) + sp.weight_elems()) *
+         (long long)sizeof(__nv_bfloat16);
 }
 
 // Launch (s) over the features (B, hw_total, F) and the weight (C, F):
@@ -189,8 +173,9 @@ inline cudaError_t split_f32_planes(const float* feats, const float* weight,
       feats, hw_total, num_feats, pl.kpad, planes);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return split_weight_planes(weight, pl, num_feats, channels,
-                             planes + pl.feature_elems(), stream);
+  hp_split_f32_kernel<<<dim3(2 * pl.blocks, 1), 256, 0, stream>>>(
+      weight, channels, num_feats, pl.kpad, planes + pl.feature_elems());
+  return cudaGetLastError();
 }
 
 // fn(std::integral_constant<int, kBF>()) for F padded to kBF x 64, kBF

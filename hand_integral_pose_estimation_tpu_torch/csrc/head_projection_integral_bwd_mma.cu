@@ -1350,12 +1350,6 @@ __global__ void __launch_bounds__(kRingThreads, 1)
   }
 }
 
-// The ring's stages that fit beside `head` bytes of shared memory.
-inline int ring_stages(size_t head, size_t stage_bytes) {
-  const size_t fit = (kSmemLimit - head) / stage_bytes;
-  return fit < kMaxStages ? (int)fit : kMaxStages;
-}
-
 // (s2), (a) and (b) at F > 256: feats are bf16 (kParts 1) or float32
 // (kParts 3) rows; planes holds (s2)'s layout (SlicePlanes: the features'
 // slices, then the weight's).

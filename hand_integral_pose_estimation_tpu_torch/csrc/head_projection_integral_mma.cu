@@ -6,7 +6,7 @@
 // _fwd_kernel (launched by _forward_pallas), for every width F and depth
 // D it takes. The C entry points are at the end of this file. The
 // float32-feature route comes after the bf16 one, below "---- float32
-// features", and the kernel for F > 256 (both routes) below "---- F >
+// features", and the ring kernel for F > 256 (both routes) below "---- F >
 // 256", each with its own header.
 //
 // bf16 features:
@@ -87,16 +87,17 @@ __device__ __forceinline__ void fold_xy(OnlineState& st, const float (&v)[N],
   }
 }
 
-// Fold a warpgroup's logits (64 channels x 8 kI positions) into this
-// thread's two channel states: acc[4 i + 2 k + e] is channel wq * 16 +
-// lane / 4 + 8 k at position hw0 + 8 i + 2 (lane % 4) + e, positions past
-// hw_total left out. Row and column are stepped along without a division
-// each.
-template <int kI>
+// Fold a warpgroup's logits (64 channels x 8 kI positions, from
+// acc[kOff]) into this thread's two channel states: acc[kOff + 4 i + 2 k +
+// e] is channel wq * 16 + lane / 4 + 8 k at position hw0 + 8 i + 2 (lane %
+// 4) + e, positions past hw_total left out. Row and column are stepped
+// along without a division each.
+template <int kI, int kOff = 0, int kN>
 __device__ __forceinline__ void fold_tile(OnlineState (&st)[2],
-                                          const float (&acc)[4 * kI],
+                                          const float (&acc)[kN],
                                           const float (&bias_r)[2], int hw0,
                                           int hw_total, int width, int lane) {
+  static_assert(kOff + 4 * kI <= kN, "the tile lies in the accumulator");
   float v[2][2 * kI], x[2 * kI], y[2 * kI];
   int hw = hw0 + 2 * (lane & 3);
   int row = hw / width, col = hw - row * width;
@@ -110,7 +111,7 @@ __device__ __forceinline__ void fold_tile(OnlineState (&st)[2],
       y[j] = float(wrap ? row + 1 : row);
 #pragma unroll
       for (int k = 0; k < 2; ++k)
-        v[k][j] = hw + e < hw_total ? acc[4 * i + 2 * k + e] + bias_r[k]
+        v[k][j] = hw + e < hw_total ? acc[kOff + 4 * i + 2 * k + e] + bias_r[k]
                                     : -CUDART_INF_F;
     }
     hw += 8;
@@ -412,78 +413,129 @@ __global__ void __launch_bounds__(kF32Groups * kGroupThreads, 1)
 }
 
 
-// ---- F > 256: the slice-walking forward (both feature dtypes)
+// ---- F > 256: the ring forward (both feature dtypes)
 //
 // Past 256 features the block's weight planes no longer fit in shared
 // memory beside the feature tiles, so the CTA walks K = F in slices of 64
-// (k_slices.cuh). One CTA per (image, position chunk, block of 64
-// channels), channel block fastest, as above; its two warpgroups take the
-// chunk's 64-position tiles two at a time, tile t0 + 2 r + g in round r,
-// and share each slice of the block's weight planes: a stage of the ring
-// holds the weight slice and both warpgroups' feature slices (40 KB for
-// bf16 features, 72 KB for float32 ones' three planes), the next stage's
-// copies running under the products. The 64 x 64 logits accumulate in
-// registers across the slices; then the tile's online-softmax fold, the
-// partial states and the chunk merge are the resident kernels'. The
-// weight's planes come from (s) (f32_planes.cuh) for both dtypes, so no
-// CTA splits. A warpgroup whose round has no tile multiplies zeros (bf16)
-// or the chunk's last tile again (float32) and folds nothing.
+// (k_slices.cuh). (s2) lays the features (bf16: one plane; float32: three)
+// and the weight (three planes) out slice by slice, and one CTA per
+// (image, chunk of its 64-position tiles, block of 64 channels), channel
+// block fastest as above, takes the chunk's tiles in rounds: warpgroup g
+// takes kTiles tiles of each round, tiles t0 + kRoundTiles r + kTiles g +
+// u, u < kTiles. Item r x slices + s of the ring is slice s of round r:
+// the block's weight slice and the slice of each of the round's tiles the
+// chunk holds, one bulk copy each, read by both warpgroups (the last of
+// their eight warps done with the stage refills it). For each slice a
+// warpgroup issues its products into an accumulator of their own and adds
+// them to its logits once they are done; after the round's last slice it
+// folds the logits into its channels' online states, as the resident
+// kernels do, then the partial states and the chunk merge are theirs. A
+// tile past the chunk is neither copied nor folded: its products read
+// what the stage held before, and nothing of them is used.
+//   bf16 features: two tiles a warpgroup, the products m64n128k16 (the
+//   weight slice A, the two tiles' slices side by side B, x[64] and the
+//   slice's xs[64] a thread), so each weight slice is read from L2 once
+//   per round of four tiles; a stage is 56 KB (24 KB of weight, 4 x 8 KB
+//   of features), four stages.
+//   float32 features: one tile a warpgroup, the six part pairs at N = 64;
+//   a stage is 72 KB (24 KB of weight, 2 x 24 KB of feature planes), three
+//   stages (four tiles a round would take 120 KB a stage: no ring). Their
+//   feature planes are most of the bytes, but sharing them over a cluster
+//   of two channel blocks (one CTA multicasting each tile into both, a
+//   stage refilled once both CTAs were done with it) made the kernel 1.7
+//   times slower at F = 512: the two CTAs then wait on each other every
+//   slice (PERF.md).
 //
 // Bound: the products, 3 (bf16) or 6 (float32) x 2 x B*H*W x F x J*D
-// flops, as at F <= 256. What it pays beyond the resident kernels: the
-// weight slices are read from L2 once per round of two tiles (at F = 512,
-// B = 32: 19 blocks x 32 images x 25 rounds x 8 slices x 24 KB, 2.9 GB)
-// beside the features' slices, and each slice's products wait on their
-// copies at a barrier.
+// flops, as at F <= 256. Besides, the bytes from L2: at F = 512, B = 32,
+// one chunk an image (608 CTAs), the weight slices 1.55 GB (bf16: once a
+// round of four tiles) or 2.99 GB (float32: of two), the feature slices
+// 1.95 GB (bf16: once a channel block) or 5.86 GB (float32: three
+// planes). What holds it back on an H100 is no longer the bytes (copies
+// that move nothing make it 7-8 % faster at F = 512) but the products and
+// the skeleton around them: each slice's products waited for before the
+// next are issued, and the fold a round (scripts/fused_head_bwd_probe.py,
+// PERF.md).
 template <int kParts>
-__global__ void __launch_bounds__(kSliceGroups * kGroupThreads, 1)
-    hp_fwd_slices_kernel(const __nv_bfloat16* __restrict__ feats,
-                         const __nv_bfloat16* __restrict__ wplanes,
-                         const float* __restrict__ bias, int hw_total,
-                         int width, int num_feats, int kpad, int channels,
-                         int blocks, int chunks, int tiles_per_chunk,
-                         int image_tiles, float4* __restrict__ ws) {
-  using Stage = SliceStage<kParts>;
+struct FwdRing {
+  static constexpr int kTiles = kParts == 1 ? 2 : 1;  // a warpgroup's
+  static constexpr int kRoundTiles = kSliceGroups * kTiles;
+  static constexpr int kN = kTiles * kTileP;  // a warpgroup's positions
+  // a stage: the weight slice's three planes, then tile i of the round's
+  // kParts planes at plane 3 + i kParts
+  static constexpr int kStageElems = (3 + kRoundTiles * kParts) * kSlicePlane;
+};
+// Shared memory of a forward ring CTA: the stages' barriers and counts of
+// warps done, the two warpgroups' partial states, then the ring.
+constexpr size_t kFwdBars = 128;
+constexpr size_t kFwdHead =
+    kFwdBars + kSliceGroups * kBlockC * sizeof(OnlineState);
+static_assert(kMaxStages * (sizeof(uint64_t) + sizeof(int)) <= kFwdBars &&
+                  kFwdHead % 128 == 0,
+              "the ring's stages start 128-byte aligned");
+
+template <int kParts>
+__global__ void __launch_bounds__(kRingThreads, 1)
+    hp_fwd_ring_kernel(const __nv_bfloat16* __restrict__ fslices,
+                       const __nv_bfloat16* __restrict__ wslices,
+                       const float* __restrict__ bias, int hw_total,
+                       int width, int slices, int channels, int blocks,
+                       int chunks, int rounds_per_chunk, int tiles,
+                       int stages, float4* __restrict__ ws) {
+  using R = FwdRing<kParts>;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);  // 2 stages
-  OnlineState* st_s = reinterpret_cast<OnlineState*>(ring + 2 * Stage::kElems);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  int* done = reinterpret_cast<int*>(full + kMaxStages);
+  OnlineState* st_s = reinterpret_cast<OnlineState*>(smem + kFwdBars);
 
   const int cb = blockIdx.x % blocks;
   const int rest = blockIdx.x / blocks;
   const int q = rest % chunks;
   const int b = rest / chunks;
   const int c0 = cb * kBlockC;
-  const int tiles = (hw_total + kTileP - 1) / kTileP;
-  const int t0 = q * tiles_per_chunk;
-  const int t1 = min(tiles, t0 + tiles_per_chunk);
+  const int t0 = q * rounds_per_chunk * R::kRoundTiles;
+  const int t1 = min(tiles, t0 + rounds_per_chunk * R::kRoundTiles);
+  const int rounds = (max(0, t1 - t0) + R::kRoundTiles - 1) / R::kRoundTiles;
+  const Ring ring{reinterpret_cast<__nv_bfloat16*>(smem + kFwdHead),
+                  R::kStageElems, stages, rounds * slices, full, done,
+                  kRingThreads / 32};
+  const __nv_bfloat16* wblock =
+      wslices + (long long)cb * slices * 3 * kSlicePlane;
+  const __nv_bfloat16* image =
+      fslices + (long long)b * tiles * slices * kParts * kSlicePlane;
+
+  // Issue item j (one thread): the weight slice, and the slice of each of
+  // the round's tiles before t1.
+  auto issue = [&](int j) {
+    const int r = j / slices;
+    const int s = j - r * slices;
+    const int ta = t0 + r * R::kRoundTiles;
+    const int n = min(R::kRoundTiles, t1 - ta);
+    __nv_bfloat16* st = ring.expect(j, (3 + n * kParts) * kSlicePlaneBytes);
+    bulk_copy(st, wblock + (long long)s * 3 * kSlicePlane,
+              3 * kSlicePlaneBytes, ring.bar(j));
+    for (int i = 0; i < n; ++i)
+      bulk_copy(st + (3 + i * kParts) * kSlicePlane,
+                image + ((long long)(ta + i) * slices + s) * kParts *
+                            kSlicePlane,
+                kParts * kSlicePlaneBytes, ring.bar(j));
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full + i, 1);
+      done[i] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int j = 0; j < min(stages, ring.items); ++j) issue(j);
+
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   // the warpgroup, provably warp-uniform (see the bf16 kernel)
   const int group = __shfl_sync(0xffffffffu, warp >> 2, 0);
   const int wq = warp & 3;
-  const int gtid = threadIdx.x - group * kGroupThreads;
-  const int slices = kpad / kSlice;
-  const int items =
-      max(0, (t1 - t0 + kSliceGroups - 1) / kSliceGroups) * slices;
-  const __nv_bfloat16* wblock =
-      wplanes + (long long)2 * cb * 3 * kRows32 * kpad;
-
-  // item = round r x slices + slice s: the weight slice by the whole CTA,
-  // each warpgroup's feature slice by its own threads
-  auto stage = [&](int item) {
-    const int r = item / slices;
-    const int sl = item - r * slices;
-    const int t = t0 + kSliceGroups * r + group;
-    __nv_bfloat16* st = ring + (item & 1) * Stage::kElems;
-    copy_plane_slice(st, wblock, kpad, sl * kSlice, threadIdx.x, blockDim.x);
-    copy_tile_slice<kParts>(feats, b, min(t, t1 - 1), hw_total,
-                            t < t1 ? hw_total : 0, num_feats, kpad,
-                            image_tiles, sl * kSlice,
-                            st + Stage::kWeight + group * Stage::kFeature,
-                            gtid, kGroupThreads);
-    cp_async_commit();
-  };
-
   float bias_r[2];
   OnlineState st[2];
 #pragma unroll
@@ -492,61 +544,71 @@ __global__ void __launch_bounds__(kSliceGroups * kGroupThreads, 1)
     bias_r[k] = c < channels ? bias[c] : 0.f;
     st[k] = empty_state();
   }
-  // wait for the ring's next stage, start the copy of the one after it
-  // and return the address of its weight slice
-  int item = 0;
-  auto advance = [&]() {
-    cp_async_wait<0>();
-    fence_async_smem();
-    __syncthreads();  // stage `item` has landed; the other one is free
-    if (item + 1 < items) stage(item + 1);
-    return smem_addr(ring + (item++ & 1) * Stage::kElems);
-  };
-  const uint32_t f_off = 2 * (Stage::kWeight + group * Stage::kFeature);
-  if (items > 0) stage(0);
-  for (int r = 0; r < items / slices; ++r) {
-    const int t = t0 + kSliceGroups * r + group;
-    float x[32], xs[32];
+  // this warpgroup's feature slices in a stage
+  const uint32_t f_off = (3 + R::kTiles * group * kParts) * kSlicePlaneBytes;
+
+  for (int r = 0; r < rounds; ++r) {
+    float x[R::kN / 2], xs[R::kN / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    for (int i = 0; i < R::kN / 2; ++i) x[i] = 0.f;
     for (int sl = 0; sl < slices; ++sl) {
-      const uint32_t w_addr = advance();
-      slice_logits<kParts, true>(x, xs, w_addr, w_addr + f_off);
+      const int j = r * slices + sl;
+      const uint32_t a = ring.wait(j);
+      issue_logits<kParts, true, R::kN>(xs, a, a + f_off);
+      wgmma_wait_all();
+      fence_operands(xs);
+      ring.release(j, lane, issue);
+#pragma unroll
+      for (int i = 0; i < R::kN / 2; ++i) x[i] += xs[i];
     }
+    const int t = t0 + r * R::kRoundTiles + R::kTiles * group;
     fold_tile<8>(st, x, bias_r, t * kTileP, t < t1 ? hw_total : 0, width,
                  lane);
+    if constexpr (R::kTiles == 2)
+      fold_tile<8, 32>(st, x, bias_r, (t + 1) * kTileP,
+                       t + 1 < t1 ? hw_total : 0, width, lane);
   }
   store_states<kSliceGroups>(st, st_s, group, wq, lane, c0, channels,
                              (long long)b * chunks + q, ws);
 }
 
-// The slice-walking forward and the merge: feats are bf16 rows (kParts 1)
-// or (s)'s feature planes (kParts 3), wplanes (s)'s weight planes; chunks
-// of tiles of 64 positions.
+// (s2) over the features (bf16 rows, kParts 1, or float32 ones, kParts 3)
+// and the weight into `planes` (SlicePlanes: the features' slices, then
+// the weight's), the ring forward and the merge. The chunks cut an
+// image's rounds of FwdRing::kRoundTiles tiles of 64 positions, as
+// fused_head._mma_chunks plans them.
 template <int kParts>
-cudaError_t launch_fwd_slices(const __nv_bfloat16* feats,
-                              const __nv_bfloat16* wplanes, const float* bias,
-                              float* coords, float* m, float* s, float4* ws,
-                              const F32Planes& pl, int height, int width,
-                              int num_feats, int num_joints, int depth,
-                              int chunks, cudaStream_t stream) {
+cudaError_t launch_fwd_ring(const void* feats, const float* weight,
+                            const float* bias, float* coords, float* m,
+                            float* s, float4* ws, __nv_bfloat16* planes,
+                            int batch, int height, int width, int num_feats,
+                            int num_joints, int depth, int chunks,
+                            cudaStream_t stream) {
+  using R = FwdRing<kParts>;
   const int hw_total = height * width;
   const int channels = num_joints * depth;
-  const int tiles = (hw_total + kTileP - 1) / kTileP;
-  const int per_chunk = (tiles + chunks - 1) / chunks;
-  const size_t smem = (size_t)2 * SliceStage<kParts>::kElems *
-                          sizeof(__nv_bfloat16) +
-                      kSliceGroups * kBlockC * sizeof(OnlineState);
-  cudaError_t err = allow_smem(hp_fwd_slices_kernel<kParts>, smem);
+  const SlicePlanes sp(batch, hw_total, num_feats, channels);
+  __nv_bfloat16* fslices = planes;
+  __nv_bfloat16* wslices = planes + sp.feature_elems(kParts);
+  cudaError_t err = split_slices<kParts>(feats, batch, hw_total, num_feats,
+                                         fslices, stream);
   if (err != cudaSuccess) return err;
-  hp_fwd_slices_kernel<kParts><<<pl.batch * chunks * pl.blocks,
-                                 kSliceGroups * kGroupThreads, smem,
-                                 stream>>>(
-      feats, wplanes, bias, hw_total, width, num_feats, pl.kpad, channels,
-      pl.blocks, chunks, per_chunk, pl.image_tiles, ws);
+  err = split_slices<3>(weight, 1, channels, num_feats, wslices, stream);
+  if (err != cudaSuccess) return err;
+  const int rounds = (sp.tiles64 + R::kRoundTiles - 1) / R::kRoundTiles;
+  const size_t stage_bytes = R::kStageElems * sizeof(__nv_bfloat16);
+  const int stages = ring_stages(kFwdHead, stage_bytes);
+  const size_t smem = kFwdHead + stages * stage_bytes;
+  err = allow_smem(hp_fwd_ring_kernel<kParts>, smem);
+  if (err != cudaSuccess) return err;
+  hp_fwd_ring_kernel<kParts>
+      <<<batch * chunks * sp.blocks, kRingThreads, smem, stream>>>(
+          fslices, wslices, bias, hw_total, width, sp.slices, channels,
+          sp.blocks, chunks, (rounds + chunks - 1) / chunks, sp.tiles64,
+          stages, ws);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  merge_chunks_kernel<<<pl.batch * num_joints, kMergeThreads, 0, stream>>>(
+  merge_chunks_kernel<<<batch * num_joints, kMergeThreads, 0, stream>>>(
       ws, chunks, num_joints, height, width, depth, coords, m, s);
   return cudaGetLastError();
 }
@@ -580,8 +642,8 @@ cudaError_t launch_fwd_f32_resident(const __nv_bfloat16* planes,
   return cudaGetLastError();
 }
 
-// float32 features: (s), then the resident kernel (kBF 1 .. 4) or the
-// slice-walking one (kBF 0, F > 256), and the merge.
+// float32 features: (s), the resident kernel (kBF 1 .. 4) and the merge,
+// or the ring forward (kBF 0, F > 256).
 template <int kBF>
 cudaError_t launch_fwd_f32(const float* feats, const float* weight,
                            const float* bias, float* coords, float* m,
@@ -589,26 +651,27 @@ cudaError_t launch_fwd_f32(const float* feats, const float* weight,
                            int batch, int height, int width, int num_feats,
                            int num_joints, int depth, int chunks,
                            cudaStream_t stream) {
-  const int hw_total = height * width;
-  const int channels = num_joints * depth;
-  const F32Planes pl(batch, hw_total, num_feats, channels);
-  const cudaError_t err = split_f32_planes(feats, weight, pl, hw_total,
-                                           num_feats, channels, planes,
-                                           stream);
-  if (err != cudaSuccess) return err;
-  if constexpr (kBF == 0)
-    return launch_fwd_slices<3>(planes, planes + pl.feature_elems(), bias,
-                                coords, m, s, ws, pl, height, width,
-                                num_feats, num_joints, depth, chunks, stream);
-  else
+  if constexpr (kBF == 0) {
+    return launch_fwd_ring<3>(feats, weight, bias, coords, m, s, ws, planes,
+                              batch, height, width, num_feats, num_joints,
+                              depth, chunks, stream);
+  } else {
+    const int hw_total = height * width;
+    const int channels = num_joints * depth;
+    const F32Planes pl(batch, hw_total, num_feats, channels);
+    const cudaError_t err = split_f32_planes(feats, weight, pl, hw_total,
+                                             num_feats, channels, planes,
+                                             stream);
+    if (err != cudaSuccess) return err;
     return launch_fwd_f32_resident<kBF>(planes, bias, coords, m, s, ws, pl,
                                         height, width, num_joints, depth,
                                         chunks, stream);
+  }
 }
 
-// bf16 features: both launches (F <= 256), or (s) over the weight into
-// `planes`, the slice-walking kernel and the merge (F > 256); ws holds
-// batch * chunks * J*D float4 partial states.
+// bf16 features: both launches (F <= 256), or the ring forward (F > 256)
+// with (s2)'s layout in `planes`; ws holds batch * chunks * J*D float4
+// partial states.
 cudaError_t head_projection_fwd_mma(const __nv_bfloat16* feats,
                                     const float* weight, const float* bias,
                                     float* coords, float* m, float* s,
@@ -620,14 +683,10 @@ cudaError_t head_projection_fwd_mma(const __nv_bfloat16* feats,
   const int channels = num_joints * depth;
   float4* ws4 = reinterpret_cast<float4*>(ws);
   const F32Planes pl(batch, hw_total, num_feats, channels);
-  if (pl.kpad > kResidentBlocks * 64) {
-    const cudaError_t err = split_weight_planes(weight, pl, num_feats,
-                                                channels, planes, stream);
-    if (err != cudaSuccess) return err;
-    return launch_fwd_slices<1>(feats, planes, bias, coords, m, s, ws4, pl,
-                                height, width, num_feats, num_joints, depth,
-                                chunks, stream);
-  }
+  if (pl.kpad > kResidentBlocks * 64)
+    return launch_fwd_ring<1>(feats, weight, bias, coords, m, s, ws4, planes,
+                              batch, height, width, num_feats, num_joints,
+                              depth, chunks, stream);
   const int kpad = pl.kpad;
   const int tiles = (hw_total + kTileP - 1) / kTileP;
   const int per_chunk = (tiles + chunks - 1) / chunks;
@@ -656,10 +715,11 @@ cudaError_t head_projection_fwd_mma(const __nv_bfloat16* feats,
 // hipe_head_projection_integral_fwd_f32 float32 ones; weight and bias are
 // float32. The caller guarantees contiguity, 16-byte aligned arrays, depth
 // >= 1, a workspace ws of batch * chunks * J*D * 4 floats (chunks of tiles
-// of 64 positions, or of 32 for float32 features at F <= 256) and one of
+// of 64 positions, or of 32 for float32 features at F <= 256, cut in the
+// ring forward's rounds past 256) and one of
 // hipe_head_projection_integral_workspace bytes for the split planes
-// (the backward's layout; none for bf16 features at F <= 256). Returns
-// the first launch's CUDA error code.
+// (none for bf16 features at F <= 256). Returns the first launch's CUDA
+// error code.
 extern "C" int hipe_head_projection_integral_fwd(
     const void* feats, const void* weight, const void* bias, void* coords,
     void* m, void* s, void* ws, void* planes, int batch, int height,
@@ -692,13 +752,11 @@ extern "C" int hipe_head_projection_integral_fwd_f32(
       }));
 }
 
-// Bytes of the workspace of split planes that a route takes (forward and
-// backward: one layout; past 256 features the backward's is longer): f32
-// non-zero for float32 features, backward non-zero for kernel 4's.
+// Bytes of the workspace of split planes that a route takes, forward and
+// backward (one layout): f32 non-zero for float32 features.
 extern "C" long long hipe_head_projection_integral_workspace(
-    int f32, int backward, int batch, int height, int width, int num_feats,
-    int num_joints, int depth) {
+    int f32, int batch, int height, int width, int num_feats, int num_joints,
+    int depth) {
   return hipe::mma::head_projection_planes_bytes(
-      f32 != 0, backward != 0, batch, height * width, num_feats,
-      num_joints * depth);
+      f32 != 0, batch, height * width, num_feats, num_joints * depth);
 }

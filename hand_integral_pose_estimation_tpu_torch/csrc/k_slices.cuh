@@ -7,43 +7,47 @@
 //
 // A slice is 64 rows x 64 columns in core-matrix layout (kpad 64).
 //
-// The forward (hp_fwd_slices_kernel) takes the weight's three bf16
-// planes from (s)'s weight tiles (f32_planes.cuh) and a 64-position
-// tile's features (bf16 rows, or (s)'s three planes of float32 features)
-// through a ring of two stages copied with cp.async; the logits
-// accumulate across the slices, each slice's products in an accumulator
-// of their own (`slice_logits`).
+// Both directions take their operands from (s2), which lays features and
+// weight out slice by slice (`hp_split_slices_kernel`, layout
+// `SlicePlanes`), so that one bulk copy (cp.async.bulk, completing on an
+// mbarrier) moves a slice, and feed the slices through a ring of stages
+// guarded by mbarriers (`Ring`): the last warp done with a stage issues
+// the copy of the item it holds next, so no warp waits for a free stage
+// and no thread waits to issue copies; the warps wait only for the stage
+// they read. Each slice's logits go to an accumulator of their own
+// (`issue_logits`), added to the logits by float32 adds.
+//
+// The forward (kernel 3 and 3f, hp_fwd_ring_kernel in
+// head_projection_integral_mma.cu): one CTA per (image, chunk of
+// 64-position tiles, block of 64 channels), two warpgroups; a ring item
+// is a slice of a round, the block's weight slice and the round's feature
+// slices, read by both warpgroups. With bf16 features a warpgroup takes
+// two tiles a round, its products N = 128 wide (m64n128k16, the weight
+// slice A, the two tiles' slices side by side B), so each weight slice is
+// read from L2 once per four tiles; with float32 features one tile (the
+// six part pairs at N = 64: a stage of four tiles' three planes would
+// leave no room for a ring), once per two. Copies that move nothing make
+// it 7-8 % faster at F = 512: the products and the skeleton around them
+// hold it back, not the bytes.
 //
 // The backward (kernel 4 and 4f, head_projection_integral_bwd_mma.cu) is
 // bound by its products: the logits (3 bf16 products, 6 with float32
 // features), then dfeat = g . W and dW = g^T f (3 each; 6 for dW with
-// float32 features), against the 3 of the recorded bound. Walking F in
-// slices, what held it back was the staging: each 64-wide slice copied
-// from L2 for each use under one CTA-wide wait, dW's logits recomputed for
-// every pass of 256 features, and dfeat's float32 partial taken through
-// device memory for every channel block. Its kernels therefore:
-//   - split F, not positions, between the CTA's two consumer warpgroups:
-//     each forms the logits over its half of K and adds its products into
-//     its half of the N = F columns, in a 64 x F / 2 float32 accumulator
-//     in registers (passes of 512 features past F = 512); the two
-//     partial logits are added through shared memory in a fixed order, so
-//     that the logits and g are formed once a tile and channel block;
-//   - take their operands from (s2), which lays features and weight out
-//     slice by slice (`hp_split_slices_kernel`), so that one bulk copy
-//     (cp.async.bulk, completing on an mbarrier) moves a slice;
-//   - feed the slices through a ring of stages guarded by mbarriers: the
-//     last warp done with a stage issues the copy of the item it holds
-//     next; the warps wait only for the stage they read, and keep one
-//     product group of dfeat or dW in flight while the next slice's is
-//     issued.
-// What holds the new kernels back is no longer the bytes (copies that move
-// nothing make them less than an eighth faster: scripts/
-// fused_head_bwd_probe.py, PERF.md) but the products' issue: N = 64 at
-// most (a slice; the logits' 64 positions or channels), each slice's
-// logits waited for before the next are issued (one accumulator a slice,
-// for accuracy; a second one in turns let ptxas serialise the products,
-// C7514), and the two warpgroups' exchange of the partial logits and g's
-// arithmetic, duplicated in both, once a round.
+// float32 features), against the 3 of the recorded bound. Its kernels
+// split F, not positions, between the CTA's two warpgroups: each forms the
+// logits over its half of K and adds its products into its half of the N
+// = F columns, in a 64 x F / 2 float32 accumulator in registers (passes of
+// 512 features past F = 512); the two partial logits are added through
+// shared memory in a fixed order, so that the logits and g are formed once
+// a tile and channel block; each warpgroup keeps one product group of
+// dfeat or dW in flight while the next slice's is issued. What holds them
+// back is not the bytes (copies that move nothing make them less than an
+// eighth faster: scripts/fused_head_bwd_probe.py, PERF.md) but the
+// products' issue: N = 64 at most (a slice; the logits' 64 positions or
+// channels), each slice's logits waited for before the next are issued
+// (one accumulator a slice, for accuracy; a second one in turns let ptxas
+// serialise the products, C7514), and the two warpgroups' exchange of the
+// partial logits and g's arithmetic, duplicated in both, once a round.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -63,76 +67,26 @@ constexpr uint32_t kSlicePlaneBytes = kSlicePlane * 2;
 // bytes between the k-steps of 16 rows of a slice read MN-major
 constexpr uint32_t kSliceStep16 = 2 * kSlice * 16;
 
-// A stage of the ring: the weight slice's three planes, then one feature
-// slice (kParts planes) for each of the CTA's warpgroups.
-template <int kParts>
-struct SliceStage {
-  static constexpr int kWeight = 3 * kSlicePlane;
-  static constexpr int kFeature = kParts * kSlicePlane;
-  static constexpr int kElems = kWeight + kSliceGroups * kFeature;
-};
-
-// Copy columns k0 .. k0 + 63 of the three planes of two consecutive tiles
-// of (s) (64 rows; `tiles` points at the first, whose rows are kpad
-// wide) into a slice: each plane's row group of 8 rows is 1 KB contiguous
-// on both sides. Threads tid = 0 .. nthreads - 1; the caller commits.
-__device__ __forceinline__ void copy_plane_slice(
-    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ tiles, int kpad,
-    int k0, int tid, int nthreads) {
-  constexpr int kPieces = 2 * 3 * 4 * 64;  // 16-byte pieces
-  for (int i = tid; i < kPieces; i += nthreads) {
-    const int e = i & 63;
-    const int c = i >> 6;  // (tile h, plane p, row group rg), rg fastest
-    const int rg = c & 3;
-    const int p = (c >> 2) % 3;
-    const int h = (c >> 2) / 3;
-    const __nv_bfloat16* src = tiles +
-                               (long long)(3 * h + p) * kRows32 * kpad +
-                               (long long)rg * 8 * kpad + k0 * 8 + e * 8;
-    cp_async<16>(
-        smem_addr(dst + p * kSlicePlane + (4 * h + rg) * 512 + e * 8), src,
-        true);
-  }
-}
-
-// Copy columns k0 .. k0 + 63 of 64-position tile t of image b into a
-// feature slice: bf16 rows (kParts 1; positions at or past hw_limit
-// zero-filled: the image's end, or 0 for a tile the CTA only pads with)
-// or (s)'s two tiles of it (kParts 3; the caller keeps t in range).
-// Threads tid = 0 .. nthreads - 1; the caller commits (the bf16 rows'
-// copies commit a group of their own as well).
-template <int kParts>
-__device__ __forceinline__ void copy_tile_slice(
-    const __nv_bfloat16* __restrict__ feats, int b, int t, int hw_total,
-    int hw_limit, int num_feats, int kpad, int image_tiles, int k0,
-    __nv_bfloat16* dst, int tid, int nthreads) {
-  if constexpr (kParts == 1) {
-    stage_feature_cols<true>(feats + (long long)b * hw_total * num_feats,
-                             t * kTileP, hw_limit, num_feats, k0,
-                             k0 + kSlice, kSlice, dst, tid, nthreads);
-  } else {
-    copy_plane_slice(
-        dst, feats + ((long long)b * image_tiles + 2 * t) * 3 * kRows32 * kpad,
-        kpad, k0, tid, nthreads);
-  }
-}
-
-// x += one slice's logits, channels x positions (kChannelRows: the weight
-// slice is A, M = 64 channels, the feature slice B) or positions x
-// channels. kParts 1: the bf16 features times the weight's three planes;
-// kParts 3: the six part pairs of f32_planes.cuh. The slice's products go
-// to xs, which its first product writes, and xs is added to x by ordinary
-// float32 additions once they are done: a wgmma adds into its accumulator
-// with an error of about 2^-23 of it, so an accumulator carried across
-// every slice would gather one such error a product group, more the wider
-// F (at F = 2048, 8 times F = 256's: the coords missed 1e-4 on an H100);
-// a slice's 12 or 24 groups stay as few as at F <= 256, and the slices'
-// sums add with one rounding each. Both operands K-major at shared
-// addresses w and f. issue_logits issues and commits the slice's products
-// into xs as one group; slice_logits waits for them and adds.
-template <int kParts, bool kChannelRows>
-__device__ __forceinline__ void issue_logits(float (&xs)[32], uint32_t w,
+// xs = one slice's logits, channels x positions (kChannelRows: the weight
+// slice is A, M = 64 channels, the feature slice B, kN = 64 or 128
+// positions) or positions x channels (kN = 64). kParts 1: the bf16
+// features times the weight's three planes; kParts 3: the six part pairs
+// of f32_planes.cuh. The slice's products go to xs, which its first
+// product writes; the caller waits for them and adds xs to the logits by
+// ordinary float32 additions: a wgmma adds into its accumulator with an
+// error of about 2^-23 of it, so an accumulator carried across every
+// slice would gather one such error a product group, more the wider F (at
+// F = 2048, 8 times F = 256's: the coords missed 1e-4 on an H100); a
+// slice's 12 or 24 groups stay as few as at F <= 256, and the slices' sums
+// add with one rounding each. Both operands K-major at shared addresses w
+// and f (kN = 128: the two 64-row slices at f one after the other, 8 KB
+// apart, as one 128-row operand). Issues and commits the slice's products
+// as one group.
+template <int kParts, bool kChannelRows, int kN = 64>
+__device__ __forceinline__ void issue_logits(float (&xs)[kN / 2], uint32_t w,
                                              uint32_t f) {
+  static_assert(kN == 64 || (kN == 128 && kParts == 1 && kChannelRows),
+                "N = 128 takes bf16 features as B");
   wgmma_fence();
 #pragma unroll
   for (int k = 0; k < kSlice; k += 16)
@@ -142,25 +96,20 @@ __device__ __forceinline__ void issue_logits(float (&xs)[32], uint32_t w,
           w + (kParts == 1 ? q : pair_second(q)) * kSlicePlaneBytes + k * 16;
       const uint32_t fq =
           f + (kParts == 1 ? 0 : pair_first(q)) * kSlicePlaneBytes + k * 16;
-      wgmma_64x64x16(xs, core_desc(kChannelRows ? wq : fq, kSlice),
-                     core_desc(kChannelRows ? fq : wq, kSlice),
-                     k > 0 || q > 0);
+      const uint64_t a = core_desc(kChannelRows ? wq : fq, kSlice);
+      const uint64_t b = core_desc(kChannelRows ? fq : wq, kSlice);
+      if constexpr (kN == 128) {
+        wgmma_64x128x16(xs, a, b, k > 0 || q > 0);
+      } else {
+        wgmma_64x64x16(xs, a, b, k > 0 || q > 0);
+      }
     }
   wgmma_commit();
 }
-template <int kParts, bool kChannelRows>
-__device__ __forceinline__ void slice_logits(float (&x)[32], float (&xs)[32],
-                                             uint32_t w, uint32_t f) {
-  issue_logits<kParts, kChannelRows>(xs, w, f);
-  wgmma_wait_all();
-  fence_operands(xs);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) x[i] += xs[i];
-}
 
-// ---- the backward's ring (F > 256)
+// ---- the rings (F > 256)
 
-// Slices of a pass of the N = F products (f32_planes.cuh) that a
+// Slices of a pass of the backward's N = F products (f32_planes.cuh) that a
 // warpgroup owns: 4, 256 features (its accumulator is 4 x 32 registers a
 // thread, as the resident kernels' at F = 256).
 constexpr int kHalfSlices = kPassSlices / kSliceGroups;
@@ -173,7 +122,13 @@ constexpr int kSmemLimit = 232448;
 // notwithstanding, and the consumers' 64 x 256 float32 accumulators
 // (128 registers) spilled and serialised their products (C7511, C7512).
 constexpr int kRingThreads = kSliceGroups * kGroupThreads;
-// named barrier over the two consumer warpgroups (group_sync takes 1, 2)
+
+// The ring's stages that fit beside `head` bytes of shared memory.
+inline int ring_stages(size_t head, size_t stage_bytes) {
+  const size_t fit = (kSmemLimit - head) / stage_bytes;
+  return fit < kMaxStages ? (int)fit : kMaxStages;
+}
+// named barrier over a ring CTA's two warpgroups (group_sync takes 1, 2)
 constexpr int kConsumerBar = 3;
 
 __device__ __forceinline__ void consumer_sync() {
@@ -235,8 +190,9 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 
 // The ring: `stages` stages of `stage_elems` bf16 elements, item j in
 // stage j % stages. full[s] completes when the copies of an item have
-// landed there (one arrival and their bytes). done[s] counts the warps of
-// the consuming warpgroup that have read it: the last of the four refills
+// landed there (one arrival and their bytes). done[s] counts the warps
+// that have read it (`warps`: the consuming warpgroup's four, or both
+// warpgroups' eight where both read every item): the last of them refills
 // the stage with the item `stages` later, so no warp waits for a free
 // stage and no thread waits to issue copies.
 struct Ring {
@@ -244,6 +200,7 @@ struct Ring {
   int stage_elems, stages, items;
   uint64_t* full;
   int* done;
+  int warps = kGroupThreads / 32;
 
   __device__ __nv_bfloat16* stage(int j) const {
     return base + (j % stages) * stage_elems;
@@ -260,7 +217,7 @@ struct Ring {
     return stage(j);
   }
   // The warp is done with item j (every lane calls it, after the products
-  // that read the stage have completed); the warpgroup's last warp to be
+  // that read the stage have completed); the last of the `warps` to be
   // done issues item j + stages there: issue(j + stages).
   template <typename Issue>
   __device__ void release(int j, int lane, Issue&& issue) const {
@@ -273,7 +230,7 @@ struct Ring {
                    : "=r"(before)
                    : "r"(smem_addr(done + j % stages))
                    : "memory");
-      if (before == kGroupThreads / 32 - 1) {
+      if (before == warps - 1) {
         done[j % stages] = 0;
         if (j + stages < items) issue(j + stages);
       }

@@ -19,11 +19,13 @@ float32 accuracy. bf16 features, the main path's, are exact in bf16;
 float32 features (`compute_dtype="float32"`) are split into three parts
 as well, and the part pairs kept to float32 accuracy (`F32_PART_PAIRS`).
 Up to F = 256 a CTA keeps its block's weight planes at the whole F in
-shared memory; wider features are walked in slices of 64
-(`csrc/k_slices.cuh`), the backward's through a ring of bulk copies with
-F split between two warpgroups, in passes of 512 features past 512. Each feature dtype counts its launches on its own
-entry point (`forward_route`; `kernels.HEAD_PROJECTION_INTEGRAL_*_F32`
-for float32 features).
+shared memory; wider features are walked in slices of 64 through a ring
+of bulk copies (`csrc/k_slices.cuh`): the forward in rounds of tiles of
+positions (four with bf16 features, two with float32 ones), the backward
+with F split between two warpgroups, in passes of 512 features past 512.
+Each feature dtype counts its launches on its own entry point
+(`forward_route`; `kernels.HEAD_PROJECTION_INTEGRAL_*_F32` for float32
+features).
 """
 
 from __future__ import annotations
@@ -83,19 +85,36 @@ def _chunk_tile(dtype: torch.dtype, num_feats: int) -> int:
     return _DW_TILE[dtype] if num_feats <= _RESIDENT_FEATS else 64
 
 
-def _mma_chunks(feats: torch.Tensor, num_channels: int,
-                passes: int = 1) -> int:
+def forward_round_tiles(dtype: torch.dtype, num_feats: int) -> int:
+    """Tiles of a round of kernel 3's CTAs, the unit its launcher cuts an
+    image's tiles into chunks by: past `_RESIDENT_FEATS` features the ring
+    kernel's two warpgroups take two tiles each a round with bf16
+    features (products 128 positions wide) and one each with float32
+    ones (`FwdRing::kRoundTiles`, `csrc/head_projection_integral_mma.cu`);
+    the resident kernels' warpgroups take turns tile by tile."""
+    if num_feats <= _RESIDENT_FEATS:
+        return 1
+    return 4 if dtype == torch.bfloat16 else 2
+
+
+def _mma_chunks(feats: torch.Tensor, num_channels: int, passes: int = 1,
+                round_tiles: int = 1) -> int:
     """Chunks per image of the tensor-core forward and dW grids, which have
     one CTA per (image, chunk of its tiles of positions, block of 64
-    channels, pass) and one CTA per SM: the count that least waves x
-    (tiles per chunk + 1, the weight staging's share) take, so the last
+    channels, pass) and one CTA per SM. A CTA takes its chunk's tiles in
+    rounds of `round_tiles` (a round costs as much whether or not its
+    last tiles exist), so the launchers cut an image's rounds, not its
+    tiles: each chunk but the last takes ceil(rounds / chunks) of them.
+    The count chosen is the one that least waves x (tiles per chunk + 1,
+    the weight staging's or the ring's filling's share) take, so the last
     wave is nearly full at any batch. Tiles are `_chunk_tile` positions."""
     B, H, W, F = feats.shape
     tiles = -(-(H * W) // _chunk_tile(feats.dtype, F))
+    rounds = -(-tiles // round_tiles)
     ctas = B * -(-num_channels // _MMA_BLOCK_C) * passes
     sms = kernels.sm_count(feats.device.index or 0)
-    return min(range(1, tiles + 1), key=lambda c: (
-        math.ceil(ctas * c / sms) * (-(-tiles // c) + 1)))
+    return min(range(1, rounds + 1), key=lambda c: (
+        math.ceil(ctas * c / sms) * (round_tiles * -(-rounds // c) + 1)))
 
 
 def backward_passes(num_feats: int) -> int:
@@ -145,13 +164,13 @@ def _check_feats(feats: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"depth {depth} is not positive")
 
 
-def _planes(feats: torch.Tensor, num_joints: int, depth: int,
-            backward: bool) -> torch.Tensor:
+def _planes(feats: torch.Tensor, num_joints: int,
+            depth: int) -> torch.Tensor:
     """The route's workspace of split bf16 planes (`kernels.
     head_projection_workspace` bytes, maybe none)."""
     B, H, W, F = feats.shape
     return torch.empty(kernels.head_projection_workspace(
-        feats.dtype, backward, B, H, W, F, num_joints, depth),
+        feats.dtype, B, H, W, F, num_joints, depth),
         dtype=torch.uint8, device=feats.device)
 
 
@@ -189,9 +208,10 @@ def head_projection_integral_cuda(feats: torch.Tensor, weight: torch.Tensor,
         m = torch.empty(B, num_joints, **f32)
         s = torch.empty(B, num_joints, **f32)
         # per-(image, chunk, channel) partial states (m, s, sx, sy)
-        chunks = _mma_chunks(feats, C)
+        chunks = _mma_chunks(
+            feats, C, round_tiles=forward_round_tiles(feats.dtype, F))
         ws = torch.empty(B * chunks * C * 4, **f32)
-        planes = _planes(feats, num_joints, depth, backward=False)
+        planes = _planes(feats, num_joints, depth)
         forward_route(feats.dtype)(
             feats.data_ptr(), weight.data_ptr(), bias.data_ptr(),
             coords.data_ptr(), m.data_ptr(), s.data_ptr(), ws.data_ptr(),
@@ -285,7 +305,7 @@ def head_projection_integral_bwd_cuda(feats: torch.Tensor,
         # per-chunk dW partials in rows of F rounded up to 64
         ws = torch.empty(B * chunks, C, -(-F // 64) * 64, **f32)
         ws_db = torch.empty(B * chunks, C, **f32)
-        planes = _planes(feats, num_joints, depth, backward=True)
+        planes = _planes(feats, num_joints, depth)
         _BWD[feats.dtype](
             feats.data_ptr(), weight.data_ptr(), bias.data_ptr(),
             mvec.data_ptr(), T.data_ptr(), A.data_ptr(), Bc.data_ptr(),

@@ -112,8 +112,8 @@ MMA_KERNELS = ("hp_fwd_mma_kernel", "hp_bwd_dfeat_mma_kernel",
 F32_MMA_KERNELS = ("hp_fwd_f32_kernel", "hp_bwd_dfeat_f32_kernel",
                    "hp_bwd_dweight_f32_kernel")
 #: kernels 3 and 4 at F > 256 (both feature dtypes, one template each;
-#: the backward's fed through a ring of bulk copies)
-SLICE_MMA_KERNELS = ("hp_fwd_slices_kernel", "hp_bwd_dfeat_ring_kernel",
+#: fed through rings of bulk copies)
+SLICE_MMA_KERNELS = ("hp_fwd_ring_kernel", "hp_bwd_dfeat_ring_kernel",
                      "hp_bwd_dweight_ring_kernel")
 
 
@@ -235,23 +235,22 @@ def softmax_integral_fwd_chunks(hm: int, dtype: int, batch: int, rows: int,
 @functools.lru_cache(maxsize=None)
 def _planes_entry():
     fn = library().hipe_head_projection_integral_workspace
-    fn.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I]
+    fn.argtypes = [_I, _I, _I, _I, _I, _I, _I]
     fn.restype = ctypes.c_longlong
     return fn
 
 
-def head_projection_workspace(dtype: torch.dtype, backward: bool,
-                              batch: int, height: int, width: int,
-                              feats: int, joints: int, depth: int) -> int:
-    """Bytes of the workspace of split bf16 planes that kernel 3 or, with
-    `backward`, kernel 4 takes for features of `dtype` (one layout for
-    both up to 256 features): float32 features' and the weight's, the
-    weight's alone for bf16 features wider than 256, else 0; past 256
-    features kernel 4's holds the features and the weight laid out slice
-    by slice (`csrc/k_slices.cuh`), bf16 features as one plane. The C
-    library owns the layout. It launches nothing."""
-    return int(_planes_entry()(int(dtype == torch.float32), int(backward),
-                               batch, height, width, feats, joints, depth))
+def head_projection_workspace(dtype: torch.dtype, batch: int, height: int,
+                              width: int, feats: int, joints: int,
+                              depth: int) -> int:
+    """Bytes of the workspace of split bf16 planes that kernels 3 and 4
+    take for features of `dtype` (one layout for both directions): up to
+    256 features float32 features' and the weight's, none for bf16 ones;
+    past that the features and the weight laid out slice by slice
+    (`csrc/k_slices.cuh`), bf16 features as one plane. The C library owns
+    the layout. It launches nothing."""
+    return int(_planes_entry()(int(dtype == torch.float32), batch, height,
+                               width, feats, joints, depth))
 
 
 @functools.lru_cache(maxsize=None)
@@ -277,18 +276,18 @@ SOFTMAX_INTEGRAL_FWD = Kernel(
     ("softmax_integral_partial_kernel", "softmax_integral_fwd_kernel"))
 #: (feats, weight, bias, coords, m, s, ws, planes, B, H, W, F, J, D,
 #:  chunks per image, stream): bf16 features on the tensor cores; planes
-#:  is the workspace of `head_projection_workspace` bytes (the weight's
-#:  split planes at F > 256)
+#:  is the workspace of `head_projection_workspace` bytes (the features'
+#:  and the weight's slices at F > 256)
 HEAD_PROJECTION_INTEGRAL_FWD = Kernel(
     "hipe_head_projection_integral_fwd",
     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    ("hp_fwd_mma_kernel", "hp_fwd_slices_kernel<1>"))
+    ("hp_fwd_mma_kernel", "hp_fwd_ring_kernel<1>"))
 #: float32 features on the tensor cores: the same arguments, planes the
 #: features' and the weight's split planes
 HEAD_PROJECTION_INTEGRAL_FWD_F32 = Kernel(
     "hipe_head_projection_integral_fwd_f32",
     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    ("hp_fwd_f32_kernel", "hp_fwd_slices_kernel<3>"))
+    ("hp_fwd_f32_kernel", "hp_fwd_ring_kernel<3>"))
 
 #: (hm, dtype, m, s, coords, cot, grad, B, H, W, J, D, stream)
 SOFTMAX_INTEGRAL_BWD = Kernel(

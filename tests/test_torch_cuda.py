@@ -25,6 +25,7 @@ from hand_integral_pose_estimation_tpu_torch.ops import (
     roi_align,
     warp,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 pytestmark = pytest.mark.gpu
 
@@ -432,11 +433,15 @@ def test_f32_head_fwd_at_path_shapes(dev, shape):
 # slices; 513: the first with two passes, the second of one slice, which
 # warpgroup 1 sits out; 1024: two whole passes; 2048: four, bf16 features
 # streamed in the backward's dfeat), and D = 160 (the chunk merge and
-# kernel 1's generic path past 128 depth slots) at F = 256 and 512
+# kernel 1's generic path past 128 depth slots) at F = 256 and 512; and
+# ragged rounds of the forward past 256 features (rounds of four 64-position
+# tiles with bf16 features, two with float32 ones): 5 x 64 positions (the
+# last round holds one tile) and, at batch 1, 7 x 64 (three, or one)
 WIDE_HEAD_SHAPES = [(2, 9, 7, 3, 24, f)
                     for f in (6, 7, 38, 258, 259, 260, 320, 384, 511, 512,
                               513, 1024, 2048)] + [
-    (2, 9, 7, 3, 160, 256), (2, 9, 7, 2, 160, 512), (3, 56, 56, 21, 56, 512)]
+    (2, 9, 7, 3, 160, 256), (2, 9, 7, 2, 160, 512), (3, 56, 56, 21, 56, 512),
+    (2, 5, 64, 3, 24, 320), (1, 7, 64, 2, 24, 384)]
 
 
 @pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
@@ -482,10 +487,10 @@ def test_head_at_every_width_and_depth(dev, shape, feat_dtype):
 @pytest.mark.parametrize("num_feats", [256, 257])
 def test_head_device_kernels_by_width(dev, num_feats, feat_dtype):
     """A forward and a backward call launch the resident kernels up to 256
-    features and the slice-walking ones past it (the feature dtype's
-    instantiation: <1> bf16, <3> float32), one of each, read from a
-    captured graph's kernel nodes: the entry points' counts cannot tell
-    the two apart."""
+    features and the ring ones past it (`hp_fwd_ring_kernel`, the
+    backward's dfeat and dW; the feature dtype's instantiation: <1> bf16,
+    <3> float32), one of each, read from a captured graph's kernel nodes:
+    the entry points' counts cannot tell the two apart."""
     B, H, W, J, D, F = 2, 9, 7, 3, 24, num_feats
     g = torch.Generator(device=dev).manual_seed(15)
     feats = torch.randn(B, H, W, F, device=dev, generator=g).to(feat_dtype)
@@ -516,6 +521,9 @@ def test_head_device_kernels_by_width(dev, num_feats, feat_dtype):
     launched = {k: sum(kernels.mangled_name(k) in n for n in names)
                 for k in head}
     assert launched == {k: int(k in want) for k in head}
+    # the forward past 256 features is the ring kernel, and no other
+    assert launched[f"hp_fwd_ring_kernel<{3 if f32 else 1}>"] == int(F > 256)
+    assert not any("hp_fwd_slices_kernel" in n for n in names)
 
 
 def test_slice_kernels_run_on_tensor_cores(dev):

@@ -40,6 +40,7 @@ from hand_integral_pose_estimation_tpu_torch.detect import (
 from hand_integral_pose_estimation_tpu_torch.interop import (
     detector_state_dict_from_jax,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 # the JAX package's ops/__init__ exports a function of this name
 jnms = importlib.import_module("hand_integral_pose_estimation_tpu.ops.nms")

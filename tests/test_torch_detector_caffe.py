@@ -46,6 +46,7 @@ from test_torch_detector import (
     port_config,
     tiny_images,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 
 @pytest.fixture(scope="module", params=["r50_caffe", "r50_caffe_odd"])

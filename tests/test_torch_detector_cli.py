@@ -32,6 +32,7 @@ from hand_integral_pose_estimation_tpu_torch.detect import (
     detect,
 )
 from hand_integral_pose_estimation_tpu_torch.detect.load import save_detector
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 TINY_TRAIN = ["--synthetic", "--n", "16", "--steps", "2", "--batch", "2",
               "--eval-every", "2", "--resnet", "18", "--scale", "112",

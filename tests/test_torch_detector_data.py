@@ -22,6 +22,7 @@ from hand_integral_pose_estimation_tpu_torch.detect import (
     VGG16Base,
     VGG16Tail,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 
 def assert_same(got, want):

@@ -20,6 +20,7 @@ from hand_integral_pose_estimation_tpu_torch.ops import kernels
 from hand_integral_pose_estimation_tpu_torch.ops import nms as pnms
 from hand_integral_pose_estimation_tpu_torch.ops import roi_align as proi
 from test_detector import _np_greedy_nms
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 # the JAX package's ops/__init__ exports functions of these names
 jnms = importlib.import_module("hand_integral_pose_estimation_tpu.ops.nms")

@@ -56,6 +56,7 @@ from hand_integral_pose_estimation_tpu_torch.training.detector_trainer import (
     make_detector_optimizer,
     make_detector_train_step,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 jroi = importlib.import_module("hand_integral_pose_estimation_tpu.ops.roi_align")
 

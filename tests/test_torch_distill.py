@@ -39,6 +39,7 @@ from hand_integral_pose_estimation_tpu_torch.training.teacher import (
 from test_torch_panet import _one_torch_thread  # noqa: F401 (autouse)
 from test_torch_pose_net import port_model, randomized_jax_variables
 from test_torch_train import small_config
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 PATCH = (32, 32)
 #: between the ~1e-2 back-projection variance of constant rows and the

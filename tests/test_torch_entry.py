@@ -14,6 +14,7 @@ from hand_integral_pose_estimation_tpu_torch.entry import (
 from hand_integral_pose_estimation_tpu_torch.interop import (
     pose_state_dict_from_jax,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 
 def test_entry_matches_jax():

@@ -17,6 +17,7 @@ from hand_integral_pose_estimation_tpu_torch.config import Config, TrainConfig
 from hand_integral_pose_estimation_tpu_torch.data import freihand
 from hand_integral_pose_estimation_tpu_torch.data import native_loader
 from test_torch_panet import _one_torch_thread  # noqa: F401 (autouse)
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "fixtures", "freihand_mini")

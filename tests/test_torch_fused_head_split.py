@@ -26,6 +26,7 @@ from hand_integral_pose_estimation_tpu_torch.ops import (
     integral,
     kernels,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 B, H, W, J, F = 2, 8, 8, 3, 40
 # coords and dW to 1e-5 of their largest entry: the three-part products
@@ -556,3 +557,38 @@ def test_backward_grid_plan_counts_every_dimension(monkeypatch, num_feats,
         busy = (blocks * batch * passes * (tiles + 1)
                 / (sms * waves * (per_chunk + 1)))
         assert busy >= 0.85, (dtype, chunks, busy)
+
+
+@pytest.mark.parametrize("num_feats", [260, 512])
+@pytest.mark.parametrize("batch", [1, 4, 32])
+def test_forward_grid_plan_cuts_rounds(monkeypatch, num_feats, batch):
+    """Kernel 3's grid past 256 features at the serving shape on 132 SMs,
+    as its launcher cuts it (`launch_fwd_ring`): an image's tiles of 64
+    positions in rounds of four (bf16 features) or two (float32 ones),
+    each chunk but the last ceil(rounds / chunks) rounds, none empty; the
+    count the one that least waves x (tiles per chunk + 1) take; and the
+    waves busy: the work of one chunk an image over the SMs' time of the
+    planned waves at least 0.9 at batch 32 and 0.7 at batch 1 and 4
+    (rounds of four tiles cut an image more coarsely than the backward's
+    single tiles)."""
+    monkeypatch.setattr(kernels, "sm_count", lambda index: 132)
+    C, sms, tiles, blocks = 21 * 56, 132, -(-56 * 56 // 64), 19
+    for dtype, round_tiles in ((torch.bfloat16, 4), (torch.float32, 2)):
+        assert fused_head.forward_round_tiles(dtype, num_feats) == round_tiles
+        assert fused_head.forward_round_tiles(dtype, 256) == 1
+        assert fused_head._chunk_tile(dtype, num_feats) == 64
+        feats = torch.empty(batch, 56, 56, num_feats, dtype=dtype)
+        chunks = fused_head._mma_chunks(feats, C, round_tiles=round_tiles)
+        rounds = -(-tiles // round_tiles)
+        per = -(-rounds // chunks)  # the launcher's rounds per chunk
+        assert 1 <= chunks <= rounds and (chunks - 1) * per < rounds
+
+        def cost(c):
+            return (-(-batch * blocks * c // sms)
+                    * (round_tiles * -(-rounds // c) + 1))
+
+        assert cost(chunks) == min(cost(c) for c in range(1, rounds + 1))
+        waves = -(-batch * chunks * blocks // sms)
+        busy = (blocks * batch * (round_tiles * rounds + 1)
+                / (sms * waves * (round_tiles * per + 1)))
+        assert busy >= (0.9 if batch == 32 else 0.7), (dtype, chunks, busy)

@@ -20,6 +20,7 @@ import torch
 
 from hand_integral_pose_estimation_tpu.ops import fused_head as jfused
 from hand_integral_pose_estimation_tpu_torch.ops import fused_head
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 B, H, W, J = 2, 4, 4, 3
 # the forward at float64 on both sides: the same closed forms, sums in

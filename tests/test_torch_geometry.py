@@ -31,6 +31,7 @@ from hand_integral_pose_estimation_tpu_torch.geometry import (
     procrustes,
     transforms,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 ATOL = 1e-10
 

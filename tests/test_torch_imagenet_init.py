@@ -26,6 +26,7 @@ from hand_integral_pose_estimation_tpu_torch.interop import (
 from hand_integral_pose_estimation_tpu_torch.training import Trainer
 from test_torch_interop import TorchResNet, _randomize
 from test_torch_pose_net import randomized_jax_variables
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 MODEL = ModelConfig(resnet_type=18, input_shape=(32, 32),
                     output_shape=(8, 8), depth_dim=8, compute_dtype="float32")

@@ -30,6 +30,7 @@ from hand_integral_pose_estimation_tpu_torch.training import (
 )
 from test_torch_freihand import FIXTURE, SIZES, library  # noqa: F401
 from test_torch_panet import _one_torch_thread  # noqa: F401 (autouse)
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 # the three ways in: the host decodes (prefetch off), the prefetcher
 # decodes to RGB, the prefetcher hands over 4:2:0 planes

@@ -29,6 +29,7 @@ import torch
 
 from hand_integral_pose_estimation_tpu.ops import integral as jintegral
 from hand_integral_pose_estimation_tpu_torch.ops import integral
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 B = 2
 # (H, W, J, D): 8-channel groups inside a joint (D = 56), across joints

@@ -11,6 +11,7 @@ are random — the oracle is forward-output agreement, not stored files.
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 torch = pytest.importorskip("torch")
 import torch.nn as tnn  # noqa: E402

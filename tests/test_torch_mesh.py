@@ -36,6 +36,7 @@ from hand_integral_pose_estimation_tpu_torch.parallel import (
     head_model_split,
     param_sharding_rules,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 SPECS = ["data=2", "model=2", "data=2,model=2", "data=4,model=2", "data=8",
          "model=8", "data=1,model=8", "data=3", "data=9", "model=16",

@@ -24,6 +24,7 @@ from hand_integral_pose_estimation_tpu_torch.cli import (
 )
 from hand_integral_pose_estimation_tpu_torch.training import Trainer
 from torch_mesh_worker import spawn
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 SIZING = ["--pose-resnet", "18", "--pose-input", "32", "--device", "cpu"]
 TRAIN = ["--synthetic", "--synthetic-size", "16", "--batch-size", "8",

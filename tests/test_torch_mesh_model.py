@@ -31,6 +31,7 @@ from hand_integral_pose_estimation_tpu_torch.training import (
     load_checkpoint,
 )
 from torch_mesh_worker import small_config, spawn
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 WORLD, D, F = 4, 8, 16
 

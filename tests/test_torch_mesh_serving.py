@@ -23,6 +23,7 @@ from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
 from test_torch_detector import TINY, tiny_images
 from test_torch_pose_net import small_config
 from torch_mesh_worker import spawn
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 
 @pytest.fixture(scope="module")

@@ -51,6 +51,7 @@ from hand_integral_pose_estimation_tpu_torch.training import (
 )
 from test_torch_pose_net import jax_pose_net, randomized_jax_variables
 from torch_mesh_worker import small_config, spawn
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 WORLD = 2
 

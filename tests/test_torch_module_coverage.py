@@ -6,6 +6,7 @@ path in `hand_integral_pose_estimation_tpu_torch/`, or stands in
 import os
 
 import pytest
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = os.path.join(ROOT, "hand_integral_pose_estimation_tpu")

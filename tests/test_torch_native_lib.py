@@ -24,6 +24,7 @@ import subprocess
 import tempfile
 
 import pytest
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 NATIVE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")

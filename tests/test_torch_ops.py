@@ -19,6 +19,7 @@ from hand_integral_pose_estimation_tpu_torch.ops import (
     kernels,
     warp,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 # (B, H, W, J, D): a ragged small case and the serving J x D at 8x8
 DECODE_SHAPES = [(2, 8, 8, 3, 4), (1, 8, 8, 21, 56)]

@@ -21,6 +21,7 @@ from hand_integral_pose_estimation_tpu_torch.interop import (
 )
 from hand_integral_pose_estimation_tpu_torch.models import panet
 from hand_integral_pose_estimation_tpu_torch.training import panet_trainer
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 DICT_SIZES = (16, 8, 4)
 

@@ -27,6 +27,7 @@ from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
 from hand_integral_pose_estimation_tpu_torch.ops import (
     head_projection_integral,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 
 def small_config(resnet_type: int) -> ModelConfig:

@@ -77,6 +77,7 @@ from test_torch_pose_net import (
     randomized_jax_variables,
     small_config,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 jptq = importlib.import_module(
     "hand_integral_pose_estimation_tpu.quantize.ptq")

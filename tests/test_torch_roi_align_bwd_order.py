@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from hand_integral_pose_estimation_tpu_torch.ops import roi_align as proi
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 # the module (the package's `ops` exports a function of the same name)
 jroi = importlib.import_module(

@@ -38,6 +38,7 @@ from hand_integral_pose_estimation_tpu_torch.training.state import (
 from hand_integral_pose_estimation_tpu_torch.training.trainer import METRICS
 from hand_integral_pose_estimation_tpu_torch.utils import MetricsWriter
 from test_torch_train import small_config
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 
 def _dataset(n=8, seed=1):

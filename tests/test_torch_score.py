@@ -30,6 +30,7 @@ from hand_integral_pose_estimation_tpu_torch.evaluation import (
     metrics,
 )
 from hand_integral_pose_estimation_tpu_torch.geometry import procrustes
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 RTOL, ATOL = 1e-10, 1e-12
 

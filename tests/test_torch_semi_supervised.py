@@ -55,6 +55,7 @@ from test_torch_train import (
     small_config,
     t,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "fixtures", "freihand_mini")

@@ -38,6 +38,7 @@ from test_torch_pose_net import (
     randomized_jax_variables,
     small_config,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

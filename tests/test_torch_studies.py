@@ -42,6 +42,7 @@ from hand_integral_pose_estimation_tpu_torch.training import (
 )
 from test_torch_pose_net import jax_pose_net, port_model, \
     randomized_jax_variables
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 TINY = ["--batch-size", "4", "--pose-resnet", "18", "--pose-input", "32",
         "--device", "cpu"]

@@ -68,6 +68,7 @@ from hand_integral_pose_estimation_tpu_torch.training.state import (
     optimizer_steps,
 )
 from test_torch_pose_net import port_model, randomized_jax_variables
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 J_SMALL, D_SMALL = 3, 4
 

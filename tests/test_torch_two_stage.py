@@ -64,6 +64,7 @@ from test_torch_pose_net import (
     randomized_jax_variables,
     small_config,
 )
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 CAMERA = np.array([[100.0, 0, 32], [0, 100.0, 32], [0, 0, 1.0]], np.float32)
 

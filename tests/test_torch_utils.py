@@ -35,6 +35,7 @@ from hand_integral_pose_estimation_tpu_torch.utils import (
     plot_hand,
 )
 from hand_integral_pose_estimation_tpu_torch.utils import visualize
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "fixtures", "freihand_mini")

@@ -35,6 +35,7 @@ from hand_integral_pose_estimation_tpu.data import pipeline as jpipeline
 from hand_integral_pose_estimation_tpu.ops import warp as jwarp
 from hand_integral_pose_estimation_tpu_torch.config import AugmentConfig
 from hand_integral_pose_estimation_tpu_torch.ops import warp
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 # The Pallas kernel forms its dense weights in float32 and contracts them
 # on the (emulated) MXU: 1e-3 on the 0..255 scale, as

@@ -18,6 +18,7 @@ from hand_integral_pose_estimation_tpu.data import native_loader as jnative
 from hand_integral_pose_estimation_tpu.ops import yuv as jyuv
 from hand_integral_pose_estimation_tpu_torch.data import native_loader
 from hand_integral_pose_estimation_tpu_torch.ops import yuv
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
 
 SIZES = [(224, 224), (200, 200), (226, 150), (120, 88), (2, 2)]
 
