@@ -97,7 +97,15 @@ before the result line.
    stages and the pipeline are timed: NMS at both of `detect`'s shapes,
    its device time split into the mask and sweep launches (profile) with
    the sweep's time per 64-box block, ROIAlign beside the bytes of feature
-   taps it reads;
+   taps it reads; then the same weights at the JAX package's serving
+   setting, `DetectorConfig.serving(64, "bfloat16")` (64 test proposals,
+   bf16 conv stacks): launches per `detect`, the kernel-backed `detect`
+   against the plain-backed one under cuDNN's deterministic algorithms
+   (proposals and their validity bitwise, scores and deltas within
+   SERVE_BF16_TOL), `TwoStagePipeline` over the 8 frames with its launch
+   counts, and `detect` (in the turns of `detect` and `detect_split`
+   above) and the pipeline timed in turns against float32 at 300
+   proposals (CUDA events);
 8. semi-supervised: (a) PANet at DEFAULT_DICT_SIZES (seeded) trained 200
    steps at batch 500 on `cli.panet_data --synthetic` clouds (the loss
    falls and stays finite; ms per step), then its forward and parameter
@@ -150,6 +158,26 @@ before the result line.
    `cli.train_detector --synthetic` for three steps, its .pth restored by
    `build_detector` with the same `detect`; (e) `cli.semi_supervised_study`,
    `cli.filter_cascade_study` and `cli.analyze_correlation` at a few steps;
+   (f) the detector's convergence gate: kernels 7, 6 and 6b against their
+   plain versions at the study's shapes (NMS 8 x 2 000 -> 256 and 64 x
+   1 000 -> 64 at IoU 0.7, 64 x 64 -> 8 at 0.3, keep sets bitwise with and
+   without early exit; ROIAlign on 8 and 64 x 14x14x256 maps with 64 RoIs
+   an image; its backward twice for the same bits), then the JAX package's
+   convergence study through the port (`cli/detector_convergence.
+   run_study`, `DetectorConfig.native`: R18 GroupNorm with live norms at
+   224^2 trained from scratch, 256 train / 64 val synthetic hand scenes,
+   batch 8, SGD at 2e-3, flip, seed 0, 600 steps under cuDNN's
+   deterministic algorithms, VOC AP every 100, then the same weights at
+   bf16 and at 16 and 300 test proposals): it prints the AP history, the
+   final, bf16 and proposal-count APs, the RPN's proposal recall on the
+   val split at step 0 and after training, ms per train step and the
+   launches per step (kernels 7, 6 and 6b once each), and fails unless
+   the final AP is at least CONV_AP_MIN, and so is the AP at each swept
+   proposal count, |AP(bf16) - AP(float32)| at most
+   CONV_BF16_AP_TOL, the recall above step 0's and CONV_RECALL_FLOOR, and
+   every loss finite (`convergence_gate`; phase 9c's loss check cannot
+   see a missing part of the gradient, this gate can:
+   `scripts/detector_descent_study.py --convergence` plants such faults);
 10. the input path and int8 serving: (a) `yuv420_to_rgb` on the card
    bitwise against the CPU at 32 x 224^2 and ragged even sizes, timed
    beside its byte bound, and the pinned host-to-device copy of one batch
@@ -318,6 +346,15 @@ BOX_TOL_ABS, BOX_TOL_REL = 1e-4, 2.0 ** -22
 # The two-stage path's detector: 4 scenes of 600^2, as the JAX package's
 # config-4 benchmark draws them (bench.py:213-225), and pipeline frames
 DET_BATCH = 4
+# Kernel- vs plain-backed detect at the serving setting (bf16 convs): the
+# proposals are bitwise equal (the same bf16 base and RPN, bitwise-equal
+# NMS); the pooled features differ by ROIAlign's summation order (~1e-7
+# relative), and the bf16 tail rounds its input to 8 bits, where such a
+# difference can move a value by one bf16 ulp (2^-8 = 3.9e-3); through
+# layer4's three blocks and the heads a few such flips stay under 2e-2:
+# the scores to 2e-2 absolute (probabilities), the deltas to 2e-2 of the
+# largest.
+SERVE_BF16_TOL = 2e-2
 DET_SIZE = 600
 PIPE_FRAMES = 8
 # The semi-supervised phase: PANet at DEFAULT_DICT_SIZES trained on
@@ -844,6 +881,51 @@ def clustered_boxes(g, B, N, dev):
             torch.rand(B, N, generator=g, device=dev))
 
 
+def nms_mismatches(b, sc, thr, top_k, score_threshold, early_exit):
+    """Kernel 7 against its plain version on one input: (the kernel's
+    (boxes, scores, keep), the slots where the two differ)."""
+    from hand_integral_pose_estimation_tpu_torch.ops import nms as nms_mod
+    got = nms_mod.nms(b, sc, thr, top_k, score_threshold, impl="cuda",
+                      early_exit=early_exit)
+    torch.cuda.synchronize()
+    want = nms_mod.nms(b, sc, thr, top_k, score_threshold, impl="plain",
+                       early_exit=early_exit)
+    return got, (int((got[2] != want[2]).sum())
+                 + int((got[0] != want[0]).any(-1).sum())
+                 + int((got[1] != want[1]).sum()))
+
+
+def roi_align_error(feats, rois, pooled=7, scale=1 / 16.0, sr=2):
+    """Kernel 6 against its plain version: (max|d|, the tolerance, the
+    plain output's sum of magnitudes)."""
+    from hand_integral_pose_estimation_tpu_torch.ops.roi_align import (
+        roi_align_batched,
+    )
+    got = roi_align_batched(feats, rois, pooled, scale, sr, impl="cuda")
+    torch.cuda.synchronize()
+    want = roi_align_batched(feats, rois, pooled, scale, sr, impl="plain")
+    return (float((got - want).abs().max()),
+            ROI_TOL * max(1.0, float(feats.abs().max())),
+            float(want.abs().sum()))
+
+
+def roi_align_bwd_error(cot, rois, hw):
+    """Kernel 6b against the plain VJP, launched twice: (the first launch's
+    gradient, max|d|, the tolerance, the two launches bitwise equal, the
+    plain gradient's largest entry)."""
+    from hand_integral_pose_estimation_tpu_torch.ops.roi_align import (
+        roi_align_bwd_cuda,
+        roi_align_bwd_plain,
+    )
+    got = roi_align_bwd_cuda(cot, rois, hw)
+    again = roi_align_bwd_cuda(cot, rois, hw)
+    torch.cuda.synchronize()
+    want = roi_align_bwd_plain(cot, rois, hw)
+    top = float(want.abs().max())
+    return (got, float((got - want).abs().max()), ROI_BWD_TOL * top,
+            bool(torch.equal(got, again)), top)
+
+
 def roi_tap_reads(rois, height, width, pooled, sr, scale):
     """Tap vectors (one per map position, all C channels) that kernel 6
     reads for these RoIs (per group of kBands = 7 pooled rows: the group's
@@ -1056,6 +1138,7 @@ def detection_phase(dev, g, card, cfg):
         _record_names,
     )
     from hand_integral_pose_estimation_tpu_torch.detect import (
+        FasterRCNN,
         build_detector,
         detect,
         detect_split,
@@ -1086,14 +1169,7 @@ def detection_phase(dev, g, card, cfg):
         cases.append((f"clustered {(B, N)}", b, sc, thr, top_k, st))
     for name, b, sc, thr, top_k, st in cases:
         for ee in (False, True):
-            got = nms_mod.nms(b, sc, thr, top_k, st, impl="cuda",
-                              early_exit=ee)
-            torch.cuda.synchronize()
-            want = nms_mod.nms(b, sc, thr, top_k, st, impl="plain",
-                               early_exit=ee)
-            bad = (int((got[2] != want[2]).sum())
-                   + int((got[0] != want[0]).any(-1).sum())
-                   + int((got[1] != want[1]).sum()))
+            got, bad = nms_mismatches(b, sc, thr, top_k, st, ee)
             kept = int(got[2].sum())
             print(f"[detection] nms {name} -> {top_k} at IoU {thr}, score "
                   f"threshold {st}, early_exit={ee}: {kept} kept, "
@@ -1117,20 +1193,15 @@ def detection_phase(dev, g, card, cfg):
             [16.0 * W, 16.0 * H], device=dev) - 40
         rois = torch.cat([lo, lo + torch.rand(B, R, 2, device=dev,
                                                generator=g) * 300 + 4], -1)
-        got = roi_align_batched(feats, rois, 7, 1 / 16.0, 2, impl="cuda")
-        torch.cuda.synchronize()
-        want = roi_align_batched(feats, rois, 7, 1 / 16.0, 2, impl="plain")
-        e = float((got - want).abs().max())
-        tol = ROI_TOL * max(1.0, float(feats.abs().max()))
+        e, tol, size = roi_align_error(feats, rois)
         print(f"[detection] roi_align {(B, H, W, C)} x {R} RoIs: max|d| "
               f"{e:.3e} (tol {tol:.3e}) {'ok' if e <= tol else 'FAILED'}",
               flush=True)
-        check(e <= tol and float(want.abs().sum()) > 0,
+        check(e <= tol and size > 0,
               "ROIAlign kernel disagrees with its plain version")
         worst_roi = max(worst_roi, e)
         if path_roi is None:
             path_roi = (feats, rois)
-        del got, want
 
     # ---- c. the detector at full width on four 600^2 scenes
     det_cfg = dataclasses.replace(DetectorConfig(), resnet_style="caffe")
@@ -1314,16 +1385,27 @@ def detection_phase(dev, g, card, cfg):
         torch.cuda.synchronize()
         return statistics.median(event_ms(fn, 1) for _ in range(n))
 
+    # the JAX package's serving setting: 64 proposals, bf16 convs
+    # (`DetectorConfig.serving(64, "bfloat16")`), the same weights; timed
+    # here in turns with float32 at 300 proposals, checked in part f
+    serve_cfg = det_cfg.serving(64, "bfloat16")
+    served = FasterRCNN(serve_cfg).to(dev)
+    served.load_state_dict(model.state_dict())
+    served.eval()
     t_detect = one_call_ms(lambda: detect(model, images))
     t_split = one_call_ms(lambda: detect_split(model, images))
+    t_serve = one_call_ms(lambda: detect(served, images, serve_cfg))
+    t_serve2 = one_call_ms(lambda: detect(served, images, serve_cfg))
     t_split2 = one_call_ms(lambda: detect_split(model, images))
     t_detect2 = one_call_ms(lambda: detect(model, images))
     print(f"[timing] detect, R{det_cfg.resnet_type} float32 at batch "
           f"{DET_BATCH} x {DET_SIZE}^2, one call at a time (CUDA events, "
           f"median of 10): {t_detect:.3f} / {t_detect2:.3f} ms; "
-          f"detect_split {t_split:.3f} / {t_split2:.3f} ms (turns: detect, "
-          f"split, split, detect); {DET_BATCH / t_detect * 1e3:.1f} img/s "
-          f"on {card}", flush=True)
+          f"detect_split {t_split:.3f} / {t_split2:.3f} ms; detect at the "
+          f"serving setting (64 proposals, bf16) {t_serve:.3f} / "
+          f"{t_serve2:.3f} ms (turns: detect, split, serving, serving, "
+          f"split, detect); {DET_BATCH / t_detect * 1e3:.1f} img/s on "
+          f"{card}", flush=True)
 
     # the detector's stages, one at a time between CUDA events
     c = det_cfg
@@ -1393,8 +1475,85 @@ def detection_phase(dev, g, card, cfg):
           f"pose): {per:.3f} ms/batch over 10 batches (host clock), "
           f"{DET_BATCH / per * 1e3:.1f} img/s on {card}", flush=True)
 
+    # ---- f. the JAX package's serving setting (`served`, made in part e)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for k in kernels.KERNELS:
+        k.launches = 0
+    det_s = detect(served, images, serve_cfg)
+    torch.cuda.synchronize()
+    serve_counts = {k.symbol: k.launches for k in kernels.KERNELS}
+    with torch.inference_mode():
+        blob_s, _ = prepare_blob(images, serve_cfg)
+        up_k = served.upstream(blob_s)
+        out_k = served.downstream(*up_k)
+        with plain_detector_ops():
+            up_p = served.upstream(blob_s)
+            out_p = served.downstream(*up_p)
+            det_sp = detect(served, images, serve_cfg)
+    torch.backends.cudnn.deterministic = deterministic
+    props_same = (torch.equal(up_k[1], up_p[1])
+                  and torch.equal(up_k[2], up_p[2]))
+    d_scores = float((out_k.cls_scores - out_p.cls_scores).abs().max())
+    d_deltas = (float((out_k.bbox_deltas - out_p.bbox_deltas).abs().max())
+                / float(out_p.bbox_deltas.abs().max()))
+    serve_want = {k.symbol: {kernels.ROI_ALIGN_FWD: 1, kernels.NMS: 2}.get(
+        k, 0) for k in kernels.KERNELS}
+    print(f"[detection] serving setting (64 proposals, bf16 convs): one "
+          f"detect: launches {serve_counts}; {int(det_s.valid.sum())} "
+          f"detections, best scores "
+          f"{[round(v, 4) for v in det_s.scores[:, 0].tolist()]}; "
+          f"kernel-backed vs plain-backed: proposals and their validity "
+          f"bitwise equal {props_same} ({int(up_k[2].sum())} valid), scores "
+          f"max|d| {d_scores:.3e} (tol {SERVE_BF16_TOL:g}), deltas max|d| / "
+          f"max {d_deltas:.3e} (tol {SERVE_BF16_TOL:g}); detect's keep sets "
+          f"equal {bool(torch.equal(det_s.valid, det_sp.valid))}",
+          flush=True)
+    check(serve_counts == serve_want, f"serving detect launches "
+          f"{serve_counts}, expected {serve_want}")
+    check(props_same and d_scores <= SERVE_BF16_TOL
+          and d_deltas <= SERVE_BF16_TOL, "the kernel-backed detect at the "
+          "serving setting disagrees with the plain-backed one")
+    pipe_s = TwoStagePipeline(cfg.replace(detector=serve_cfg), pose, served,
+                              device=dev)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    outs = []
+    for b in range(n_batches):
+        host_b = frames.host_batch(np.arange(b * DET_BATCH,
+                                             (b + 1) * DET_BATCH))
+        outs.append(pipe_s(host_b["image"], host_b["K"],
+                           host_b["ref_bone_len"]))
+    torch.cuda.synchronize()
+    pipe_s_counts = {k.symbol: k.launches for k in kernels.KERNELS}
+    joints_s = torch.cat([o.joints_cam for o in outs])
+    print(f"[detection] TwoStagePipeline at the serving setting swept "
+          f"{PIPE_FRAMES} frames: joints_cam finite "
+          f"{bool(torch.isfinite(joints_s).all())}; launches {pipe_s_counts}",
+          flush=True)
+    check(pipe_s_counts == want_counts, f"serving pipeline launches "
+          f"{pipe_s_counts}, expected {want_counts}")
+    check(joints_s.shape == (PIPE_FRAMES, 21, 3)
+          and bool(torch.isfinite(joints_s).all()), "serving pipeline joints")
+    # the pipeline in turns against float32 at 300 proposals: float32,
+    # serving, serving, float32 (detect's turns are part e's)
+    p_f1 = one_call_ms(lambda: pipe(host["image"], host["K"],
+                                    host["ref_bone_len"]))
+    p_s1 = one_call_ms(lambda: pipe_s(host["image"], host["K"],
+                                      host["ref_bone_len"]))
+    p_s2 = one_call_ms(lambda: pipe_s(host["image"], host["K"],
+                                      host["ref_bone_len"]))
+    p_f2 = one_call_ms(lambda: pipe(host["image"], host["K"],
+                                    host["ref_bone_len"]))
+    print(f"[timing] TwoStagePipeline a batch of {DET_BATCH}, one call at a "
+          f"time (CUDA events, median of 10; turns float32, serving, "
+          f"serving, float32): float32 at 300 proposals {p_f1:.3f} / "
+          f"{p_f2:.3f} ms, serving setting (64, bf16) {p_s1:.3f} / "
+          f"{p_s2:.3f} ms on {card}", flush=True)
+    del served, pipe_s
+
     launches = {k: pipe_counts[k] + cli_counts[k] + counts[k]
-                for k in pipe_counts}
+                + serve_counts[k] + pipe_s_counts[k] for k in pipe_counts}
     return launches, {
         "roi_align": (worst_roi, t_roi, roi_bound),
         "nms": (float(worst_nms), t_nms, nms_bound),
@@ -1862,14 +2021,8 @@ def detector_training_phase(dev, g, card):
             rois[1] = torch.tensor([-900.0, -900.0, -500.0, -600.0],
                                    device=dev)
         cot = torch.randn(B, R, 7, 7, C, device=dev, generator=g)
-        got = roi_align_bwd_cuda(cot, rois, (H, W))
-        again = roi_align_bwd_cuda(cot, rois, (H, W))
-        torch.cuda.synchronize()
-        want = roi_align_bwd_plain(cot, rois, (H, W))
-        e = float((got - want).abs().max())
-        tol = ROI_BWD_TOL * float(want.abs().max())
-        same = bool(torch.equal(got, again))
-        ok = e <= tol and same and float(want.abs().max()) > 0
+        got, e, tol, same, top = roi_align_bwd_error(cot, rois, (H, W))
+        ok = e <= tol and same and top > 0
         note = ""
         if banded:
             empty = not bool(got[1].any())
@@ -1884,7 +2037,7 @@ def detector_training_phase(dev, g, card):
         worst = max(worst, e)
         if path is None:
             path = (cot, rois, (H, W))
-        del got, again, want
+        del got
     cot, rois, hw = path
     t_bwd = time_pair(lambda: roi_align_bwd_cuda(cot, rois, hw),
                       lambda: roi_align_bwd_plain(cot, rois, hw))
@@ -1899,13 +2052,7 @@ def detector_training_phase(dev, g, card):
     # ---- b. kernel 7 at the training proposal shape
     b, sc = clustered_boxes(g, DET_BATCH, 12000, dev)
     for ee in (False, True):
-        got = nms_mod.nms(b, sc, 0.7, 2000, 0.0, impl="cuda", early_exit=ee)
-        torch.cuda.synchronize()
-        want = nms_mod.nms(b, sc, 0.7, 2000, 0.0, impl="plain",
-                           early_exit=ee)
-        bad = (int((got[2] != want[2]).sum())
-               + int((got[0] != want[0]).any(-1).sum())
-               + int((got[1] != want[1]).sum()))
+        got, bad = nms_mismatches(b, sc, 0.7, 2000, 0.0, ee)
         print(f"[detector training] nms {(DET_BATCH, 12000)} -> 2000 at IoU "
               f"0.7, early_exit={ee}: {int(got[2].sum())} kept, {bad} "
               f"mismatching slots (tol 0) {'ok' if bad == 0 else 'FAILED'}",
@@ -2143,6 +2290,188 @@ def detector_training_phase(dev, g, card):
 
     launches = {k: steps_launches[k] + cli_launches[k] for k in cli_launches}
     return launches, {"roi_align_bwd": (worst, t_bwd, bwd_bound)}
+
+
+# Phase 9f, the detector's convergence gate: the JAX package's study
+# (cli/detector_convergence.py: DetectorConfig.native, R18 GroupNorm with
+# live norms at 224^2, anchors (2, 4, 8, 12), 2 000 -> 256 train and
+# 1 000 -> 64 test proposals, trained from scratch on the seeded synthetic
+# hand scenes) at its recorded setting, 256 train / 64 val images, batch 8,
+# SGD at 2e-3, flip on, seed 0, 600 steps, VOC AP on the val split every
+# 100, then the same weights in bf16 and at 16 and 300 test proposals.
+CONV_TRAIN_N = 256
+CONV_VAL_N = 64
+CONV_SIZE = 224
+CONV_STEPS = 600
+CONV_EVAL_EVERY = 100
+CONV_BATCH = 8
+CONV_LR = 2e-3
+CONV_PROPOSALS = (16, 300)
+# The JAX study's own target (its docstring; AP 0.922 at 600 steps in its
+# record, PERFORMANCE.md), held at the study's 64 test proposals and at
+# each count of the proposal sweep (16 and 300): the JAX package serves at
+# 64 and documents AP as flat from 300 down to well below 64 (its
+# --proposal-sweep). Phase 9c's loss check cannot tell a detector whose
+# RPN or detection head takes no gradient from a sound one; the AP of the
+# trained detector can, and the sweep is what catches the head: with its
+# gradient zeroed, the final AP was 0.9144 at 64 proposals but 0.3404 at
+# 300 (a head that never learned to reject background is flooded by the
+# extra proposals), the RPN's zeroed 0.8404 at 16; sound runs 0.9844-1.0
+# at every count (scripts/detector_descent_study.py --convergence, seeds
+# 0-2, on an H100).
+CONV_AP_MIN = 0.90
+# The JAX package's gate on bf16 serving: |AP(bf16) - AP(float32)| on the
+# same weights (PERFORMANCE.md, --dtype-sweep).
+CONV_BF16_AP_TOL = 0.05
+# The share of val gt boxes that one of the 64 test proposals covers at
+# IoU >= 0.5 must rise over training and end at this floor or above: the
+# RPN's proposals are all the detection head sees. Sound runs (seeds 0-2,
+# and the CLI's three runs) ended at 0.9844-1.0 from 0.0781-0.8594 at step
+# 0; with the RPN's gradient zeroed it fell from 0.8594 to 0.6562 (the
+# base drifting under a frozen RPN), with the head's zeroed it ended at
+# 0.9219 (same study, same card). The floor leaves the sound runs a
+# margin of 0.03 and stands far above the RPN fault.
+CONV_RECALL_FLOOR = 0.95
+
+
+def convergence_gate(result) -> dict:
+    """Phase 9f's four checks on a `run_study` result, by name: whether
+    each holds."""
+    recall = result["rpn_recall"]
+    bf16 = result["dtype_sweep"]["bfloat16"]
+    return {
+        f"final AP >= {CONV_AP_MIN:g}": result["final_ap"] >= CONV_AP_MIN,
+        f"AP >= {CONV_AP_MIN:g} at {CONV_PROPOSALS} test proposals": all(
+            result["proposal_sweep"][n] >= CONV_AP_MIN
+            for n in CONV_PROPOSALS),
+        f"|AP(bf16) - AP(float32)| <= {CONV_BF16_AP_TOL:g}":
+            abs(bf16 - result["final_ap"]) <= CONV_BF16_AP_TOL,
+        f"RPN recall above step 0's and {CONV_RECALL_FLOOR:g}":
+            recall["final"] > recall["step_0"]
+            and recall["final"] >= CONV_RECALL_FLOOR,
+        "finite losses": all(math.isfinite(h[k]) for h in result["history"]
+                             for k in ("loss", "rpn_cls", "det_cls")),
+    }
+
+
+def run_convergence_study(seed: int = SEED, log=print) -> dict:
+    """The study at phase 9f's setting, under cuDNN's deterministic
+    algorithms (as phase 9c)."""
+    from hand_integral_pose_estimation_tpu_torch.cli import (
+        detector_convergence,
+    )
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return detector_convergence.run_study(
+            train_n=CONV_TRAIN_N, val_n=CONV_VAL_N,
+            hw=(CONV_SIZE, CONV_SIZE), steps=CONV_STEPS, batch=CONV_BATCH,
+            eval_every=CONV_EVAL_EVERY, lr=CONV_LR, resnet_type=18,
+            seed=seed, flip=True, proposal_sweep=CONV_PROPOSALS,
+            dtype_sweep=("bfloat16",), device="cuda", log=log)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def detector_convergence_phase(dev, card):
+    """Phase 9f. Returns the launches of the study's run by kernel
+    symbol."""
+    from hand_integral_pose_estimation_tpu_torch.cli.detector_convergence \
+        import study_config
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    # a generator of its own: the later phases' draws stay as they were
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    c = study_config((CONV_SIZE, CONV_SIZE))
+    fh = fw = CONV_SIZE // c.feat_stride
+    anchors = fh * fw * len(c.anchor_scales) * len(c.anchor_ratios)
+    # ---- a. kernels 7, 6 and 6b at the study's shapes: the train-time
+    # proposals (the top 2 000 of 8 x 2 352 anchors -> 256 at IoU 0.7), the
+    # test-time ones (64 val images, top 1 000 -> 64) and the class NMS (64
+    # RoIs an image -> 8 at 0.3); ROIAlign on 14 x 14 x 256 maps, 64
+    # sampled RoIs a training image and 64 proposals a val image
+    for B, N, thr, top_k, st in (
+            (CONV_BATCH, min(c.rpn_pre_nms_top_n_train, anchors),
+             c.rpn_nms_thresh, c.rpn_post_nms_top_n_train, 0.0),
+            (CONV_VAL_N, min(c.rpn_pre_nms_top_n_test, anchors),
+             c.rpn_nms_thresh, c.rpn_post_nms_top_n_test, 0.0),
+            (CONV_VAL_N, c.rpn_post_nms_top_n_test, c.det_nms_thresh,
+             c.max_detections, c.det_score_thresh)):
+        b, sc = clustered_boxes(g, B, N, dev)
+        b = b * (CONV_SIZE / DET_SIZE)
+        for ee in (False, True):
+            got, bad = nms_mismatches(b, sc, thr, top_k, st, ee)
+            print(f"[convergence] nms {(B, N)} -> {top_k} at IoU {thr}, "
+                  f"early_exit={ee}: {int(got[2].sum())} kept, {bad} "
+                  f"mismatching slots (tol 0) "
+                  f"{'ok' if bad == 0 else 'FAILED'}", flush=True)
+            check(bad == 0, "NMS kernel disagrees with its plain version at "
+                  "the study's shapes")
+    C, P = 256, c.pooling_size
+    for B, R, what in ((CONV_BATCH, c.roi_batch_size, "train"),
+                       (CONV_VAL_N, c.rpn_post_nms_top_n_test, "val")):
+        feats = torch.randn(B, fh, fw, C, device=dev, generator=g)
+        rois = training_rois(B, R, fh, fw, g, dev)
+        e, tol, size = roi_align_error(feats, rois, P, c.spatial_scale,
+                                       c.sampling_ratio)
+        ok = e <= tol and size > 0
+        print(f"[convergence] roi_align {(B, fh, fw, C)} x {R} RoIs "
+              f"({what}): max|d| {e:.3e} (tol {tol:.3e}) "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        check(ok, "ROIAlign kernel disagrees with its plain version at the "
+              "study's shapes")
+        if what != "train":
+            continue
+        cot = torch.randn(B, R, P, P, C, device=dev, generator=g)
+        _, e, tol, same, top = roi_align_bwd_error(cot, rois, (fh, fw))
+        ok = e <= tol and same and top > 0
+        print(f"[convergence] roi_align_bwd {(B, fh, fw, C)} x {R} RoIs: "
+              f"max|d| {e:.3e} (tol {tol:.3e}), two launches bitwise equal "
+              f"{same} {'ok' if ok else 'FAILED'}", flush=True)
+        check(ok, "the ROIAlign backward kernel disagrees with the plain "
+              "VJP at the study's shapes or differs between launches")
+
+    # ---- b. the study
+    for k in kernels.KERNELS:
+        k.launches = 0
+    result = run_convergence_study(
+        log=lambda line: print(f"[convergence] {line}", flush=True))
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in kernels.KERNELS}
+    per_step = {k: v / CONV_STEPS for k, v in
+                result["train_launches"].items()}
+    want_step = {kernels.NMS.symbol: 1.0, kernels.ROI_ALIGN_FWD.symbol: 1.0,
+                 kernels.ROI_ALIGN_BWD.symbol: 1.0}
+    recall = result["rpn_recall"]
+    bf16 = result["dtype_sweep"]["bfloat16"]
+    gate = convergence_gate(result)
+    print(f"[convergence] R18 GroupNorm at {CONV_SIZE}^2 trained from "
+          f"scratch, {CONV_TRAIN_N} train / {CONV_VAL_N} val images, batch "
+          f"{CONV_BATCH}, SGD at {CONV_LR:g}, seed {SEED}: AP at steps "
+          f"{[(h['step'], h['ap']) for h in result['history']]}; final AP "
+          f"{result['final_ap']:.4f}, bf16 AP {bf16:.4f} (|d| "
+          f"{abs(bf16 - result['final_ap']):.4f}), AP at "
+          f"{{proposals: AP}} {result['proposal_sweep']}; RPN recall "
+          f"(val gt boxes under one of the {c.rpn_post_nms_top_n_test} "
+          f"test proposals at IoU >= 0.5) {recall['step_0']:.4f} at step 0, "
+          f"{recall['final']:.4f} after training; launches per train step "
+          f"{per_step}, in the phase {launches}", flush=True)
+    print(f"[timing] detector convergence study: "
+          f"{result['train_ms_per_step']:.3f} ms per train step (host "
+          f"clock, evaluations left out) at batch {CONV_BATCH} x "
+          f"{CONV_SIZE}^2 on {card}", flush=True)
+    for name, ok in gate.items():
+        print(f"[convergence] gate: {name} {'ok' if ok else 'FAILED'}",
+              flush=True)
+    check(per_step == want_step, f"the study's train steps launched "
+          f"{result['train_launches']} over {CONV_STEPS} steps")
+    check(all(gate.values()), "the detector's convergence gate failed: "
+          + ", ".join(n for n, ok in gate.items() if not ok))
+    del result
+    print(f"[convergence] phase 9f took {time.perf_counter() - t_phase:.1f} "
+          f"s", flush=True)
+    return launches
 
 
 def input_int8_phase(dev, g, card, cfg):
@@ -4443,6 +4772,9 @@ def main() -> None:
     # ---- 9. detector training and the study CLIs
     dtrain_launches, dtrain = detector_training_phase(dev, g, card)
 
+    # ---- 9f. the detector's convergence gate
+    conv_launches = detector_convergence_phase(dev, card)
+
     # ---- 10. the input path's device half and int8 serving
     int8_launches = input_int8_phase(dev, g, card, cfg)
 
@@ -4520,6 +4852,7 @@ def main() -> None:
                       + train_launches[k.symbol]
                       + det_launches[k.symbol] + semi_launches[k.symbol]
                       + dtrain_launches[k.symbol]
+                      + conv_launches[k.symbol]
                       + int8_launches[k.symbol] + mesh_launches[k.symbol]
                       + util_launches[k.symbol]),
          "max_abs_err": err[name], "ms": times[name][0],

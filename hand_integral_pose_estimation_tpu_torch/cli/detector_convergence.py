@@ -14,12 +14,16 @@ scratch (GroupNorm, `freeze_bn=False`: the `DetectorConfig.native` preset)
 on the synthetic hand / distractor scenes (detect/synthetic.py) and tracks
 VOC AP on a held-out split. Prints one JSON line per evaluation and a final
 summary line; `--proposal-sweep` and `--dtype-sweep` re-evaluate the same
-weights at other test-time proposal counts and compute dtypes.
+weights at other test-time proposal counts and compute dtypes. Beyond the
+JAX study it also prints the RPN's proposal recall on the held-out split
+before and after training (`proposal_recall`), the train step's ms by the
+host clock, and on the card the kernel launches of the train steps.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import time
@@ -34,6 +38,34 @@ def study_config(hw, resnet_type: int = 18) -> DetectorConfig:
     synthetic hands, no blob resize (test_scale is the image size), the
     from-scratch recipe of `DetectorConfig.native`."""
     return DetectorConfig.native(min(hw), resnet_type, max_size=max(hw))
+
+
+def proposal_recall(model, images, gt_boxes, cfg: DetectorConfig,
+                    iou: float = 0.5) -> float:
+    """The share of the gt boxes (per image (G, 4), image coordinates) that
+    one of the RPN's test-time proposals (`rpn_post_nms_top_n_test` an
+    image) covers at IoU >= `iou`: what the detection head can still find.
+    The model is put in eval mode for the sweep and back in train mode
+    after."""
+    import torch
+
+    from hand_integral_pose_estimation_tpu_torch.detect import prepare_blob
+    from hand_integral_pose_estimation_tpu_torch.ops.nms import box_iou
+
+    model.eval()
+    with torch.inference_mode():
+        blob, scale = prepare_blob(images, cfg)
+        _, rois, valid = model.upstream(blob)
+    model.train()
+    rois, valid = (rois / scale).cpu(), valid.cpu()
+    covered = total = 0
+    for r, v, gt in zip(rois, valid, gt_boxes):
+        total += len(gt)
+        if len(gt) and v.any():
+            best = box_iou(torch.from_numpy(np.asarray(gt, np.float32)),
+                           r[v]).amax(dim=1)
+            covered += int((best >= iou).sum())
+    return covered / max(total, 1)
 
 
 def run_study(train_n: int = 128, val_n: int = 32, hw=(224, 224),
@@ -53,6 +85,7 @@ def run_study(train_n: int = 128, val_n: int = 32, hw=(224, 224),
         make_synthetic_box_dataset,
         prepare_blob,
     )
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
     from hand_integral_pose_estimation_tpu_torch.training.detector_trainer import (
         make_detector_optimizer,
         make_detector_train_step,
@@ -75,10 +108,24 @@ def run_study(train_n: int = 128, val_n: int = 32, hw=(224, 224),
     gt_valid = torch.ones(batch, 1, dtype=torch.bool, device=device)
     val_images = torch.from_numpy(val.images).to(device)
 
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def launches():
+        return {k.symbol: k.launches for k in kernels.KERNELS}
+
+    recall = {"step_0": round(proposal_recall(model, val_images, val.gt_boxes,
+                                              cfg), 4)}
+    log(json.dumps({"step": 0, "rpn_recall": recall["step_0"]}))
     rng = np.random.RandomState(seed + 1)
     history = []
+    train_s = 0.0
+    train_launches = collections.Counter()
+    sync()
     t0 = time.perf_counter()
     for step in range(1, steps + 1):
+        t_step, before = time.perf_counter(), launches()
         idx = rng.randint(0, train_n, batch)
         imgs, boxes = train.images[idx], train_boxes[idx]
         if flip:
@@ -87,18 +134,32 @@ def run_study(train_n: int = 128, val_n: int = 32, hw=(224, 224),
             torch.from_numpy(np.ascontiguousarray(imgs)).to(device), cfg)
         metrics = train_step(blob, torch.from_numpy(boxes).to(device),
                              gt_classes, gt_valid, generator=sampling)
-        if step % eval_every == 0 or step == steps:
-            ap = detection_ap(model, val_images, val.gt_boxes, cfg)
-            rec = {"step": step, "ap": round(float(ap), 4),
-                   "loss": round(float(metrics["loss"]), 4),
-                   "rpn_cls": round(float(metrics["rpn_cls"]), 4),
-                   "det_cls": round(float(metrics["det_cls"]), 4),
-                   "elapsed_s": round(time.perf_counter() - t0, 1)}
-            history.append(rec)
-            log(json.dumps(rec))
+        train_launches.update({k: v - before[k] for k, v in
+                               launches().items()})
+        if step % eval_every and step != steps:
+            train_s += time.perf_counter() - t_step
+            continue
+        # the steps' queued work belongs to their time, not the sweep's
+        sync()
+        train_s += time.perf_counter() - t_step
+        ap = detection_ap(model, val_images, val.gt_boxes, cfg)
+        rec = {"step": step, "ap": round(float(ap), 4),
+               "loss": round(float(metrics["loss"]), 4),
+               "rpn_cls": round(float(metrics["rpn_cls"]), 4),
+               "det_cls": round(float(metrics["det_cls"]), 4),
+               "elapsed_s": round(time.perf_counter() - t0, 1)}
+        history.append(rec)
+        log(json.dumps(rec))
+    recall["final"] = round(proposal_recall(model, val_images, val.gt_boxes,
+                                            cfg), 4)
+    log(json.dumps({"step": steps, "rpn_recall": recall["final"]}))
     model.eval()
     result = {"history": history, "final_ap": history[-1]["ap"],
-              "best_ap": max(h["ap"] for h in history), "model": model}
+              "best_ap": max(h["ap"] for h in history), "model": model,
+              "rpn_recall": recall,
+              "train_ms_per_step": train_s / steps * 1e3,
+              "train_launches": {k: v for k, v in train_launches.items()
+                                 if v}}
 
     def sweep_ap(vcfg):
         # the same weights under a test-time config variant
@@ -160,7 +221,10 @@ def main(argv=None):
                        proposal_sweep=tuple(args.proposal_sweep),
                        dtype_sweep=tuple(args.dtype_sweep),
                        device=args.device)
-    out = {"final_ap": result["final_ap"], "best_ap": result["best_ap"]}
+    out = {"final_ap": result["final_ap"], "best_ap": result["best_ap"],
+           "rpn_recall": result["rpn_recall"],
+           "train_ms_per_step": round(result["train_ms_per_step"], 3),
+           "train_launches": result["train_launches"]}
     for k in ("proposal_sweep", "dtype_sweep"):
         if k in result:
             out[k] = result[k]

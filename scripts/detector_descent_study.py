@@ -33,10 +33,21 @@ still see: kernel 6b's gradient negated or zeroed, the RPN's or the
 detection head's (stage 4 and the two Linear heads) parameter gradients
 zeroed, or every gradient negated; each fault's margin is printed beside
 the sound runs' spread, and phase 9c's check catches it where the margin
-is not above 0. Run from the repo root on a machine with a CUDA card:
+is not above 0.
+
+With `--convergence` it runs phase 9f's study instead (`chip_smoke.
+run_convergence_study`: the R18 GroupNorm detector trained from scratch
+to VOC AP, `cli/detector_convergence.py`): the sound study at each seed
+given, then at the first seed with each planted fault (the RPN's
+parameter gradients zeroed, the detection head's zeroed, kernel 6b's
+gradient zeroed, negated). It prints each run's AP history, final AP,
+bf16 AP, proposal-count APs and RPN recall before and after training, and
+which of phase 9f's checks (`chip_smoke.convergence_gate`) it fails. Run
+from the repo root on a machine with a CUDA card:
 
     python3 scripts/detector_descent_study.py [--steps 30]
         [--proposals moving|frozen|both] [--lr 1e-3 3e-7 ...] [--faults]
+    python3 scripts/detector_descent_study.py --convergence [--seeds 0 1 2]
 """
 
 import argparse
@@ -64,14 +75,86 @@ from hand_integral_pose_estimation_tpu_torch.ops import kernels  # noqa: E402
 from hand_integral_pose_estimation_tpu_torch.ops import (  # noqa: E402
     roi_align as ra,
 )
+from hand_integral_pose_estimation_tpu_torch.training import (  # noqa: E402
+    detector_trainer,
+)
 from hand_integral_pose_estimation_tpu_torch.training.detector_trainer import (  # noqa: E402,E501
     make_detector_optimizer,
-    make_detector_train_step,
 )
 
 
 def falls(losses):
     return cs.descent_margin(losses) > 0
+
+
+@contextlib.contextmanager
+def roi_align_backward_as(fn):
+    """Kernel 6b's wrapper replaced by `fn(kernel, *args)`."""
+    kernel_bwd = ra.roi_align_bwd_cuda
+    ra.roi_align_bwd_cuda = lambda *a: fn(kernel_bwd, *a)
+    try:
+        yield
+    finally:
+        ra.roi_align_bwd_cuda = kernel_bwd
+
+
+@contextlib.contextmanager
+def gradients_scaled(prefixes, factor):
+    """Every detector train step made inside the block scales the (clipped)
+    gradients of the parameters whose names start with one of `prefixes`
+    by `factor` before the optimizer steps (an optimizer pre-step hook)."""
+    real = detector_trainer.make_detector_train_step
+
+    def make(model, optimizer, *args, **kwargs):
+        def hook(*_):
+            for name, p in model.named_parameters():
+                if p.grad is not None and name.startswith(prefixes):
+                    p.grad.mul_(factor)
+        optimizer.register_step_pre_hook(hook)
+        return real(model, optimizer, *args, **kwargs)
+
+    detector_trainer.make_detector_train_step = make
+    try:
+        yield
+    finally:
+        detector_trainer.make_detector_train_step = real
+
+
+# the detection head: stage 4 and the two Linear heads
+HEAD = ("RCNN_top.", "RCNN_cls_score.", "RCNN_bbox_pred.")
+
+
+def convergence(args):
+    """Phase 9f's study, sound at each seed and with each planted fault."""
+    runs = [(f"sound, seed {s}", s, contextlib.nullcontext())
+            for s in args.seeds] + [
+        ("the RPN's gradient zeroed", args.seeds[0],
+         gradients_scaled(("RCNN_rpn.",), 0.0)),
+        ("the detection head's gradient zeroed", args.seeds[0],
+         gradients_scaled(HEAD, 0.0)),
+        ("kernel 6b x 0", args.seeds[0], roi_align_backward_as(
+            lambda k, *a: torch.zeros_like(k(*a)))),
+        ("kernel 6b x -1", args.seeds[0], roi_align_backward_as(
+            lambda k, *a: -k(*a))),
+    ]
+    for name, seed, planted in runs:
+        with planted:
+            result = cs.run_convergence_study(
+                seed=seed,
+                log=lambda line, n=name: print(f"[convergence] {n}: {line}",
+                                               flush=True))
+        failed = [n for n, ok in cs.convergence_gate(result).items()
+                  if not ok]
+        verdict = "fails: " + ", ".join(failed) if failed else "passes"
+        print(f"[convergence] {name}: final AP {result['final_ap']:.4f}, "
+              f"bf16 AP {result['dtype_sweep']['bfloat16']:.4f}, AP at "
+              f"{{proposals: AP}} {result['proposal_sweep']}, RPN recall "
+              f"{result['rpn_recall']['step_0']:.4f} at step 0, "
+              f"{result['rpn_recall']['final']:.4f} after training, "
+              f"{result['train_ms_per_step']:.3f} ms a train step; phase "
+              f"9f's gate {verdict}",
+              flush=True)
+        del result
 
 
 def main():
@@ -85,6 +168,12 @@ def main():
     parser.add_argument("--faults", action="store_true",
                         help="also take the steps with planted faults, on "
                              "the frozen proposals")
+    parser.add_argument("--convergence", action="store_true",
+                        help="run phase 9f's convergence study instead, "
+                             "sound and with planted faults")
+    parser.add_argument("--seeds", type=int, nargs="+", default=[cs.SEED],
+                        help="--convergence: the sound study's seeds (the "
+                             "faults run at the first)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("this study needs a CUDA card")
@@ -94,6 +183,9 @@ def main():
     dev = torch.device("cuda", 0)
     kernels.build()
     print(f"[study] {cs.card_line()}", flush=True)
+    if args.convergence:
+        convergence(args)
+        return
 
     # phase 9c's model, scenes and frozen statistics
     det_cfg = dataclasses.replace(DetectorConfig(), resnet_style="caffe")
@@ -116,13 +208,8 @@ def main():
     sampling = torch.Generator(device=dev)
     kernel_bwd = ra.roi_align_bwd_cuda
 
-    @contextlib.contextmanager
     def backward(fn):
-        ra.roi_align_bwd_cuda = fn
-        try:
-            yield
-        finally:
-            ra.roi_align_bwd_cuda = kernel_bwd
+        return roi_align_backward_as(lambda _, *a: fn(*a))
 
     def float64_vjp(g, rois, hw, *rest):
         return ra.roi_align_bwd_plain(g.double(), rois.double(), hw,
@@ -148,26 +235,17 @@ def main():
                        float((p32.double() - p64).abs().max()) / top))
         return got
 
-    def scaled_grads(prefixes, factor):
-        """An optimizer pre-step hook that scales the (clipped) gradients
-        of the parameters whose names start with one of `prefixes`."""
-        def hook(*_):
-            for name, p in model.named_parameters():
-                if p.grad is not None and name.startswith(prefixes):
-                    p.grad.mul_(factor)
-        return hook
-
-    def run(ops, proposals, lr, fault=None):
+    def run(ops, proposals, lr):
         model.load_state_dict(start)
         optimizer, scheduler = make_detector_optimizer(model.parameters(),
                                                        lr=lr)
-        if fault is not None:
-            optimizer.register_step_pre_hook(fault)
-        step = make_detector_train_step(model, optimizer, scheduler)
         losses = []
         held = (cs.frozen_proposals() if proposals == "frozen"
                 else contextlib.nullcontext())
         with ops, held:
+            # made inside `ops`, which may plant a fault in the step
+            step = detector_trainer.make_detector_train_step(
+                model, optimizer, scheduler)
             for _ in range(args.steps):
                 sampling.manual_seed(cs.SEED + 2)
                 losses.append(step(blob, gt, gc, gv,
@@ -190,19 +268,16 @@ def main():
         return out
 
     def faults():
-        """Fresh (ops context, optimizer hook) pairs for the planted
-        faults."""
-        head = ("RCNN_top.", "RCNN_cls_score.", "RCNN_bbox_pred.")
+        """Fresh contexts for the planted faults."""
         return {
-            "kernel 6b x -1": (backward(lambda *a: -kernel_bwd(*a)), None),
-            "kernel 6b x 0": (backward(
-                lambda *a: torch.zeros_like(kernel_bwd(*a))), None),
-            "the RPN's gradient zeroed": (
-                contextlib.nullcontext(), scaled_grads(("RCNN_rpn.",), 0.0)),
-            "the detection head's gradient zeroed": (
-                contextlib.nullcontext(), scaled_grads(head, 0.0)),
-            "every gradient x -1": (
-                contextlib.nullcontext(), scaled_grads(("",), -1.0)),
+            "kernel 6b x -1": backward(lambda *a: -kernel_bwd(*a)),
+            "kernel 6b x 0": backward(
+                lambda *a: torch.zeros_like(kernel_bwd(*a))),
+            "the RPN's gradient zeroed": gradients_scaled(("RCNN_rpn.",),
+                                                          0.0),
+            "the detection head's gradient zeroed": gradients_scaled(HEAD,
+                                                                     0.0),
+            "every gradient x -1": gradients_scaled(("",), -1.0),
         }
 
     modes = (("moving", "frozen") if args.proposals == "both"
@@ -244,8 +319,8 @@ def main():
               f"(phase 9c needs > 0 and at least 10)", flush=True)
         if not args.faults or proposals != "frozen":
             continue
-        for name, (ops, hook) in faults().items():
-            t = run(ops, proposals, lr, hook)[:n]
+        for name, ops in faults().items():
+            t = run(ops, proposals, lr)[:n]
             margin = cs.descent_margin(t)
             print(f"[study] {mode}, planted fault {name}: "
                   f"{[round(v, 6) for v in t]}; margin {margin:.6g}, "

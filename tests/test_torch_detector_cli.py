@@ -111,6 +111,48 @@ def test_detector_convergence_study_tiny():
     assert 0.0 <= res["final_ap"] <= 1.0
     assert set(res["proposal_sweep"]) == {8}
     assert set(res["dtype_sweep"]) == {"bfloat16"}
+    assert set(res["rpn_recall"]) == {"step_0", "final"}
+    assert all(0.0 <= v <= 1.0 for v in res["rpn_recall"].values())
+    assert res["train_ms_per_step"] > 0
+    assert res["train_launches"] == {}      # no kernel launches on the CPU
+
+
+def test_proposal_recall_counts_gt_boxes_under_a_proposal():
+    """`proposal_recall`: the share of gt boxes that a valid test-time
+    proposal covers at IoU >= 0.5 (the reference's +1 box convention), in
+    image coordinates (the blob's scale undone), against the count made by
+    hand on given proposals."""
+
+    class Upstream(torch.nn.Module):
+        def __init__(self, rois, valid):
+            super().__init__()
+            self.rois, self.valid = rois, valid
+
+        def upstream(self, blob):
+            return None, self.rois, self.valid
+
+    cfg = dataclasses.replace(DetectorConfig(), test_scale=128,
+                              test_max_size=128)
+    images = torch.zeros(2, 64, 64, 3, dtype=torch.uint8)   # blob scale 2
+    gt = [np.array([[0, 0, 19, 19], [30, 30, 49, 49]], np.float32),
+          np.array([[10, 10, 29, 29]], np.float32)]
+    # in the blob (x2); in the image: image 0 [0, 0, 19, 19] (its first gt
+    # box exactly) and [40, 40, 59, 59] (IoU 100 / 700 with its second);
+    # image 1 [10, 10, 29, 29] (exact, but not valid) and [20, 10, 39, 29]
+    # (IoU 200 / 600)
+    rois = torch.tensor([[[0, 0, 38, 38], [80, 80, 118, 118]],
+                         [[20, 20, 58, 58], [40, 20, 78, 58]]],
+                        dtype=torch.float32)
+    valid = torch.tensor([[True, True], [False, True]])
+    model = Upstream(rois, valid)
+    assert detector_convergence.proposal_recall(
+        model, images, gt, cfg) == pytest.approx(1 / 3)
+    assert detector_convergence.proposal_recall(
+        model, images, gt, cfg, iou=0.3) == pytest.approx(2 / 3)
+    valid[1, 0] = True
+    assert detector_convergence.proposal_recall(
+        model, images, gt, cfg) == pytest.approx(2 / 3)
+    assert model.training
 
 
 def test_ensure_detector_bboxes_reuses_a_matching_cache(tmp_path):
