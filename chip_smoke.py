@@ -156,7 +156,36 @@ before the result line.
    one step's gradients and the replays to eager runs, which a fault
    shared by both head routes, a drift over thousands of steps or a
    teacher loaded wrong gets past: `scripts/pose_convergence_study.py`
-   plants such faults);
+   plants such faults); (e) the distillation filter's gate: the JAX
+   package's cascade-filter study through the port
+   (`cli/filter_cascade_study.run_study` at its defaults, the JAX
+   record's setting: an R50 teacher at 224^2 in bf16 trained 1 500 steps
+   at batch 32 on 256 rendered-joint images of seed 0, one graph replay a
+   step, then an unseen pool of 512 images of seed 104729 filtered in
+   batches of 8 over 21 rotations at the threshold 1e-4, by the single
+   pass and by the cascade of 5 rotations, then 16 for the survivors;
+   cuDNN's deterministic
+   algorithms), then the filter's teacher on eval crops of its training
+   images (label space, beside the constant predictor), a sweep of
+   the pool with each crop's exact label for the teacher's output, and
+   the trained net's sweep of the pool's first batch kernel-
+   against plain-backed: it prints the study's lines, each check's value
+   beside its limit, the keep-rate and pass-1 survival curve beside the
+   JAX record, the filter's precision over the pool's ground truth, the
+   launches of kernels 3, 4 and 5, the single pass's, pass 1's and pass
+   2's ms per batch of 8 (CUDA events, in turns), the teacher's ms per
+   step and the phase's seconds, and fails unless the teacher fits its
+   training images (CASCADE_FIT_MAX of the constant's), the cascade keeps
+   the single pass's rows, every pass-1 bound lies below its row's
+   variance (CASCADE_BOUND_TOL), pass-1 survival covers the keep rate at
+   every threshold of the study's sweep, the keep rate rises with the
+   threshold inside CASCADE_KEEP_BANDS, check 6's arms agree (COORD_TOL,
+   no keep flip outside KEEP_MARGIN), the filter fed each crop's exact
+   label gives no row a variance above CASCADE_ORACLE_VAR_MAX, the
+   study's teacher sweeps that batch as the trained net does (COORD_TOL)
+   and the teacher fits its training images better than the net its
+   Trainer started from (`cascade_gate`; `scripts/filter_cascade_gate_
+   study.py` plants faults it must see);
 9. detector training: (a) the ROIAlign backward kernel against the plain
    VJP at the training shape (4 x 38x38x1024, 4 x 128 RoIs in the sampled
    layout: foreground first with the gt box, zero padding slots), at
@@ -186,8 +215,9 @@ before the result line.
    cotangent and RoIs, with their launches per step (kernel 7, kernel 6
    and its backward once each), timed back to back and profiled; (d)
    `cli.train_detector --synthetic` for three steps, its .pth restored by
-   `build_detector` with the same `detect`; (e) `cli.semi_supervised_study`,
-   `cli.filter_cascade_study` and `cli.analyze_correlation` at a few steps;
+   `build_detector` with the same `detect`; (e) `cli.semi_supervised_study`
+   and `cli.analyze_correlation` at a few steps (phase 8e runs
+   `cli.filter_cascade_study`);
    (f) the detector's convergence gate: kernels 7, 6 and 6b against their
    plain versions at the study's shapes (NMS 8 x 2 000 -> 256 and 64 x
    1 000 -> 64 at IoU 0.7, 64 x 64 -> 8 at 0.3, keep sets bitwise with and
@@ -2008,7 +2038,6 @@ def detector_training_phase(dev, g, card):
     "roi_align_bwd" (max_abs_err, (ms, plain_ms), (bound_ms, bound_by))."""
     from hand_integral_pose_estimation_tpu_torch.cli import (
         analyze_correlation,
-        filter_cascade_study,
         semi_supervised_study,
         train_detector,
     )
@@ -2304,10 +2333,6 @@ def detector_training_phase(dev, g, card):
     check(set(semi) == {"teacher", "baseline", "distilled"} and all(
         math.isfinite(r["mpjpe"]) for r in semi.values()),
         "semi_supervised_study")
-    cascade = filter_cascade_study.main(
-        ["--n", "32", "--pool", "32", "--teacher-steps", "4", "--batch-size",
-         "8", "--device", "cuda"])
-    check(cascade["keep_sets_equal"], "filter_cascade_study")
     with tempfile.TemporaryDirectory() as d:
         arr = analyze_correlation.main(
             ["--synthetic", "--max-samples", "64", "--batch-size", "16",
@@ -2315,7 +2340,7 @@ def detector_training_phase(dev, g, card):
              os.path.join(d, "corr.csv"), "--device", "cuda"])
     check(arr.shape == (64, 3) and np.isfinite(arr).all(),
           "analyze_correlation")
-    print(f"[detector training] the three study CLIs ran on the card in "
+    print(f"[detector training] the two study CLIs ran on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     launches = {k: steps_launches[k] + cli_launches[k] for k in cli_launches}
@@ -2584,6 +2609,464 @@ def pose_learning_phase(card):
     torch.cuda.empty_cache()
     print(f"[pose gate] phase 8d took {time.perf_counter() - t_phase:.1f} s "
           f"on {card}", flush=True)
+    return launches
+
+
+# Phase 8e, the distillation filter's gate: the JAX package's cascade-
+# filter study (cli/filter_cascade_study.py) through the port at its
+# defaults, the setting of the JAX record (PERFORMANCE.md:164-177, one TPU
+# run), uncut: an R50 teacher at 224^2 (bf16, fused) trained 1 500 steps
+# at Config's batch 32 (the JAX CLI's `--batch-size` sizes the pool's
+# batches alone) on 256 rendered-joint images (seed 0, Adam 1e-3 without
+# decay, one graph replay a step), then an unseen pool of 512 images (seed
+# 104729) filtered in batches of 8 over 21 rotations (factored) at the
+# reference's threshold 1e-4, by the single pass and by the cascade (5
+# rotations in pass 1, survivors' other 16 in batches of 8), each sweep
+# twice.
+CASCADE_N = 256
+CASCADE_POOL = 512
+CASCADE_STEPS = 1500
+CASCADE_BATCH = 8
+CASCADE_THRESHOLD = 1e-4
+# the study's threshold sweep, the threshold times 0.1, 0.3, 1, 3 and 10
+CASCADE_GRID = (1e-5, 3e-5, 1e-4, 3e-4, 1e-3)
+# the JAX record at four of them: (keep rate, pass-1 survival)
+CASCADE_JAX_RECORD = {1e-5: (0.371, 0.775), 3e-5: (0.736, 0.945),
+                      1e-4: (0.955, 1.0), 3e-4: (0.998, 1.0)}
+# The bound (n / T) Var_S <= Var_T (distill/cascade.py) is exact in real
+# arithmetic; pass 1 and the single pass run the teacher on batches of 40
+# and 168 crops, whose convolutions may round differently, so a row's
+# bound may exceed its variance by rounding. The limit is the cascade's
+# own safety factor (`CascadeRunner.safety`, 1e-3), the margin its early
+# reject already leaves for that rounding.
+CASCADE_BOUND_TOL = 1e-3
+# The grid of angles is symmetric about 0, so a teacher whose patch-space
+# output does not follow the crop's rotation gives every row the same
+# variance, and the same mean, whichever sign undoes the rotation; the
+# teacher at this setting is such a teacher (it stays at the constant
+# predictor's error on its own training images). Check 7 feeds the filter
+# a teacher that follows the rotation exactly, each crop's own label
+# (`cascade_oracle_sweep`), over the pool: every row's variance is then
+# rounding alone.
+#
+# The limits below were set from the sound runs at seeds 0-2 on an H100
+# (`run_cascade_study`, bitwise equal run to run) before any fault was
+# planted, with the teacher then trained at batch 8; the sound runs at
+# Config's batch 32 fall inside every one of them. The teacher's
+# label-space MPJPE on its 256 images is 1.0014-1.0026 of the constant
+# predictor's at batch 32 (1.0014-1.0027 at 8): 1 500 steps teach this
+# net the mean pose and no more (its train-mode MPJPE stays at the
+# constant's), so the check bounds only a teacher worse than that, with
+# 0.047 of margin; `teacher_improved` holds it below the net it started
+# from (1.0025-1.0054).
+CASCADE_FIT_MAX = 1.05
+# check 7: the largest row variance was 2.13e-15 to 2.44e-15 (rounding);
+# the teacher's median is 8.7e-6 to 1.1e-5
+CASCADE_ORACLE_VAR_MAX = 1e-12
+# The keep rate at 1e-5, 3e-5, 1e-4 and 3e-4 was 0.4824-0.5605,
+# 0.8066-0.8262, 0.9648-0.9805 and 0.9980-1.0 at batch 8 (0.4805-0.5312,
+# 0.8008-0.8262, 0.9668-0.9785, 0.998-1.0 at 32; the JAX record: 0.371,
+# 0.736, 0.955, 0.998, inside every band); each band leaves the sound runs
+# a margin, and the first ends below 1, where a sweep that never rotates
+# keeps every row.
+CASCADE_KEEP_BANDS = {1e-5: (0.35, 0.70), 3e-5: (0.70, 0.92),
+                      1e-4: (0.90, 1.0), 3e-4: (0.97, 1.0)}
+
+
+def cascade_curve(result, grid=CASCADE_GRID):
+    """{threshold: (keep rate, pass-1 survival)} over the pool, from the
+    single pass's per-row variances and the cascade's pass-1 bounds, as
+    the study's threshold sweep forms them (a row survives pass 1 at t iff
+    its bound <= t (1 + safety))."""
+    var = np.asarray(result["variance"], np.float64)
+    bound = np.asarray(result["merged"]["pass1_bound"], np.float64)
+    return {t: (float((var < t).mean()),
+                float((bound <= t * (1 + result["safety"])).mean()))
+            for t in grid}
+
+
+def cascade_bound_ratio(result) -> float:
+    """The largest pass-1 bound over its row's variance, over the
+    unlabelled rows (0 where the bound is 0, inf where only the variance
+    is)."""
+    var = np.asarray(result["variance"], np.float64)
+    bound = np.asarray(result["merged"]["pass1_bound"], np.float64)
+    rows = ~np.asarray(result["merged"]["labelled"], bool)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = np.where(bound[rows] == 0, 0.0, bound[rows] / var[rows])
+    return float(ratio.max(initial=0.0))
+
+
+def cascade_gate(result) -> dict:
+    """Phase 8e's nine checks on a `run_cascade_study` result, by name:
+    whether each holds (a nan fails every comparison)."""
+    curve = cascade_curve(result)
+    keep = [curve[t][0] for t in CASCADE_GRID]
+    fit = result["fit"]
+    kvp = result["kernel_vs_plain"]
+    return {
+        "teacher_fit": fit["teacher"] <= CASCADE_FIT_MAX * fit["constant"],
+        "keep_sets_equal": bool(result["keep_sets_equal"]),
+        "bound_holds":
+            cascade_bound_ratio(result) <= 1 + CASCADE_BOUND_TOL,
+        "survival_covers_keep": all(s >= k for k, s in curve.values()),
+        "keep_curve": all(a <= b for a, b in zip(keep, keep[1:])) and all(
+            lo <= curve[t][0] <= hi
+            for t, (lo, hi) in CASCADE_KEEP_BANDS.items()),
+        "kernel_vs_plain": kvp["coord_err"] <= COORD_TOL
+        and kvp["differ"] == 0,
+        "oracle_steady": float(np.max(result["oracle_variance"]))
+        <= CASCADE_ORACLE_VAR_MAX,
+        "teacher_is_trained": kvp["teacher_err"] <= COORD_TOL,
+        "teacher_improved": fit["teacher"] < fit["untrained"],
+    }
+
+
+def cascade_label_fit(args, cfg, teacher_apply) -> dict:
+    """The filter's teacher on its training images: the label-space MPJPE
+    (`losses.compute_mpjpe`) of `teacher_apply` on eval crops of the
+    study's training set (`make_eval_batch`, the Tester's crops, R = I),
+    beside the constant predictor's (the mean label). It reads the teacher
+    the filter ran, not the Trainer's net, so that a teacher loaded wrong
+    shows here."""
+    from hand_integral_pose_estimation_tpu_torch.data import (
+        SyntheticFreiHand,
+        make_eval_batch,
+        padded_batches,
+    )
+    from hand_integral_pose_estimation_tpu_torch.losses import compute_mpjpe
+
+    hw = cfg.model.input_shape
+    ds = SyntheticFreiHand(n=args.n, image_hw=hw, seed=args.seed,
+                           render_joints=True)
+    coords, labels = [], []
+    with torch.no_grad():
+        for idx in padded_batches(len(ds), args.batch_size):
+            host = ds.host_batch(idx)
+            dev = {k: None if v is None else torch.from_numpy(
+                np.ascontiguousarray(v)).to(args.device)
+                for k, v in host.items()
+                if k in ("image", "joint_cam", "K", "bbox_detector",
+                         "ref_bone_len")}
+            batch = make_eval_batch(dev["image"], dev["joint_cam"], dev["K"],
+                                    dev["bbox_detector"], dev["ref_bone_len"],
+                                    cfg.augment, hw)
+            coords.append(teacher_apply(batch.image).float().cpu())
+            labels.append(batch.label.float().cpu())
+    coords = torch.cat(coords)[:len(ds)]
+    label = torch.cat(labels)[:len(ds)]
+    return {"teacher": float(compute_mpjpe(coords, label)),
+            "constant": float(compute_mpjpe(label.mean(0, keepdim=True),
+                                            label)),
+            "images": len(ds)}
+
+
+def cascade_oracle_sweep(result):
+    """Check 7's sweep: the single pass over the pool with a teacher that
+    returns each crop's exact label, the row's ground truth (normalised as
+    a labelled row's) under the crop's rotation
+    (`compute_patch_labels_from_normalized`, the training pipeline's
+    label), so that undoing each rotation gives the ground truth back.
+    Returns the per-row variances (numpy)."""
+    from hand_integral_pose_estimation_tpu_torch.distill import (
+        generate_filtered_labels,
+    )
+    from hand_integral_pose_estimation_tpu_torch.distill.teacher_labels \
+        import gt_normalized, sweep_thetas
+    from hand_integral_pose_estimation_tpu_torch.geometry import (
+        bbox as bbox_mod,
+        rotation,
+    )
+    from hand_integral_pose_estimation_tpu_torch.geometry.labels import (
+        compute_patch_labels_from_normalized,
+    )
+
+    cfg = result["cfg"]
+    t, acfg = cfg.train, cfg.augment
+    ph, pw = cfg.model.input_shape
+    T = t.teacher_num_rotations
+    thetas = sweep_thetas(T, t.teacher_rotation_range)
+    out = []
+    with torch.no_grad():
+        for im, K, box, lab, jc, rows in result["batches"]:
+            B, J = jc.shape[:2]
+            tprime = bbox_mod.tprime_from_bbox(box, K, acfg.scaling_constant)
+            gt = gt_normalized(jc.to(K.dtype), K, tprime)
+            Rz = rotation.rotation_z(torch.as_tensor(
+                thetas, dtype=K.dtype, device=K.device))
+            label = compute_patch_labels_from_normalized(
+                gt[:, None].expand(B, T, J, 3),
+                tprime[:, None].expand(B, T),
+                Rz[None].expand(B, T, 3, 3), K[:, None].expand(B, T, 3, 3),
+                box[:, None].expand(B, T, 4), pw, ph, scale=acfg.scale)
+            var = generate_filtered_labels(
+                lambda patches: label.reshape(B * T, J, 3).to(patches.dtype),
+                im, K, box, lab, jc, acfg, T, t.teacher_rotation_range,
+                CASCADE_THRESHOLD, cfg.model.input_shape).variance
+            out.append(var.cpu().numpy()[rows >= 0])
+    return np.concatenate(out)
+
+
+def cascade_kernel_vs_plain(result, threshold=CASCADE_THRESHOLD) -> dict:
+    """Check 6: the trained net's sweep of the pool's first batch (8 x 21
+    crops) kernel-backed (kernel 5's crops, kernel 3's decode) against
+    plain-backed (the plain two-pass warp, `head_projection_integral_
+    reference`): the largest difference of the per-rotation camera
+    coordinates, and the keep sets at `threshold`: rows within
+    KEEP_MARGIN of it ("near") and the other rows that differ
+    ("differ"). Check 8: the same sweep by the study's teacher (the
+    snapshot `make_frozen_teacher` loaded) against the trained net's, the
+    largest difference ("teacher_err")."""
+    from hand_integral_pose_estimation_tpu_torch.distill import (
+        generate_filtered_labels,
+    )
+    from hand_integral_pose_estimation_tpu_torch.ops.fused_head import (
+        head_projection_integral_reference,
+    )
+    from hand_integral_pose_estimation_tpu_torch.training.teacher import (
+        frozen_teacher,
+    )
+
+    cfg, model = result["cfg"], result["teacher_model"]
+    J, D = cfg.model.num_joints, cfg.model.depth_dim
+    kernel_teacher = frozen_teacher(model, cfg)
+
+    def plain_teacher(patches):
+        feats = model(patches, return_features=True)
+        w, b = model.final_projection()
+        return head_projection_integral_reference(feats, w, b, J, D)[0]
+
+    images, K, box, labelled, joints, _ = result["batches"][0]
+    t = cfg.train
+    kw = dict(num_rotations=t.teacher_num_rotations,
+              rotation_range=t.teacher_rotation_range,
+              variance_threshold=threshold, patch_hw=cfg.model.input_shape)
+    with torch.no_grad():
+        want = generate_filtered_labels(plain_teacher, images, K, box,
+                                        labelled, joints, cfg.augment,
+                                        method="twopass", **kw)
+        got = generate_filtered_labels(kernel_teacher, images, K, box,
+                                       labelled, joints, cfg.augment, **kw)
+        study = generate_filtered_labels(result["teacher_apply"], images, K,
+                                         box, labelled, joints, cfg.augment,
+                                         **kw)
+    near = (want.variance / threshold - 1).abs() < KEEP_MARGIN
+    return {"coord_err": float((got.per_rotation
+                                - want.per_rotation).abs().max()),
+            "teacher_err": float((study.per_rotation
+                                  - got.per_rotation).abs().max()),
+            "near": int(near.sum()),
+            "differ": int(((got.keep != want.keep) & ~near).sum()),
+            "keep": int(got.keep.sum())}
+
+
+def run_cascade_study(seed: int = SEED, log=print, argv=()) -> dict:
+    """The study at phase 8e's setting (the CLI's defaults at `seed`, on
+    the card; `argv` adds flags, as the CPU tests size it down) under
+    cuDNN's deterministic algorithms, then the teacher's fit beside that
+    of the net its Trainer started from (the seed's draw, `fit`'s
+    "untrained"), check 6 and check 7's sweep. Returns
+    `filter_cascade_study.run_study`'s result with "fit",
+    "kernel_vs_plain", "oracle_variance" and "safety", its launches those
+    of all five."""
+    from hand_integral_pose_estimation_tpu_torch.cli import (
+        filter_cascade_study,
+    )
+    from hand_integral_pose_estimation_tpu_torch.models import get_pose_net
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
+    from hand_integral_pose_estimation_tpu_torch.training.teacher import (
+        frozen_teacher,
+    )
+
+    args = filter_cascade_study.build_argparser().parse_args(
+        ["--seed", str(seed), "--device", "cuda", *argv])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        result = filter_cascade_study.run_study(args, log=log)
+        before = {k.symbol: k.launches for k in kernels.KERNELS}
+        cfg = result["cfg"]
+        result["fit"] = cascade_label_fit(args, cfg, result["teacher_apply"])
+        start = get_pose_net(cfg.model, generator=torch.Generator()
+                             .manual_seed(seed)).to(args.device)
+        result["fit"]["untrained"] = cascade_label_fit(
+            args, cfg, frozen_teacher(start, cfg))["teacher"]
+        result["kernel_vs_plain"] = cascade_kernel_vs_plain(result)
+        result["oracle_variance"] = cascade_oracle_sweep(result)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for k in kernels.KERNELS:
+        result["launches"][k.symbol] += k.launches - before[k.symbol]
+    result["safety"] = result["runner"].safety
+    return result
+
+
+def cascade_report(result) -> list[str]:
+    """Phase 8e's lines (without the card): each check's value beside its
+    limit, the keep-rate and survival curve beside the JAX record, and the
+    filter's precision over the pool's ground truth."""
+    from hand_integral_pose_estimation_tpu_torch.distill import (
+        filter_precision_curve,
+    )
+
+    curve = cascade_curve(result)
+    fit, kvp = result["fit"], result["kernel_vs_plain"]
+    merged = result["merged"]
+    rows = ~merged["labelled"]
+    var = np.asarray(result["variance"], np.float64)
+    # each row's pseudo-label against its ground truth, as
+    # `teacher_error_vs_variance` forms it
+    err = np.linalg.norm(result["pseudo_label"].astype(np.float64)
+                         - result["gt_label"], axis=-1).mean(-1)
+    good = err < 0.005
+    kept_pct, precision_pct = filter_precision_curve(
+        torch.from_numpy(var), torch.from_numpy(err),
+        torch.tensor(CASCADE_GRID, dtype=torch.float64), 0.005)
+    return [
+        f"teacher_fit and teacher_improved: label-space MPJPE on its "
+        f"{fit['images']} training images {fit['teacher']:.5f}, "
+        f"{fit['teacher'] / fit['constant']:.4f} of the constant "
+        f"predictor's {fit['constant']:.5f} (limit {CASCADE_FIT_MAX}); the "
+        f"net its Trainer started from {fit['untrained']:.5f}, "
+        f"{fit['untrained'] / fit['constant']:.4f} of it",
+        f"keep_sets_equal: cascade {int(merged['keep'].sum())} kept, single "
+        f"pass {int(result['keep'].sum())}, equal "
+        f"{result['keep_sets_equal']}",
+        f"bound_holds: largest pass-1 bound over the row's variance "
+        f"{cascade_bound_ratio(result):.6f} over {int(rows.sum())} rows "
+        f"(limit 1 + {CASCADE_BOUND_TOL:g}); early rejected "
+        f"{int(merged['early_rejected'].sum())}",
+        "survival_covers_keep and keep_curve: threshold: keep rate / pass-1 "
+        "survival [JAX record] (band): " + "; ".join(
+            f"{t:g}: {k:.4f} / {s:.4f}"
+            + (f" [{CASCADE_JAX_RECORD[t][0]} / {CASCADE_JAX_RECORD[t][1]}]"
+               if t in CASCADE_JAX_RECORD else "")
+            + (f" ({CASCADE_KEEP_BANDS[t][0]}-{CASCADE_KEEP_BANDS[t][1]})"
+               if t in CASCADE_KEEP_BANDS else "")
+            for t, (k, s) in curve.items()),
+        f"oracle_steady: the filter fed each crop's exact label, largest "
+        f"variance over the pool "
+        f"{float(np.max(result['oracle_variance'])):.4e}, median "
+        f"{float(np.median(result['oracle_variance'])):.4e} (limit "
+        f"{CASCADE_ORACLE_VAR_MAX:g}; the teacher's median "
+        f"{float(np.median(var)):.4e})",
+        f"kernel_vs_plain: per-rotation camera coords max|d| "
+        f"{kvp['coord_err']:.3e} (tol {COORD_TOL:g}); keep sets at "
+        f"{CASCADE_THRESHOLD:g}: {kvp['differ']} rows differ, {kvp['near']} "
+        f"within {KEEP_MARGIN:g} of it, {kvp['keep']} of 8 kept",
+        f"teacher_is_trained: the study's teacher against the trained net "
+        f"on that batch, per-rotation camera coords max|d| "
+        f"{kvp['teacher_err']:.3e} (tol {COORD_TOL:g})",
+        "filter precision over the pool's ground truth "
+        "(`filter_precision_curve`: % kept, % of the kept with MPJPE < "
+        "0.005 in the normalised camera frame; then the rejected rows' "
+        "share): " + "; ".join(
+            f"{t:g}: {float(k):.2f} %, {float(p):.2f} %, rejected "
+            f"{_share(good[var >= t])}"
+            for t, k, p in zip(CASCADE_GRID, kept_pct, precision_pct))
+        + f"; all rows {_share(good)}, mean MPJPE {err.mean():.5f}",
+    ]
+
+
+def _share(flags) -> str:
+    return f"{flags.mean():.4f} of {flags.size}" if flags.size else "- of 0"
+
+
+def cascade_gate_phase(card):
+    """Phase 8e. Returns the launches of the study's run by kernel
+    symbol."""
+    from hand_integral_pose_estimation_tpu_torch.distill import (
+        generate_filtered_labels,
+        rotation_sweep_camera,
+    )
+    from hand_integral_pose_estimation_tpu_torch.distill.teacher_labels \
+        import sweep_thetas
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    for k in kernels.KERNELS:
+        k.launches = 0
+    result = run_cascade_study(
+        log=lambda line: print(f"[cascade gate] {line} on {card}",
+                               flush=True))
+    torch.cuda.synchronize()
+    launches = dict(result["launches"])
+    # kernels 3 and 5 once a batch of each sweep (the single pass's 64 and
+    # the cascade's pass 1, each run twice, and its pass-2 batches), once
+    # for each of checks 6's and 8's kernel-backed sweeps, and once a
+    # train step; kernel 3 also once a batch of the two fits' eval crops
+    # (the teacher's and its starting net's), kernel 5 once a batch of
+    # check 7's sweep (whose teacher is a lookup); kernel 4 once a step
+    runner = result["runner"]
+    batches = CASCADE_POOL // CASCADE_BATCH
+    pass2 = -(-runner.stats["pass2"] // CASCADE_BATCH)
+    sweeps = 2 * (2 * batches + pass2) + 2
+    want = {k.symbol: 0 for k in kernels.KERNELS}
+    want[kernels.HEAD_PROJECTION_INTEGRAL_FWD.symbol] = (
+        CASCADE_STEPS + sweeps + 2 * -(-CASCADE_N // CASCADE_BATCH))
+    want[kernels.HEAD_PROJECTION_INTEGRAL_BWD.symbol] = CASCADE_STEPS
+    want[kernels.WARP_TWOPASS.symbol] = CASCADE_STEPS + sweeps + batches
+    for line in cascade_report(result):
+        print(f"[cascade gate] {line}, on {card}", flush=True)
+    print(f"[cascade gate] launches of the study (wrappers' counts plus "
+          f"graph kernel nodes x replays): "
+          f"{ {k: v for k, v in launches.items() if v} }, expected "
+          f"{ {k: v for k, v in want.items() if v} } (cascade stats "
+          f"{runner.stats}), on {card}", flush=True)
+    gate = cascade_gate(result)
+    for name, ok in gate.items():
+        print(f"[cascade gate] gate: {name} {'ok' if ok else 'FAILED'}",
+              flush=True)
+
+    # the card's own times, CUDA events, in turns, the median of 7: one
+    # batch of 8 through the single pass (8 x 21 crops), the cascade's
+    # pass 1 (8 x 5) and pass 2 (8 rows x 16: the first batch's rows as
+    # if all had survived)
+    cfg, teacher = result["cfg"], result["teacher_apply"]
+    t = cfg.train
+    thetas = sweep_thetas(t.teacher_num_rotations, t.teacher_rotation_range)
+    images, K, box, labelled, joints, _ = result["batches"][0]
+
+    def sweep(idx):
+        return lambda: rotation_sweep_camera(
+            teacher, images, K, box, cfg.augment, thetas[idx],
+            t.teacher_rotation_range, cfg.model.input_shape)
+
+    calls = {
+        "single pass": lambda: generate_filtered_labels(
+            teacher, images, K, box, labelled, joints, cfg.augment,
+            variance_threshold=CASCADE_THRESHOLD,
+            patch_hw=cfg.model.input_shape),
+        "pass 1": sweep(runner.idx1), "pass 2": sweep(runner.idx2)}
+    times = {name: [] for name in calls}
+    with torch.no_grad():
+        for fn in calls.values():
+            fn()
+        for _ in range(7):
+            for name, fn in calls.items():
+                times[name].append(event_ms(fn, 3))
+    print(f"[timing] cascade filter ms per batch of {CASCADE_BATCH} (CUDA "
+          f"events, in turns, median of 7 runs of 3): "
+          + ", ".join(f"{name} {statistics.median(v):.3f} (min "
+                      f"{min(v):.3f})" for name, v in times.items())
+          + f"; the study's warm sweeps of the pool "
+          f"{result['wall_single_s']:.4f} s single pass against "
+          f"{result['wall_cascade_s']:.4f} s cascade "
+          f"(wall_speedup {result['filter']['wall_speedup']}); the teacher "
+          f"{result['train_ms_per_step']:.3f} ms a train step (the "
+          f"Trainer's total timer, host clock, its first 10 left out), "
+          f"{1e3 * result['train_s'] / CASCADE_STEPS:.3f} ms over the whole "
+          f"fit (CUDA events, warm-up and capture included) at batch "
+          f"{cfg.train.batch_size} x {cfg.model.input_shape[0]}^2; on "
+          f"{card}",
+          flush=True)
+    check(launches == want, f"the cascade study launched {launches}")
+    check(all(gate.values()), "the distillation filter's gate failed: "
+          + ", ".join(n for n, ok in gate.items() if not ok))
+    del result
+    torch.cuda.empty_cache()
+    print(f"[cascade gate] phase 8e took {time.perf_counter() - t_phase:.1f}"
+          f" s on {card}", flush=True)
     return launches
 
 
@@ -5067,6 +5550,9 @@ def main() -> None:
     # ---- 8d. the pose path's learning gate
     pose_launches = pose_learning_phase(card)
 
+    # ---- 8e. the distillation filter's gate
+    cascade_launches = cascade_gate_phase(card)
+
     # ---- 9. detector training and the study CLIs
     dtrain_launches, dtrain = detector_training_phase(dev, g, card)
 
@@ -5150,6 +5636,7 @@ def main() -> None:
                       + train_launches[k.symbol]
                       + det_launches[k.symbol] + semi_launches[k.symbol]
                       + pose_launches[k.symbol]
+                      + cascade_launches[k.symbol]
                       + dtrain_launches[k.symbol]
                       + conv_launches[k.symbol]
                       + int8_launches[k.symbol] + mesh_launches[k.symbol]

@@ -22,7 +22,9 @@ the synthetic rendered-joint world of cli.semi_supervised_study:
      threshold sweep (keep rate and survival against the variance
      threshold) from the stored variances and pass-1 lower bounds.
 
-Prints one JSON line per phase and a summary line.
+Prints one JSON line per phase and a summary line. `run_study` also
+returns the per-row variances, keep flags and pass-1 bounds, the teacher
+and the pool (what `chip_smoke.py`'s phase 8e gates).
 """
 
 from __future__ import annotations
@@ -55,6 +57,23 @@ def build_argparser():
                         "training one")
     p.add_argument("--device", default="cuda")
     return p
+
+
+def study_config(args):
+    """Config() sized by the flags as the JAX CLI sizes it: the ResNet
+    depth, a square input with an input/4 heatmap of input/4 depth slots,
+    the flags' rate and no rate decay. `--batch-size` sizes the pool's
+    batches and pass 2 alone: the teacher trains at Config's batch (32),
+    as the JAX CLI's does."""
+    import dataclasses
+
+    from hand_integral_pose_estimation_tpu_torch.cli.train import (
+        sized_config,
+    )
+
+    cfg = sized_config(args.pose_resnet, args.pose_input)
+    return cfg.replace(train=dataclasses.replace(cfg.train, lr=args.lr,
+                                                 lr_dec_epoch=()))
 
 
 def pool_batches(ds, cfg, batch_size: int, device):
@@ -108,26 +127,57 @@ def timed(fn, device):
     return out, time.perf_counter() - t0
 
 
-def main(argv=None):
-    args = build_argparser().parse_args(argv)
+def run_study(args, log=lambda line: print(line, flush=True)):
+    """The study at the parsed flags `args`: logs the lines `main` prints
+    (the teacher's, the filter's, the threshold sweep's and the summary)
+    and returns what they were made from:
+
+      {"filter": the filter line's record, "grid": the threshold sweep's
+         rows, "summary": the summary line's fields,
+       "keep_sets_equal": whether the cascade kept the single pass's rows,
+       "keep", "variance": the single pass's per-row keep flags and
+         variances over the pool (numpy),
+       "pseudo_label", "gt_label": the warm-up single pass's per-row
+         pseudo-labels (the mean over the rotations) and the ground truth
+         normalised as a labelled row's (numpy),
+       "merged": `CascadeRunner.finalize` of the timed cascade sweep
+         (`pass1_bound`, `early_rejected`, ...), "runner": the runner,
+       "teacher_apply": the frozen teacher the filter ran,
+       "teacher_model": the trained net (the snapshot's with
+         `--model-dir`), "cfg": the study's Config,
+       "batches": the pool's device batches (`pool_batches`),
+       "wall_single_s", "wall_cascade_s": both warm sweeps' times,
+       "train_ms_per_step": the teacher Trainer's total timer per step,
+         its first 10 chunks (the warm-up and the capture) left out; host
+         clock, and "train_s" the whole fit's time, as the sweeps' are
+         timed (both None with `--model-dir`),
+       "launches": {kernel symbol: launches} of the study: the wrappers'
+         counts plus the Trainer's graph kernel nodes times replays}.
+
+    A keep set that differs between the sweeps is returned, not raised:
+    `main` raises on it."""
     import numpy as np
     import torch
 
-    from hand_integral_pose_estimation_tpu_torch.cli.semi_supervised_study \
-        import study_config
     from hand_integral_pose_estimation_tpu_torch.data import SyntheticFreiHand
     from hand_integral_pose_estimation_tpu_torch.distill import (
         CascadeRunner,
         generate_filtered_labels,
     )
-    from hand_integral_pose_estimation_tpu_torch.training import Trainer
-    from hand_integral_pose_estimation_tpu_torch.training.teacher import (
-        make_frozen_teacher,
+    from hand_integral_pose_estimation_tpu_torch.distill.teacher_labels \
+        import gt_normalized
+    from hand_integral_pose_estimation_tpu_torch.ops import kernels
+    from hand_integral_pose_estimation_tpu_torch.training import (
+        Trainer,
+        teacher,
     )
 
     cfg = study_config(args)
     hw = cfg.model.input_shape
     device = torch.device(args.device)
+    before = {k.symbol: k.launches for k in kernels.KERNELS}
+    launches = dict.fromkeys(before, 0)
+    train_ms = train_s = None
 
     with tempfile.TemporaryDirectory() as work:
         # 1. the teacher
@@ -137,14 +187,23 @@ def main(argv=None):
             train_ds = SyntheticFreiHand(n=args.n, image_hw=hw,
                                          seed=args.seed, render_joints=True)
             model_dir = f"{work}/teacher"
-            Trainer(cfg=cfg, dataset=train_ds, model_dir=model_dir,
-                    seed=args.seed, device=device).fit(
-                end_epoch=1, steps_per_epoch=args.teacher_steps)
-            print(json.dumps({"phase": "teacher",
-                              "steps": args.teacher_steps, "images": args.n,
-                              "wall_s": round(time.time() - t0, 1)}),
-                  flush=True)
-        teacher_apply = make_frozen_teacher(cfg, model_dir, device=device)
+            trainer = Trainer(cfg=cfg, dataset=train_ds, model_dir=model_dir,
+                              seed=args.seed, device=device)
+            _, train_s = timed(lambda: trainer.fit(
+                end_epoch=1, steps_per_epoch=args.teacher_steps), device)
+            teacher_model = trainer.model
+            train_ms = (trainer.total_timer.average_time * 1e3
+                        / max(1, trainer.scan_steps))
+            if trainer.graphs is not None:
+                launches = trainer.graphs.kernel_launches()
+            log(json.dumps({"phase": "teacher",
+                            "steps": args.teacher_steps, "images": args.n,
+                            "wall_s": round(time.time() - t0, 1)}))
+        else:
+            teacher_model = teacher.load_teacher_model(cfg, model_dir,
+                                                       device=device)
+        teacher_apply = teacher.make_frozen_teacher(cfg, model_dir,
+                                                    device=device)
 
     # 2. the unlabelled pool (an unseen seed)
     pool = SyntheticFreiHand(n=args.pool, image_hw=hw,
@@ -157,15 +216,17 @@ def main(argv=None):
                  patch_hw=hw, rotation_mode=args.rotation_mode)
 
     @torch.no_grad()
-    def sweep_single():
-        outs = [(generate_filtered_labels(teacher_apply, im, K, bb, lab, jc,
-                                          cfg.augment, **sweep), rows)
-                for im, K, bb, lab, jc, rows in batches]
-        keep = np.concatenate([o.keep.cpu().numpy()[rows >= 0]
-                               for o, rows in outs])
-        var = np.concatenate([o.variance.cpu().numpy()[rows >= 0]
-                              for o, rows in outs])
-        return keep, var
+    def sweep_single(labels=False):
+        outs = []
+        for im, K, bb, lab, jc, rows in batches:
+            o = generate_filtered_labels(teacher_apply, im, K, bb, lab, jc,
+                                         cfg.augment, **sweep)
+            outs.append([rows >= 0, o.keep, o.variance])
+            if labels:
+                outs[-1] += [o.joint_cam_normalized,
+                             gt_normalized(jc.to(K.dtype), K, o.tprime)]
+        return [np.concatenate([x[i].cpu().numpy()[x[0]] for x in outs])
+                for i in range(1, len(outs[0]))]
 
     runner = CascadeRunner(teacher_apply, cfg.augment,
                            pass1_rotations=args.cascade_pass1,
@@ -178,15 +239,13 @@ def main(argv=None):
             runner.add_batch(im, K, bb, lab, jc, rows)
         return runner.finalize(args.pool)
 
-    # warm both, then time the second sweep of each
-    sweep_single()
+    # warm both, then time the second sweep of each (the warm-up's
+    # pseudo-labels and ground truth are kept, outside the timed sweep)
+    _, _, pseudo, gt = sweep_single(labels=True)
     (keep1, var1), wall_single = timed(sweep_single, device)
     sweep_cascade()
     merged, wall_cascade = timed(sweep_cascade, device)
-    if not np.array_equal(merged["keep"], keep1):
-        raise AssertionError(
-            f"cascade keep set diverged from single-pass: "
-            f"{int((merged['keep'] != keep1).sum())} rows differ")
+    equal = bool(np.array_equal(merged["keep"], keep1))
 
     f = float(1.0 - merged["early_rejected"].mean())
     rec = {
@@ -197,13 +256,13 @@ def main(argv=None):
         "variance_threshold": args.variance_threshold,
         "keep_rate": round(float(keep1.mean()), 4),
         "pass1_survival": round(f, 4),
-        "keep_sets_equal": True,
+        "keep_sets_equal": equal,
         "timer": "cuda events" if device.type == "cuda" else "host clock",
         "wall_single_s": round(wall_single, 4),
         "wall_cascade_s": round(wall_cascade, 4),
         "wall_speedup": round(wall_single / wall_cascade, 2),
     }
-    print(json.dumps(rec), flush=True)
+    log(json.dumps(rec))
 
     # threshold sweep from the stored per-sample quantities (no device
     # work): keep rate from the single pass's exact variance, pass-1
@@ -212,18 +271,37 @@ def main(argv=None):
     bound = merged["pass1_bound"]
     grid = sorted({args.variance_threshold * s
                    for s in (0.1, 0.3, 1.0, 3.0, 10.0)})
-    print(json.dumps({"phase": "threshold_sweep", "grid": [
-        {"threshold": float(f"{th:.2g}"),
-         "keep_rate": round(float((var1 < th).mean()), 4),
-         "pass1_survival": round(
-             float((bound <= th * (1 + runner.safety)).mean()), 4)}
-        for th in grid]}), flush=True)
-    print(json.dumps({
-        "summary": "filter_cascade_study",
-        "keep_rate": rec["keep_rate"],
-        "pass1_survival": rec["pass1_survival"],
-        "wall_speedup": rec["wall_speedup"]}), flush=True)
-    return rec
+    rows = [{"threshold": float(f"{th:.2g}"),
+             "keep_rate": round(float((var1 < th).mean()), 4),
+             "pass1_survival": round(
+                 float((bound <= th * (1 + runner.safety)).mean()), 4)}
+            for th in grid]
+    log(json.dumps({"phase": "threshold_sweep", "grid": rows}))
+    summary = {"summary": "filter_cascade_study",
+               "keep_rate": rec["keep_rate"],
+               "pass1_survival": rec["pass1_survival"],
+               "wall_speedup": rec["wall_speedup"]}
+    log(json.dumps(summary))
+    after = {k.symbol: k.launches for k in kernels.KERNELS}
+    return {"filter": rec, "grid": rows, "summary": summary,
+            "keep_sets_equal": equal, "keep": keep1, "variance": var1,
+            "pseudo_label": pseudo, "gt_label": gt, "merged": merged,
+            "runner": runner, "teacher_apply": teacher_apply,
+            "teacher_model": teacher_model, "cfg": cfg, "batches": batches,
+            "wall_single_s": wall_single, "wall_cascade_s": wall_cascade,
+            "train_ms_per_step": train_ms, "train_s": train_s,
+            "launches": {k: launches[k] + after[k] - before[k]
+                         for k in after}}
+
+
+def main(argv=None):
+    result = run_study(build_argparser().parse_args(argv))
+    if not result["keep_sets_equal"]:
+        raise AssertionError(
+            f"cascade keep set diverged from single-pass: "
+            f"{int((result['merged']['keep'] != result['keep']).sum())} "
+            f"rows differ")
+    return result["filter"]
 
 
 if __name__ == "__main__":
